@@ -1,0 +1,652 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port on one card: build, check, serve, time.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+1. Prints the card (nvidia-smi name and power limit) and builds the CUDA
+   kernels from ``distributed_machine_learning_tpu_torch/ops/csrc`` (one
+   nvcc per source, in parallel).
+2. Holds each kernel against its plain PyTorch version on the card, at
+   the serving path's shapes, with a stated tolerance (f32 matmuls in the
+   references: TF32 is switched off).
+3. Serves the d2048 / 8-layer / 16-head / 4-KV-head / 32k-vocab LM
+   (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
+   and 32 new tokens through ``make_generate_fn``: once in bf16, once with
+   int8 weights.  Launch counts are zeroed just before and read just after
+   those two runs; each kernel must have run.  The logits of the first
+   step (prefill) and of the second (one decode step) are compared with
+   the same model on the plain path.
+4. Times each kernel (device time: a CUDA graph of the call replayed
+   between CUDA events, after warm-up) beside its bound, its plain version
+   and one PyTorch library call computing the same function; per mode,
+   prefill + first token and the decode loop (model step + greedy sample)
+   between CUDA events, repeated, as median and range; and a
+   torch.profiler view of a few decode steps.
+
+The line before the last is ``nvidia-smi``'s name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
+no result, without a CUDA device or outside the repository.
+``--check-only`` stops after step 2 (a short first run of new kernels).
+``--perturb NAME`` builds one kernel from a deliberately broken copy of
+its source (under ``build/perturbed/``; the checkout is not touched), runs
+the kernel checks and the logit checks against it, and reports which of
+them catch the fault: it exits 0 only if the kernel checks catch it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor
+# FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+# The served model and traffic.
+MODEL = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
+             n_kv_heads=4)
+BATCH, PROMPT, NEW_TOKENS, SEED = 8, 4096, 32, 0
+
+# Kernel vs plain on the card, bf16 outputs, judged row by row (a row is
+# one output vector: one query head of attention, one row of a GEMM), so
+# the limit scales with what the row holds: a long attention row averages
+# thousands of slots and its values are ~50x smaller than a short row's.
+# The two versions run the same recurrence with f32 state but round P and
+# the output to bf16 at different places (bf16 spacing 2^-8 relative).
+# A row fails if one element is off by more than ROW_ELEM_TOL x max|plain
+# row| (2 to 4 bf16 spacings of the row's largest value) or its rms error
+# exceeds ROW_RMS_TOL x rms(plain row).  Readings on an H100 80GB HBM3
+# (700 W), worst row: flash 7.8e-3 / 4.5e-3, decode 7.8e-3 / 3.7e-3, int8
+# GEMM 7.6e-3 / 9.4e-4.  Leaving out the frontier slot at position 4095
+# (``--perturb decode-drop-frontier-slot``) reads 4.8e-2 / 5.2e-2.
+ROW_ELEM_TOL = 2.0 ** -6
+ROW_RMS_TOL = 1e-2
+# First-step (prefill) and second-step (one decode step) logits, kernel
+# path vs plain path of one model, max |diff| over the batch and vocab;
+# logits have a standard deviation of ~1.  Set at ~2.5x the readings
+# (0.037-0.039 in both steps and modes on an H100 80GB HBM3, 700 W); a
+# dropped key tile reads 1.56-1.66 and a dropped GEMM K tile 1.71-2.16.
+# A single left-out slot (0.043-0.063) is the kernel checks' to catch.
+LOGIT_TOL = 0.1
+
+# Faults for ``--perturb``: (kernel, source text, replacement), each a
+# plausible bug the checks must catch.
+PERTURBATIONS = {
+    # Every query tile past the first loses key tile 0 (64 keys).
+    "flash-drop-first-tile": (
+        "flash_fwd", "float val = s[ni][e] * scale_log2;",
+        "float val = (j == 0 && qt > 0) ? NEG_INF : s[ni][e] * scale_log2;"),
+    # Every query past the first tile loses its own key (the diagonal).
+    "flash-drop-diagonal": (
+        "flash_fwd", "if (key > row || key >= L) val = NEG_INF;",
+        "if (key > row - (row >= 64) || key >= L) val = NEG_INF;"),
+    # The decode step leaves out the slot at the frontier (pos itself).
+    "decode-drop-frontier-slot": (
+        "decode_attention",
+        "sc[u][r] = base + sub + u * NWARPS * SPW <= pos ?",
+        "sc[u][r] = base + sub + u * NWARPS * SPW < pos ?"),
+    # The last split of the contraction skips its last K tile.
+    "int8-drop-last-ktile": (
+        "quant_matmul", "for (int kt = 0; kt < ktiles; ++kt) {",
+        "for (int kt = 0; kt < ktiles - (blockIdx.z + 1 == gridDim.z); ++kt) {"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms of one ``fn()``: captured once in a CUDA graph and replayed
+    ``iters`` times between CUDA events, so the Python and launch overhead
+    of the wrappers is not in the number (the host side is timed end to end
+    by ``time_serving``)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def compare(name: str, got, want, failed: list) -> float:
+    """Hold a kernel's output against its plain version row by row (see
+    ROW_ELEM_TOL); returns the max abs error, appends ``name`` to
+    ``failed`` if a row is out of tolerance."""
+    import torch
+
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = got - want
+    tiny = torch.finfo(torch.float32).tiny
+    elem = err.abs().amax(-1) / want.abs().amax(-1).clamp_min(tiny)
+    rms = err.square().mean(-1).sqrt() / want.square().mean(-1).sqrt().clamp_min(tiny)
+    bad = int(((elem > ROW_ELEM_TOL) | (rms > ROW_RMS_TOL)).sum())
+    max_abs = float(err.abs().max())
+    log(f"  {name}: max_abs_err={max_abs:.3e}, worst row: elem_err/max|ref|="
+        f"{float(elem.max()):.3e} (tol {ROW_ELEM_TOL:.4g}), rms_err/rms(ref)="
+        f"{float(rms.max()):.3e} (tol {ROW_RMS_TOL:g}) -> "
+        f"{'ok' if not bad else f'{bad} of {len(rms)} rows BAD'}")
+    if bad:
+        failed.append(name)
+    return max_abs
+
+
+def raise_failed(failed: list) -> None:
+    if failed:
+        raise AssertionError(f"outside tolerance: {'; '.join(failed)}")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's kernel entry points to their plain PyTorch
+    versions, on the card too: the reference the kernel path is held to."""
+    from distributed_machine_learning_tpu_torch.models import transformer
+    from distributed_machine_learning_tpu_torch.ops import decode_attention as da
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops import quant
+    from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+
+    swaps = [(transformer, "flash_self_attention", fa.flash_attention_reference),
+             (transformer, "cached_flash_attention", da.cached_attention_reference),
+             (quant, "int8_matmul", qm.int8_matmul_reference)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    try:
+        for mod, attr, fn in swaps:
+            setattr(mod, attr, fn)
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_flash(torch, fa, rows: dict, timing: bool) -> None:
+    B, H, Hkv, D = 8, 16, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs, failed = [], []
+    for L in (4096, 2100):  # 2100 takes the pad path (to 2560)
+        q = torch.randn(B, L, H, D, device="cuda", generator=gen).bfloat16()
+        k = torch.randn(B, L, Hkv, D, device="cuda", generator=gen).bfloat16()
+        v = torch.randn(B, L, Hkv, D, device="cuda", generator=gen).bfloat16()
+        got = fa.flash_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        errs.append(compare(f"flash_fwd B={B} L={L} H={H} Hkv={Hkv} D={D}", got,
+                            fa.flash_attention_reference(q, k, v), failed))
+        rows.setdefault("flash_fwd", {})["max_abs_err"] = max(errs)
+        if L != 4096 or not timing:
+            continue
+        flops = 2.0 * 2.0 * D * (L * (L + 1) / 2) * B * H
+        nbytes = 2 * (2 * B * L * H * D + 2 * B * L * Hkv * D)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
+                      (q, k.repeat_interleave(H // Hkv, 2),
+                       v.repeat_interleave(H // Hkv, 2)))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows["flash_fwd"].update(
+            ms=time_ms(lambda: fa.flash_self_attention(q, k, v)),
+            plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=3),
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+            **bound(flops, BF16_FLOPS, nbytes),
+            shape=f"B={B} L={L} H={H} Hkv={Hkv} D={D} bf16, one call per layer")
+        log(f"  flash_fwd tensor-core rate: {flops / rows['flash_fwd']['ms'] / 1e9:.1f} TFLOP/s")
+    raise_failed(failed)
+
+
+def bound(ops: float, peak: float, nbytes: float) -> dict:
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_decode(torch, da, rows: dict, timing: bool) -> None:
+    B, S, H, Hkv, D = 8, 4608, 16, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
+    kc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+    vc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+    errs, failed = [], []
+    for pos in (0, 511, 512, 4095, 4607):
+        got = da.cached_flash_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        errs.append(compare(f"decode_attention B={B} S={S} pos={pos}", got,
+                            da.cached_attention_reference(q, kc, vc, pos), failed))
+    rows["decode_attention"] = {"max_abs_err": max(errs)}
+    raise_failed(failed)
+    if not timing:
+        return
+    pos = PROMPT + NEW_TOKENS // 2 - 1  # the middle decode step of the main path
+    n = pos + 1
+    nbytes = 2 * B * Hkv * n * D * 2 + 2 * B * H * D * 2
+    flops = 4.0 * B * H * n * D  # f32 FMAs on the CUDA cores
+    kr = kc[:, :, :n].repeat_interleave(H // Hkv, 1).contiguous()
+    vr = vc[:, :, :n].repeat_interleave(H // Hkv, 1).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows["decode_attention"].update(
+        ms=time_ms(lambda: da.cached_flash_attention(q, kc, vc, pos), iters=50),
+        plain_ms=time_ms(lambda: da.cached_attention_reference(q, kc, vc, pos)),
+        library_ms=time_ms(lambda: sdpa(qt, kr, vr), iters=50),
+        **bound(flops, F32_FLOPS, nbytes),
+        shape=f"B={B} S_alloc={S} H={H} Hkv={Hkv} D={D} bf16 pos={pos}, "
+              "one call per layer per decode step")
+    r = rows["decode_attention"]
+    log(f"  decode_attention pos={pos}: {r['ms']:.4f} ms, {nbytes / r['ms'] / 1e6:.1f} GB/s")
+
+
+def gemm_shapes():
+    """(D, K) of every int8 projection of one forward: per layer q, kv,
+    out, fc_in, fc_out, then the LM head."""
+    E, F, V = MODEL["d_model"], 4 * MODEL["d_model"], MODEL["vocab_size"]
+    kv = 2 * MODEL["n_kv_heads"] * (E // MODEL["n_heads"])
+    return [(E, E), (E, kv), (E, E), (E, F), (F, E)] * MODEL["n_layers"] + [(E, V)]
+
+
+def check_int8(torch, qm, rows: dict, timing: bool) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs, failed = [], []
+    for R in (8, 32768):
+        for D, K in ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
+                     (2048, 32000)):
+            x = torch.randn(R, D, device="cuda", generator=gen).bfloat16()
+            w = torch.randn(D, K, device="cuda", generator=gen) / math.sqrt(D)
+            q, s = qm.quantize_int8(w)
+            got = qm.int8_matmul(x, q, s)
+            torch.cuda.synchronize()
+            errs.append(compare(f"quant_matmul R={R} D={D} K={K}", got,
+                                qm.int8_matmul_reference(x, q, s), failed))
+    raise_failed(failed)
+    if not timing:
+        rows["quant_matmul:decode_step"] = {"max_abs_err": max(errs)}
+        return
+    # Every int8 GEMM of one forward, in order, on distinct weights (the
+    # 0.47 GB of weights do not fit the 50 MB L2: each call reads its
+    # weights from memory, as in serving).
+    weights = []
+    for D, K in gemm_shapes():
+        w = torch.randn(D, K, device="cuda", generator=gen) / math.sqrt(D)
+        q, s = qm.quantize_int8(w)
+        weights.append((q, s, (q.float() * s).bfloat16()))
+    E = MODEL["d_model"]
+    for label, R in (("decode_step", BATCH), ("prefill", BATCH * PROMPT)):
+        xs = {D: torch.randn(R, D, device="cuda", generator=gen).bfloat16()
+              for D in (E, 4 * E)}
+        head_x = xs[E][:BATCH]  # the head runs on the last position only
+        calls = [(xs[q.shape[0]] if i < len(weights) - 1 else head_x, q, s, wd)
+                 for i, (q, s, wd) in enumerate(weights)]
+
+        def run(fn, calls=calls):
+            for x, q, s, wd in calls:
+                fn(x, q, s, wd)
+
+        ops = sum(2.0 * x.shape[0] * q.shape[0] * q.shape[1] for x, q, _, _ in calls)
+        nbytes = sum(x.numel() * 2 + q.numel() + 4 * q.shape[1]
+                     + 2 * x.shape[0] * q.shape[1] for x, q, _, _ in calls)
+        iters = 10 if label == "decode_step" else 2
+        rows[f"quant_matmul:{label}"] = dict(
+            max_abs_err=max(errs),
+            ms=time_ms(lambda: run(lambda x, q, s, wd: qm.int8_matmul(x, q, s)),
+                       iters=iters, warmup=1),
+            plain_ms=time_ms(lambda: run(
+                lambda x, q, s, wd: qm.int8_matmul_reference(x, q, s)),
+                iters=iters, warmup=1),
+            library_ms=time_ms(lambda: run(lambda x, q, s, wd: torch.matmul(x, wd)),
+                               iters=iters, warmup=1),
+            **bound(ops, BF16_FLOPS, nbytes),
+            shape=f"{len(calls)} calls: 40 projections at R={R} + LM head at "
+                  f"R={BATCH}" if label == "prefill" else
+                  f"{len(calls)} calls at R={R} (one decode step)")
+        r = rows[f"quant_matmul:{label}"]
+        log(f"  quant_matmul {label}: {r['ms']:.3f} ms, {nbytes / r['ms'] / 1e6:.1f} GB/s, "
+            f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
+
+
+def make_models(torch, pkg):
+    """The served model in both modes (random weights from SEED) and the
+    batch of prompts."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm
+
+    device = pkg.resolve_device()
+    master = TransformerLM(**MODEL, compute_dtype=torch.bfloat16, device=device)
+    init_params(master, seed=SEED)
+    models = {"int8": quantize_lm(master).eval()}
+    models["bf16"] = master.to(torch.bfloat16).eval()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    prompt = torch.randint(0, MODEL["vocab_size"], (BATCH, PROMPT),
+                           generator=gen, device=device)
+    return models, prompt
+
+
+def generate_fns(models, new_tokens: int | None = None) -> dict:
+    from distributed_machine_learning_tpu_torch.inference.generate import (
+        make_generate_fn,
+    )
+
+    n = new_tokens or NEW_TOKENS
+    return {mode: make_generate_fn(m, n, quantize=None if mode == "bf16" else "int8")
+            for mode, m in models.items()}
+
+
+def run_main_path(torch, build, fns: dict, prompt, rows: dict) -> dict:
+    """One generate per mode with the launch counts zeroed just before and
+    read just after; every kernel of the path must have run."""
+    build.reset_launch_counts()
+    outs = {mode: fns[mode](prompt) for mode in ("bf16", "int8")}
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    log(f"main path launches (bf16 + int8 generate): {launches}")
+    want = {"flash_fwd": 2 * MODEL["n_layers"],
+            "decode_attention": 2 * MODEL["n_layers"] * (NEW_TOKENS - 1)}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name}: {launches[name]} launches, want {n}")
+    if launches["quant_matmul"] == 0:
+        raise AssertionError("quant_matmul never launched on the int8 path")
+    for name, n in launches.items():
+        for key, row in rows.items():
+            if key.split(":")[0] == name:
+                row["launches"] = n
+    for mode, out in outs.items():
+        if out.shape != (BATCH, PROMPT + NEW_TOKENS):
+            raise AssertionError(f"{mode}: output shape {tuple(out.shape)}")
+        if not torch.equal(out[:, :PROMPT], prompt):
+            raise AssertionError(f"{mode}: prompt prefix not preserved")
+        if int(out.min()) < 0 or int(out.max()) >= MODEL["vocab_size"]:
+            raise AssertionError(f"{mode}: token ids out of range")
+    return outs
+
+
+def cache_slots() -> int:
+    """The cache allocation generate makes: prompt + new tokens, rounded
+    up to 512 slots (4608 here, on the decode kernel)."""
+    return -(-(PROMPT + NEW_TOKENS) // 512) * 512
+
+
+def check_logits(torch, mode: str, model, prompt, out) -> None:
+    """Logits of the first step (prefill) and of the second (one decode
+    step on generate's first token), kernel path vs plain path of the same
+    model, within LOGIT_TOL; generate's first two tokens must be the kernel
+    path's argmaxes.  Logs every reading before it raises."""
+    def two_steps():
+        cache = model.init_cache(BATCH, cache_slots())
+        first = model(prompt, cache=cache, start=0, last_only=True)[:, -1]
+        second = model(out[:, PROMPT, None], cache=cache, start=PROMPT)[:, -1]
+        return first, second
+
+    with torch.inference_mode():
+        got = two_steps()
+        with plain_kernels():
+            want = two_steps()
+    failed = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        step = ("first (prefill)", "second (decode)")[i]
+        diff = float((g - w).abs().max())
+        agree = int((g.argmax(-1) == w.argmax(-1)).sum())
+        same = torch.equal(out[:, PROMPT + i], g.argmax(-1))
+        log(f"{mode}: {step} logits kernel vs plain path: max_abs_diff={diff:.4f} "
+            f"(tol {LOGIT_TOL}), logit std {float(w.std()):.3f}, argmax agree "
+            f"{agree}/{BATCH}, generate's token = kernel-path argmax: {same}")
+        if not torch.isfinite(g).all() or diff > LOGIT_TOL or not same:
+            failed.append(step)
+    if failed:
+        raise AssertionError(f"{mode}: {', '.join(failed)} logits disagree")
+
+
+def event_ms(torch, fn) -> float:
+    """Device-timeline ms of one ``fn()`` between CUDA events (host launch
+    gaps included: the stream waits on them)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def spread(xs: list) -> str:
+    xs = sorted(xs)
+    return f"median {xs[len(xs) // 2]:.3f} (range {xs[0]:.3f}-{xs[-1]:.3f}, n={len(xs)})"
+
+
+def time_serving(torch, mode: str, model, fn, prompt, reps: int = 10) -> None:
+    """Per mode, between CUDA events: the whole request (generate), prefill
+    + first token, and the decode loop (model step + greedy sample, as
+    generate runs it) over NEW_TOKENS - 1 steps, each repeated."""
+    total = [event_ms(torch, lambda: fn(prompt)) for _ in range(3)]
+    steps = NEW_TOKENS - 1
+    with torch.inference_mode():
+        cache = model.init_cache(BATCH, cache_slots())
+
+        def prefill():
+            return model(prompt, cache=cache, start=0, last_only=True)[:, -1].argmax(-1)
+
+        first = prefill()
+        ttft = [event_ms(torch, prefill) for _ in range(5)]
+
+        def decode_loop():
+            tok = first
+            for i in range(steps):
+                tok = model(tok[:, None], cache=cache, start=PROMPT + i)[:, -1].argmax(-1)
+
+        decode_loop()  # warm
+        decode = [event_ms(torch, decode_loop) / steps for _ in range(reps)]
+    med = sorted(decode)[len(decode) // 2]
+    log(f"{mode}: generate B={BATCH} prompt={PROMPT} new={NEW_TOKENS} (CUDA events, ms): "
+        f"request {spread(total)}; prefill+first token {spread(ttft)}; decode "
+        f"ms/step {spread(decode)} -> {BATCH / med * 1e3:.0f} tok/s at the median")
+
+
+def serve(torch, pkg, rows: dict) -> None:
+    from distributed_machine_learning_tpu_torch.ops import build
+
+    models, prompt = make_models(torch, pkg)
+    fns = generate_fns(models)
+    for warm in generate_fns(models, 2).values():  # first launches, cuBLAS handles
+        warm(prompt[:, :512])
+    torch.cuda.synchronize()
+    outs = run_main_path(torch, build, fns, prompt, rows)
+    for mode, out in outs.items():
+        check_logits(torch, mode, models[mode], prompt, out)
+    for mode, out in outs.items():
+        time_serving(torch, mode, models[mode], fns[mode], prompt)
+    profile_decode(torch, models["bf16"], prompt)
+
+
+def perturb(torch, pkg, name: str) -> int:
+    """Build one kernel from a broken copy of its source and report which
+    checks catch it; 0 if the kernel checks do."""
+    from distributed_machine_learning_tpu_torch.ops import build
+    from distributed_machine_learning_tpu_torch.ops import decode_attention as da
+    from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+
+    kernel, old, new = PERTURBATIONS[name]
+    text = (build.CSRC / f"{kernel}.cu").read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{name}: the text to perturb is not in {kernel}.cu once")
+    copy = build.BUILD_DIR.parent / "perturbed" / name
+    copy.mkdir(parents=True, exist_ok=True)
+    for src in build.CSRC.glob("*.cu"):
+        (copy / src.name).write_text(src.read_text())
+    (copy / f"{kernel}.cu").write_text(text.replace(old, new))
+    build.CSRC = copy  # every kernel builds from the copy; one of them differs
+    build.build_all()
+    caught = []
+    log(f"perturbation {name}: kernel checks")
+    for check, mod in ((check_flash, fa), (check_decode, da), (check_int8, qm)):
+        try:
+            check(torch, mod, {}, timing=False)
+        except AssertionError as exc:
+            caught.append(f"kernel: {exc}")
+    models, prompt = make_models(torch, pkg)
+    outs = {mode: fn(prompt) for mode, fn in generate_fns(models).items()}
+    log(f"perturbation {name}: logit checks")
+    for mode, out in outs.items():
+        try:
+            check_logits(torch, mode, models[mode], prompt, out)
+        except AssertionError as exc:
+            caught.append(f"logits: {exc}")
+    log(f"perturbation {name}: caught by {len(caught)} check(s): {caught}")
+    return 0 if any(c.startswith("kernel") for c in caught) else 1
+
+
+def profile_decode(torch, model, prompt, steps: int = 4) -> None:
+    """Device busy share and top kernels over a few bf16 decode steps
+    (torch.profiler); prints "not measured" if the tracer yields nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        cache = model.init_cache(BATCH, cache_slots())
+        logits = model(prompt, cache=cache, start=0, last_only=True)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        model(tok, cache=cache, start=PROMPT)  # warm
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    model(tok, cache=cache, start=PROMPT + 1 + i)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+        except Exception as exc:  # the tracer is optional: report, keep serving results
+            log(f"profiler: not measured ({type(exc).__name__}: {exc})")
+            return
+    if not spans:
+        log("profiler: not measured (no device events traced)")
+        return
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    log(f"profiler, bf16 decode x{steps}: {len(spans)} device events, busy "
+        f"{busy / steps:.1f} us/step of a {window / steps:.1f} us/step device window, "
+        f"host wall {wall_us / steps:.1f} us/step, device idle share "
+        f"{1 - busy / max(window, 1e-9):.3f}")
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {us / steps:9.1f} us/step  {name[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--check-only", action="store_true",
+                    help="build and check the kernels, then stop")
+    ap.add_argument("--perturb", choices=sorted(PERTURBATIONS),
+                    help="show which checks catch a deliberately broken kernel")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    try:
+        import distributed_machine_learning_tpu_torch as pkg
+        from distributed_machine_learning_tpu_torch.ops import build
+        from distributed_machine_learning_tpu_torch.ops import decode_attention as da
+        from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+        from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing ({exc}); run from "
+              "the repository root", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    if args.perturb:
+        return perturb(torch, pkg, args.perturb)
+
+    t0 = time.perf_counter()
+    seconds = build.build_all()
+    log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.1f} s "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    for name in build.KERNELS:
+        log_file = build.BUILD_DIR / f"{name}.log"
+        if log_file.exists():
+            for line in log_file.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+
+    rows: dict = {}
+    timing = not args.check_only
+    log("kernel vs plain on the card:")
+    check_flash(torch, fa, rows, timing)
+    check_decode(torch, da, rows, timing)
+    check_int8(torch, qm, rows, timing)
+    if args.check_only:
+        log("check-only: kernels build and agree with their plain versions")
+        return 0
+
+    serve(torch, pkg, rows)
+
+    replaces = {
+        "flash_fwd": "distributed_machine_learning_tpu/ops/pallas/flash_attention.py:295",
+        "decode_attention": "distributed_machine_learning_tpu/ops/pallas/decode_attention.py:99",
+        "quant_matmul": "distributed_machine_learning_tpu/ops/pallas/quant_matmul.py:60",
+    }
+    kernels = []
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": f"distributed_machine_learning_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""Weights between the Flax reference and the port, and a port-side init.
+
+:func:`flax_to_state_dict` maps a reference ``TransformerLM`` params tree
+(nested dicts of numpy arrays, as ``jax.device_get(params)`` gives them)
+to the port's ``state_dict``; it takes the float tree and the int8 tree
+of ``quantize_lm_params`` alike:
+
+====================================  ===================================
+Flax                                  port
+====================================  ===================================
+``embed/embedding`` [V, E]            ``embed.weight``
+``block_i/ln{1,2}/{scale,bias}``      ``blocks.i.ln{1,2}.{weight,bias}``
+``attn/qkv/kernel`` [E, 3, H, D]      ``attn.qkv.weight`` [3·H·D, E]
+``attn/q/kernel`` [E, H, D]           ``attn.q.weight`` [H·D, E]
+``attn/kv/kernel`` [E, 2, Hkv, D]     ``attn.kv.weight`` [2·Hkv·D, E]
+``attn/out/kernel`` [H, D, E]         ``attn.out.weight`` [E, H·D]
+``fc_in``/``fc_out``/``lm_head``      ``.weight`` = kernel [in, out]ᵀ
+``ln_f``                              ``ln_f``
+int8: ``w_q`` [D_in, K] + ``scale``   ``w_q`` [D_in, K] + ``scale``
+====================================  ===================================
+
+Biases are flattened to [out].  :func:`init_params` draws fresh weights
+for a port model from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from distributed_machine_learning_tpu_torch.ops.quant import QUANT_MODULES
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: exact through f32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _projection(name: str, leaves: dict, prefix: str, out: dict) -> None:
+    if "w_q" in leaves:
+        out[f"{prefix}.w_q"] = _tensor(leaves["w_q"])
+        out[f"{prefix}.scale"] = _tensor(leaves["scale"])
+        out[f"{prefix}.bias"] = _tensor(leaves["bias"]).reshape(-1)
+        return
+    kernel = _tensor(leaves["kernel"])
+    n_in = 2 if name == "out" else 1
+    d_in = math.prod(kernel.shape[:n_in])
+    out[f"{prefix}.weight"] = kernel.reshape(d_in, -1).t().contiguous()
+    out[f"{prefix}.bias"] = _tensor(leaves["bias"]).reshape(-1)
+
+
+def _layer_norm(leaves: dict, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _tensor(leaves["scale"])
+    out[f"{prefix}.bias"] = _tensor(leaves["bias"])
+
+
+def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """Reference ``TransformerLM`` params (float or int8 tree) → the port's
+    ``state_dict``, for ``TransformerLM.load_state_dict``."""
+    out: dict[str, torch.Tensor] = {
+        "embed.weight": _tensor(params["embed"]["embedding"])}
+    n_layers = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n_layers):
+        blk = params[f"block_{i}"]
+        pre = f"blocks.{i}"
+        _layer_norm(blk["ln1"], f"{pre}.ln1", out)
+        _layer_norm(blk["ln2"], f"{pre}.ln2", out)
+        for name, leaves in blk["attn"].items():
+            _projection(name, leaves, f"{pre}.attn.{name}", out)
+        _projection("fc_in", blk["fc_in"], f"{pre}.fc_in", out)
+        _projection("fc_out", blk["fc_out"], f"{pre}.fc_out", out)
+    _layer_norm(params["ln_f"], "ln_f", out)
+    _projection("lm_head", params["lm_head"], "lm_head", out)
+    return out
+
+
+@torch.no_grad()
+def init_params(model, seed: int = 0) -> None:
+    """Fresh f32 weights for a float port ``TransformerLM``, in place, from
+    ``torch.Generator(device).manual_seed(seed)``: projections normal with
+    std 1/sqrt(fan_in) and zero bias, the embedding normal with std
+    1/sqrt(vocab), LayerNorms at scale 1 and bias 0."""
+    if model.weight_quant is not None:
+        raise ValueError("init_params fills a float model; quantize it after")
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        module, _, leaf = name.rpartition(".")
+        base = module.rpartition(".")[2]
+        if name == "embed.weight":
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[0]), generator=gen)
+        elif base in QUANT_MODULES and leaf == "weight":
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+        elif leaf == "weight":  # LayerNorm scale
+            p.fill_(1.0)
+        else:
+            p.zero_()

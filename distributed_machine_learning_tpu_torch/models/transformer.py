@@ -1,0 +1,330 @@
+"""Decoder-only transformer LM: dense MHA or GQA, with a decode KV cache.
+
+Counterpart of ``distributed_machine_learning_tpu/models/transformer.py``
+(``apply_rope``, ``Attention``, ``Block``, ``TransformerLM``) for the
+serving path: pre-LN blocks, tanh-GELU MLP, split-half RoPE in f32,
+Flax-style LayerNorm (epsilon 1e-6, f32 statistics), f32 logits.
+
+The decode KV cache is head-major ``[B, Hkv, S, D]`` and lives outside
+the module (:class:`KVCache`, from :meth:`TransformerLM.init_cache`); the
+decode position is a host int.  Attention dispatch matches the
+reference's decode path:
+
+- prefill (L > 1, start 0): flash when ``flash_wins(L)``, dense below;
+- one-token decode: ``cached_flash_attention`` when the allocation
+  qualifies and holds at least 4096 slots, the grouped einsum
+  (:func:`_cached_attention`) otherwise.
+
+Not in this slice (each raises NotImplementedError naming its ROADMAP
+item): ring / ring_flash / ulysses attention, tensor-parallel decode,
+MoE blocks, remat, the int8 KV cache, per-row decode frontiers, and
+multi-token decode continuation.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_machine_learning_tpu_torch.ops.decode_attention import (
+    cached_flash_attention,
+    decode_flash_qualifies,
+)
+from distributed_machine_learning_tpu_torch.ops.flash_attention import (
+    flash_self_attention,
+    flash_wins,
+)
+from distributed_machine_learning_tpu_torch.ops.quant import QuantLinear
+from distributed_machine_learning_tpu_torch.ops.ring_attention import (
+    dense_self_attention,
+)
+
+LN_EPS = 1e-6  # Flax LayerNorm's epsilon (torch's default is 1e-5)
+DECODE_KERNEL_MIN_SLOTS = 4096  # the reference's decode-kernel threshold
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``(cos, sin)`` tables [1, L, 1, D] for :func:`rotate`, built once
+    per forward and shared by every layer: ``cos`` repeats the half-width
+    cosines, ``sin`` holds ``(-sin, sin)``."""
+    d_half = head_dim // 2
+    freqs = base ** (-torch.arange(d_half, dtype=torch.float32,
+                                   device=positions.device) / d_half)
+    angles = positions.float()[:, None] * freqs  # [L, D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return (torch.cat([cos, cos], -1)[None, :, None, :],
+            torch.cat([-sin, sin], -1)[None, :, None, :])
+
+
+def rotate(x: torch.Tensor, tables: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Split-half RoPE of [B, L, H, D] with precomputed tables, f32 math,
+    dtype preserved: ``[x1·cos − x2·sin, x2·cos + x1·sin]`` (bit for bit the
+    reference's ``[x1·cos − x2·sin, x1·sin + x2·cos]``)."""
+    cos, sin = tables
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    return (xf * cos + torch.cat([x2, x1], dim=-1) * sin).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = 10000.0) -> torch.Tensor:
+    """Rotate [B, L, H, D] by per-position angles (split halves, not
+    interleaved pairs); f32 math, dtype preserved.  ``positions``: [L]."""
+    return rotate(x, rope_tables(positions, x.shape[-1], base))
+
+
+def _repeat_kv(t: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, L, Hkv, D] → [B, L, Hkv·n_rep, D] (each kv head repeated in
+    place, the ``jnp.repeat(axis=2)`` grouping)."""
+    return t if n_rep == 1 else t.repeat_interleave(n_rep, dim=2)
+
+
+def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor,
+                      q_positions: torch.Tensor) -> torch.Tensor:
+    """Queries [B, Lq, H, D] at ``q_positions`` [Lq] against the whole
+    head-major cache [B, Hkv, S, D], GQA-native (query heads grouped
+    [Hkv, rep], no repeated cache); f32 softmax, q's dtype out."""
+    B, Lq, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    qg = q.float().reshape(B, Lq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhrd,bhkd->bhrqk", qg, k_cache.float()) * (1.0 / math.sqrt(D))
+    mask = torch.arange(S, device=q.device)[None, :] <= q_positions[:, None]
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhrqk,bhkd->bqhrd", p, v_cache.float())
+    return out.reshape(B, Lq, H, D).to(q.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm``'s contract: f32 statistics and affine,
+    epsilon 1e-6, output in the compute dtype.  (Flax takes the variance as
+    E[x²] − E[x]², torch's kernel in one pass of its own: they agree to f32
+    rounding.)"""
+
+    def __init__(self, dim: int, compute_dtype: torch.dtype, device=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                         self.bias.float(), LN_EPS)
+        return y.to(self.compute_dtype)
+
+
+def _linear(in_f: int, out_f: int, quant: bool, cd: torch.dtype, device):
+    if quant:
+        return QuantLinear(in_f, out_f, compute_dtype=cd, device=device)
+    return nn.Linear(in_f, out_f, device=device)
+
+
+def _project(layer: nn.Module, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """A projection in the compute dtype (weights cast to it, as Flax's
+    ``Dense(dtype=...)`` does; a no-op once the weights are stored in it)."""
+    if isinstance(layer, QuantLinear):
+        return layer(x)
+    return F.linear(x.to(cd), layer.weight.to(cd), layer.bias.to(cd))
+
+
+@dataclass
+class KVCache:
+    """Per-layer head-major decode caches, each [B, Hkv, S, D]."""
+
+    keys: list[torch.Tensor]
+    values: list[torch.Tensor]
+
+
+class Attention(nn.Module):
+    """Causal self-attention: fused ``qkv`` for MHA, ``q`` + ``kv`` for GQA."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
+                 attn_impl: str, compute_dtype: torch.dtype,
+                 weight_quant: str | None, device=None):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError("n_heads must divide d_model")
+        self.n_heads = n_heads
+        self.head_dim = d_model // n_heads
+        self.n_kv_heads = n_kv_heads or n_heads
+        if n_heads % self.n_kv_heads:
+            raise ValueError(f"n_kv_heads={self.n_kv_heads} must divide "
+                             f"n_heads={n_heads}")
+        self.attn_impl = attn_impl
+        self.compute_dtype = compute_dtype
+        quant = weight_quant == "int8"
+        hd = self.head_dim
+        if self.n_kv_heads == n_heads:
+            self.qkv = _linear(d_model, 3 * n_heads * hd, quant, compute_dtype, device)
+        else:
+            self.q = _linear(d_model, n_heads * hd, quant, compute_dtype, device)
+            self.kv = _linear(d_model, 2 * self.n_kv_heads * hd, quant,
+                              compute_dtype, device)
+        self.out = _linear(n_heads * hd, d_model, quant, compute_dtype, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, rope,
+                cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                start: int = 0) -> torch.Tensor:
+        """``rope``: the :func:`rope_tables` of ``positions``."""
+        B, L, E = x.shape
+        H, Hkv, hd, cd = self.n_heads, self.n_kv_heads, self.head_dim, self.compute_dtype
+        if Hkv == H:
+            qkv = _project(self.qkv, x, cd).reshape(B, L, 3, H, hd)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q = _project(self.q, x, cd).reshape(B, L, H, hd)
+            kv = _project(self.kv, x, cd).reshape(B, L, 2, Hkv, hd)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        q = rotate(q, rope)
+        k = rotate(k, rope)
+        if cache is not None:
+            k_cache, v_cache = cache
+            k_cache[:, :, start:start + L] = k.transpose(1, 2)
+            v_cache[:, :, start:start + L] = v.transpose(1, 2)
+            if L == 1:
+                S = k_cache.shape[2]
+                if decode_flash_qualifies(S) and S >= DECODE_KERNEL_MIN_SLOTS:
+                    out = cached_flash_attention(q, k_cache, v_cache, start)
+                else:
+                    out = _cached_attention(q, k_cache, v_cache, positions)
+                return _project(self.out, out.reshape(B, L, H * hd), cd)
+            if start != 0:
+                raise NotImplementedError(
+                    "multi-token decode continuation (speculative "
+                    "decoding's verify pass) is not ported yet: "
+                    "ROADMAP A1 'speculative decoding'")
+        # Full causal pass, or prefill (the cache was empty, so attention is
+        # plain causal attention over the fresh K/V; the decode path picks
+        # flash by length alone, whatever attn_impl says).
+        if cache is not None or self.attn_impl == "auto":
+            use_flash = flash_wins(L)
+        else:
+            use_flash = self.attn_impl == "flash"
+        if use_flash:
+            out = flash_self_attention(q, k, v)
+        else:
+            n_rep = H // Hkv
+            out = dense_self_attention(
+                q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), positions)
+        return _project(self.out, out.reshape(B, L, H * hd), cd)
+
+
+class Block(nn.Module):
+    """Pre-LN block: x + attn(ln1(x)), then + fc_out(gelu(fc_in(ln2(x))))."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int,
+                 n_kv_heads: int | None, attn_impl: str,
+                 compute_dtype: torch.dtype, weight_quant: str | None,
+                 device=None):
+        super().__init__()
+        quant = weight_quant == "int8"
+        self.compute_dtype = compute_dtype
+        self.ln1 = LayerNorm(d_model, compute_dtype, device)
+        self.attn = Attention(d_model, n_heads, n_kv_heads, attn_impl,
+                              compute_dtype, weight_quant, device)
+        self.ln2 = LayerNorm(d_model, compute_dtype, device)
+        self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
+        self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
+
+    def forward(self, x, positions, rope, cache=None, start: int = 0):
+        x = x + self.attn(self.ln1(x), positions, rope, cache, start)
+        cd = self.compute_dtype
+        h = _project(self.fc_in, self.ln2(x), cd)
+        h = F.gelu(h, approximate="tanh")  # Flax nn.gelu is the tanh form
+        return x + _project(self.fc_out, h, cd)
+
+
+_ATTN_IMPLS = ("dense", "flash", "auto")
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: tokens [B, L] → f32 logits [B, L, vocab].
+
+    ``forward(tokens)`` is the full causal pass (``attn_impl`` dense,
+    flash or auto).  ``forward(tokens, cache=..., start=s)`` is the decode
+    path: writes K/V for positions s..s+L-1 into the cache and attends
+    against it (prefill at s = 0, then one token per call).
+    ``weight_quant="int8"`` builds :class:`QuantLinear` projections (load
+    weights from ``ops.quant.quantize_lm_params``)."""
+
+    def __init__(self, vocab_size: int, d_model: int = 256, n_layers: int = 4,
+                 n_heads: int = 8, d_ff: int | None = None,
+                 attn_impl: str = "dense",
+                 compute_dtype: torch.dtype = torch.float32,
+                 n_kv_heads: int | None = None, kv_cache_dtype=None,
+                 weight_quant: str | None = None, remat: bool = False,
+                 device=None):
+        super().__init__()
+        if attn_impl not in _ATTN_IMPLS:
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r}: sequence-parallel attention is not "
+                "ported yet (ROADMAP A5 'ring / ulysses attention'); use one "
+                f"of {_ATTN_IMPLS}")
+        if kv_cache_dtype is not None:
+            raise NotImplementedError(
+                "a KV-cache dtype other than the compute dtype (the int8 KV "
+                "cache) is not ported yet: ROADMAP A1 'K4's int8-cache mode'")
+        if remat:
+            raise NotImplementedError(
+                "remat is a training feature: ROADMAP A3 'the LM trainer'")
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"weight_quant must be None or 'int8', got "
+                             f"{weight_quant!r}")
+        self.config = dict(
+            vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
+            n_heads=n_heads, d_ff=d_ff, attn_impl=attn_impl,
+            compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
+            weight_quant=weight_quant)
+        self.vocab_size = vocab_size
+        self.compute_dtype = compute_dtype
+        self.weight_quant = weight_quant
+        self.n_heads = n_heads
+        self.n_kv_heads = n_kv_heads or n_heads
+        self.head_dim = d_model // n_heads
+        d_ff = d_ff or 4 * d_model
+        self.embed = nn.Embedding(vocab_size, d_model, device=device)
+        self.blocks = nn.ModuleList(
+            Block(d_model, n_heads, d_ff, n_kv_heads, attn_impl,
+                  compute_dtype, weight_quant, device)
+            for _ in range(n_layers))
+        self.ln_f = LayerNorm(d_model, compute_dtype, device)
+        self.lm_head = _linear(d_model, vocab_size, weight_quant == "int8",
+                               compute_dtype, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def clone(self, **overrides) -> "TransformerLM":
+        """A new model of this config (with ``overrides``) on this device;
+        its weights are freshly initialized, not copied."""
+        return TransformerLM(**{**self.config, **overrides}, device=self.device)
+
+    def init_cache(self, batch: int, slots: int) -> KVCache:
+        """Zeroed head-major caches [batch, Hkv, slots, D] per layer, in
+        the compute dtype, on the model's device."""
+        shape = (batch, self.n_kv_heads, slots, self.head_dim)
+        mk = lambda: torch.zeros(shape, dtype=self.compute_dtype, device=self.device)  # noqa: E731
+        return KVCache([mk() for _ in self.blocks], [mk() for _ in self.blocks])
+
+    def forward(self, tokens: torch.Tensor, cache: KVCache | None = None,
+                start: int = 0, last_only: bool = False) -> torch.Tensor:
+        """``last_only=True`` returns logits for the last position only
+        ([B, 1, vocab]): the head runs on one row per sequence."""
+        B, L = tokens.shape
+        positions = torch.arange(start, start + L, device=tokens.device)
+        rope = rope_tables(positions, self.head_dim)
+        x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)
+        for i, block in enumerate(self.blocks):
+            layer_cache = None if cache is None else (cache.keys[i], cache.values[i])
+            x = block(x, positions, rope, layer_cache, start)
+        if last_only:
+            x = x[:, -1:]
+        x = self.ln_f(x)
+        return _project(self.lm_head, x, self.compute_dtype).float()

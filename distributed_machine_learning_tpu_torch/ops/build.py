@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled on
+its own by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo
+root (git-ignored) the first time a wrapper needs it, then loaded with
+``ctypes``.  The library name carries a hash of the source and flags, so
+an edited source is never served by a stale build.  ``build_all``
+starts one ``nvcc`` per source at once, so the kernels build in
+parallel.  A failed build raises with the compiler's output.
+
+``launches`` holds one plain int per kernel.  A wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels (``reset_launch_counts`` zeroes them).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("flash_fwd", "decode_attention", "quant_matmul")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launches: dict[str, int] = {name: 0 for name in KERNELS}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def count_launch(name: str) -> None:
+    launches[name] += 1
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or CUDA_HOME)")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names=KERNELS) -> dict[str, float]:
+    """Compile every named kernel not built yet, one ``nvcc`` process per
+    source, all started together.  Returns the wall seconds each build
+    took (0.0 for a library already on disk); raises on any failure.
+    The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept in ``build/kernels/<name>.log``."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        seconds = {}
+        for name in names:
+            out = _target(name)
+            if out.exists():
+                seconds[name] = 0.0
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (
+                subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True),
+                tmp, out, time.perf_counter(),
+            )
+        failures = []
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            (BUILD_DIR / f"{name}.log").write_text(log)
+            if proc.returncode != 0:
+                failures.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                tmp.replace(out)
+        if failures:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+    return lib
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """C entry point ``symbol`` of kernel ``name`` with its argument types
+    declared (every pointer and the stream as ``c_void_p``) and a
+    cudaError_t (int) result."""
+    fn = getattr(library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a nonzero cudaError_t."""
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {status}")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

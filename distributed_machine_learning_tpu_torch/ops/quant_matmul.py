@@ -1,0 +1,111 @@
+"""Weight-only int8 matmul (W8A16): ``x @ (q * scale)`` reading int8 weights.
+
+Counterpart of ``distributed_machine_learning_tpu/ops/pallas/quant_matmul.py``
+(``int8_matmul`` over ``_kernel``, and ``quantize_int8``).  CUDA tensors go
+through the hand-written kernel ``csrc/quant_matmul.cu``; CPU tensors
+through :func:`int8_matmul_reference`.  Both cast x to bf16, widen the
+int8 weights to bf16 exactly, accumulate in f32, scale each output column
+in f32 and return ``x.dtype``.
+
+``torch.matmul(x, w_bf16 * scale)`` computes the same function but reads
+a dequantized weight from memory; the port never calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from distributed_machine_learning_tpu_torch.ops import build
+
+KERNEL = "quant_matmul"
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# The kernel's skinny (decode) tile: rows, columns and contraction depth.
+SKINNY_R, SKINNY_N, SKINNY_D = 16, 64, 64
+
+
+def split_count(R: int, D: int, K: int, n_sms: int) -> int:
+    """How many slices of the contraction the kernel runs in parallel: for
+    skinny R, enough that column tiles x slices give two blocks per SM
+    (each slice at least one depth tile); 1 (no split) otherwise."""
+    if R > SKINNY_R:
+        return 1
+    tiles = -(-K // SKINNY_N) * -(-R // SKINNY_R)
+    return max(1, min(-(-2 * n_sms // tiles), -(-D // SKINNY_D)))
+
+
+def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 quantization of a [D, K] matrix:
+    ``(q int8 [D, K], scale f32 [K])`` with ``w ≈ q * scale``.  An all-zero
+    column gets scale 1."""
+    w = w.float()
+    amax = w.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: bf16(x) @ bf16(q) with f32
+    accumulation (bf16 products are exact in f32), times the column
+    scale, in x's dtype."""
+    acc = x.to(torch.bfloat16).float() @ q.float()
+    return (acc * scale.float()).to(x.dtype)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
+def _launch(x: torch.Tensor, q: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    R, D = x.shape
+    K = q.shape[1]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8 kernel returns bf16 or f32; x is {x.dtype}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise ValueError(f"int8 kernel takes int8 weights and f32 scales; got "
+                         f"{q.dtype}, {scale.dtype}")
+    if D % 8:
+        raise ValueError(f"int8 kernel needs D % 8 == 0 (16-byte rows of x); "
+                         f"got D={D}")
+    xb = x.to(torch.bfloat16).contiguous()
+    for name, t in (("x", xb), ("q", q), ("scale", scale)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8 kernel needs contiguous 16-byte aligned {name}")
+    out = torch.empty((R, K), dtype=x.dtype, device=x.device)
+    splits = split_count(R, D, K, _sm_count(x.device))
+    workspace = (torch.empty((splits, R, K), dtype=torch.float32, device=x.device)
+                 if splits > 1 else None)
+    fn = build.function(KERNEL, "w8a16_matmul", _ARGTYPES)
+    status = fn(xb.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                None if workspace is None else workspace.data_ptr(),
+                R, D, K, int(x.dtype == torch.bfloat16), splits,
+                build.stream_handle(x.device))
+    build.check(status, KERNEL)
+    build.count_launch(KERNEL)
+    return out
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """[R, D] × int8 [D, K] × f32 scale [K] → [R, K] in x's dtype.
+
+    On CUDA tensors: the W8A16 kernel (ragged R and K masked inside it);
+    on CPU tensors: the plain version."""
+    if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0] \
+            or scale.shape != (q.shape[1],):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, scale {tuple(scale.shape)}")
+    if not (x.device == q.device == scale.device):
+        raise ValueError("x, q and scale must lie on one device")
+    if x.is_cuda:
+        return _launch(x, q, scale)
+    return int8_matmul_reference(x, q, scale)
