@@ -7,7 +7,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels from ``distributed_machine_learning_tpu_torch/ops/csrc`` (one
    nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, with a stated tolerance (f32 matmuls in the
+   the serving paths' shapes, with a stated tolerance (f32 matmuls in the
    references: TF32 is switched off).
 3. Serves the d2048 / 8-layer / 16-head / 4-KV-head / 32k-vocab LM
    (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
@@ -22,6 +22,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    prefill + first token and the decode loop (model step + greedy sample)
    between CUDA events, repeated, as median and range; and a
    torch.profiler view of a few decode steps.
+5. Serves the same model through the continuous-batching engine
+   (``ContinuousEngine``, 8 lanes over a paged pool of 2080 blocks of 16
+   slots): 16 requests of seeded prompt lengths (256-4096) and new-token
+   counts (8-64), submitted at once, drained three times with the latency
+   lever only and three times with both levers under a ``RegimeScheduler``.
+   Launch counts are zeroed before and read after these runs: the paged
+   decode kernel, flash prefill and the int8 GEMM must each have run.
+   Gates: one decode step's logits with all 8 lanes at ragged positions,
+   kernel path vs plain path, for both levers; every request's first token
+   against the plain path.  Reports how many requests equal
+   ``make_generate_fn`` at batch 1 token for token; times the engine's
+   decode step, its tokens/s over a drain, prefill per prompt length and
+   the device idle share over a few steps.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
@@ -54,6 +67,10 @@ F32_FLOPS = 67e12
 MODEL = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
              n_kv_heads=4)
 BATCH, PROMPT, NEW_TOKENS, SEED = 8, 4096, 32, 0
+# The continuous engine: its config and traffic (requests submitted at once,
+# each run drained ENGINE_REPEATS times).
+ENGINE = dict(max_lanes=8, block_size=16, num_blocks=2080, max_len=4160)
+ENGINE_REQUESTS, ENGINE_REPEATS = 16, 3
 
 # Kernel vs plain on the card, bf16 outputs, judged row by row (a row is
 # one output vector: one query head of attention, one row of a GEMM), so
@@ -66,7 +83,8 @@ BATCH, PROMPT, NEW_TOKENS, SEED = 8, 4096, 32, 0
 # exceeds ROW_RMS_TOL x rms(plain row).  Readings on an H100 80GB HBM3
 # (700 W), worst row: flash 7.8e-3 / 4.5e-3, decode 7.8e-3 / 3.7e-3, int8
 # GEMM 7.6e-3 / 9.4e-4.  Leaving out the frontier slot at position 4095
-# (``--perturb decode-drop-frontier-slot``) reads 4.8e-2 / 5.2e-2.
+# (``--perturb decode-drop-frontier-slot``) reads 4.8e-2 / 5.2e-2.  The
+# paged kernel is held to the same limits.
 ROW_ELEM_TOL = 2.0 ** -6
 ROW_RMS_TOL = 1e-2
 # First-step (prefill) and second-step (one decode step) logits, kernel
@@ -97,6 +115,13 @@ PERTURBATIONS = {
     "int8-drop-last-ktile": (
         "quant_matmul", "for (int kt = 0; kt < ktiles; ++kt) {",
         "for (int kt = 0; kt < ktiles - (blockIdx.z + 1 == gridDim.z); ++kt) {"),
+    # The paged step reads logical block j as physical block j.
+    "paged-ignore-table": (
+        "paged_attention", "__ldg(table + page)", "page"),
+    # The paged step leaves out the slot at each lane's frontier.
+    "paged-drop-frontier-slot": (
+        "paged_attention", "const int hi = min(pos, lo + chunk - 1);",
+        "const int hi = min(pos - 1, lo + chunk - 1);"),
 }
 
 
@@ -179,6 +204,7 @@ def plain_kernels():
 
     swaps = [(transformer, "flash_self_attention", fa.flash_attention_reference),
              (transformer, "cached_flash_attention", da.cached_attention_reference),
+             (transformer, "paged_flash_attention", da.paged_attention_reference),
              (quant, "int8_matmul", qm.int8_matmul_reference)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     try:
@@ -329,6 +355,88 @@ def check_int8(torch, qm, rows: dict, timing: bool) -> None:
             f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
 
 
+def paged_case(torch, bs: int, gen):
+    """K5's check inputs: 9 lanes (8 at ragged positions, the last idle on
+    the scratch block at position 0), H 16 / Hkv 4, D 128, bf16; tables as
+    wide as the engine's (max_len slots), each lane's row a slice of one
+    seeded permutation of the pool's blocks."""
+    H, Hkv, D = MODEL["n_heads"], MODEL["n_kv_heads"], MODEL["d_model"] // MODEL["n_heads"]
+    positions = [0, bs - 1, bs, 511, 1000, 2047, 4095, 4159]
+    mb = -(-ENGINE["max_len"] // bs)
+    n = len(positions) * mb
+    tables = torch.full((len(positions) + 1, mb), n, dtype=torch.int32, device="cuda")
+    tables[:-1] = torch.randperm(n, generator=gen, device="cuda").int().reshape(-1, mb)
+    q = torch.randn(len(positions) + 1, 1, H, D, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=gen).bfloat16()
+    pos = torch.tensor(positions + [0], dtype=torch.int32, device="cuda")
+    return q, k, v, tables, pos
+
+
+def check_paged(torch, da, rows: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errs, failed = [], []
+    for bs in (16, 128):
+        q, k, v, tables, pos = paged_case(torch, bs, gen)
+        got = da.paged_flash_attention(q, k, v, tables, pos)
+        torch.cuda.synchronize()
+        errs.append(compare(f"paged_attention bs={bs} W={len(pos)} positions="
+                            f"{pos.tolist()}", got,
+                            da.paged_attention_reference(q, k, v, tables, pos), failed))
+    rows["paged_attention"] = {"max_abs_err": max(errs)}
+    raise_failed(failed)
+
+
+def eager_ms(torch, fn, iters: int = 3) -> float:
+    """Device-timeline ms of one ``fn()`` run eagerly (for functions that
+    sync with the host and cannot be captured in a CUDA graph)."""
+    fn()
+    return event_ms(torch, lambda: [fn() for _ in range(iters)]) / iters
+
+
+def time_paged(torch, da, rows: dict, step) -> None:
+    """K5 at the engine's step shape: one layer's pools, tables and
+    positions of a real decode step (8 lanes at ragged positions), with a
+    random bf16 query."""
+    kp, vp, tables, positions = step.keys[0], step.values[0], step.tables, step.positions
+    W, (Hkv, bs, D), H = tables.shape[0], kp.shape[1:], MODEL["n_heads"]
+    gen = torch.Generator(device=kp.device).manual_seed(5)
+    q = torch.randn(W, 1, H, D, device=kp.device, generator=gen).to(kp.dtype)
+    pos = positions.tolist()
+    n = sum(p + 1 for p in pos)
+    # K and V rows up to each frontier, the table entries that reach them,
+    # the positions, q and the output.
+    nbytes = (2 * n * Hkv * D * 2 + 4 * sum(p // bs + 1 for p in pos) + 4 * W
+              + 2 * W * H * D * 2)
+    flops = 4.0 * H * D * n  # f32 FMAs on the CUDA cores (q·k and p·v)
+    rows["paged_attention"].update(
+        ms=time_ms(lambda: da.paged_flash_attention(q, kp, vp, tables, positions), iters=50),
+        plain_ms=eager_ms(torch, lambda: da.paged_attention_reference(
+            q, kp, vp, tables, positions)),
+        library_ms=None, **bound(flops, F32_FLOPS, nbytes),
+        shape=f"W={W} H={H} Hkv={Hkv} D={D} {str(kp.dtype)[6:]} block_size={bs} "
+              f"table={tables.shape[1]} blocks, positions={pos}, one call per "
+              "layer per engine step")
+    r = rows["paged_attention"]
+    log(f"  paged_attention at an engine step (positions {pos}): {r['ms']:.4f} ms, "
+        f"{nbytes / r['ms'] / 1e6:.1f} GB/s, bound {r['bound_ms']:.4f} ms")
+    # Context only: no one PyTorch call computes paged attention; a gather
+    # of every lane's pages into a dense cache, then SDPA (two calls).
+    S = tables.shape[1] * bs
+    rep = H // Hkv
+    mask = torch.arange(S, device=kp.device)[None, :] <= positions[:, None].long()
+
+    def gather_sdpa():
+        kd = kp[tables.long()].transpose(1, 2).reshape(W, Hkv, S, D)
+        vd = vp[tables.long()].transpose(1, 2).reshape(W, Hkv, S, D)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), kd.repeat_interleave(rep, 1), vd.repeat_interleave(rep, 1),
+            attn_mask=mask[:, None, None, :])
+
+    log(f"  context, two PyTorch calls (gather of the pages + SDPA): "
+        f"{time_ms(gather_sdpa, iters=20):.4f} ms")
+
+
 def make_models(torch, pkg):
     """The served model in both modes (random weights from SEED) and the
     batch of prompts."""
@@ -469,10 +577,7 @@ def time_serving(torch, mode: str, model, fn, prompt, reps: int = 10) -> None:
         f"ms/step {spread(decode)} -> {BATCH / med * 1e3:.0f} tok/s at the median")
 
 
-def serve(torch, pkg, rows: dict) -> None:
-    from distributed_machine_learning_tpu_torch.ops import build
-
-    models, prompt = make_models(torch, pkg)
+def serve(torch, build, models, prompt, rows: dict) -> None:
     fns = generate_fns(models)
     for warm in generate_fns(models, 2).values():  # first launches, cuBLAS handles
         warm(prompt[:, :512])
@@ -483,6 +588,248 @@ def serve(torch, pkg, rows: dict) -> None:
     for mode, out in outs.items():
         time_serving(torch, mode, models[mode], fns[mode], prompt)
     profile_decode(torch, models["bf16"], prompt)
+
+
+def engine_traffic(torch):
+    """ENGINE_REQUESTS requests from SEED: prompt lengths in 256-4096 (the
+    first two 4096 and 300, so flash and dense prefill both run), new-token
+    counts in 8-64, token ids over the vocabulary."""
+    gen = torch.Generator().manual_seed(SEED)
+    lens = [4096, 300] + torch.randint(256, 4097, (ENGINE_REQUESTS - 2,),
+                                       generator=gen).tolist()
+    news = torch.randint(8, 65, (ENGINE_REQUESTS,), generator=gen).tolist()
+    prompts = [torch.randint(0, MODEL["vocab_size"], (n,), generator=gen).tolist()
+               for n in lens]
+    return prompts, news
+
+
+def drain_engine(torch, engine, prompts, news):
+    """Submit every request at once and drain: (completions by rid, wall
+    seconds of the drain, prefills included)."""
+    for rid, (p, n) in enumerate(zip(prompts, news)):
+        engine.submit(rid, p, max_new=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.drain()
+    torch.cuda.synchronize()
+    return {d["rid"]: d for d in done}, time.perf_counter() - t0
+
+
+def check_completions(done: dict, prompts, news, label: str) -> None:
+    if sorted(done) != list(range(len(prompts))):
+        raise AssertionError(f"{label}: completed {sorted(done)}")
+    for rid, d in done.items():
+        toks, lp = d["tokens"], len(prompts[rid])
+        if toks[:lp] != prompts[rid] or d["generated"] != news[rid] \
+                or len(toks) != lp + news[rid]:
+            raise AssertionError(f"{label}: request {rid} came back malformed")
+        if min(toks) < 0 or max(toks) >= MODEL["vocab_size"]:
+            raise AssertionError(f"{label}: request {rid} has token ids out of range")
+
+
+def run_engine_path(torch, build, model, prompts, news, rows: dict) -> dict:
+    """The engine's main path: ENGINE_REPEATS drains with the latency lever
+    only (run a), then ENGINE_REPEATS with both levers under a fresh
+    RegimeScheduler at its defaults (run b), launch counts zeroed just
+    before and read just after.  Returns per run the last engine, the
+    completions of every drain and their wall seconds."""
+    from distributed_machine_learning_tpu_torch.inference.continuous import (
+        ContinuousEngine,
+        EngineConfig,
+    )
+    from distributed_machine_learning_tpu_torch.runtime.scheduler import (
+        RegimeScheduler,
+    )
+
+    warm = ContinuousEngine(model, EngineConfig(**ENGINE), device=model.device)
+    warm.warmup(prompt_lens=(300, 2048))  # first launches of each prefill path
+    del warm
+    runs: dict = {"a": {"done": [], "seconds": []}, "b": {"done": [], "seconds": []}}
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    for run, levers in (("a", ("latency",)), ("b", ("latency", "throughput"))):
+        for _ in range(ENGINE_REPEATS):
+            sched = RegimeScheduler() if run == "b" else None
+            trace: list = []
+            if sched is not None:  # record the lever of every step
+                sched.observe = (lambda q, w, observe=sched.observe, trace=trace:
+                                 trace.append(observe(q, w)) or trace[-1])
+            engine = ContinuousEngine(model, EngineConfig(**ENGINE, levers=levers),
+                                      scheduler=sched, device=model.device)
+            done, seconds = drain_engine(torch, engine, prompts, news)
+            runs[run]["done"].append(done)
+            runs[run]["seconds"].append(seconds)
+            runs[run]["engine"] = engine
+            if sched is not None:
+                flips = [i for i in range(1, len(trace)) if trace[i] != trace[i - 1]]
+                log(f"engine run (b): regime flips {sched.flips} at steps {flips} of "
+                    f"{len(trace)} ({' -> '.join([trace[0]] + [trace[i] for i in flips])})")
+                if sched.flips < 1:
+                    raise AssertionError("run (b): the regime scheduler never flipped")
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    log(f"engine path launches (runs a and b, {ENGINE_REPEATS} drains each): {launches}")
+    for name in ("paged_attention", "flash_fwd", "quant_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the engine path")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["engine_launches"] = launches[name]
+        if name == "paged_attention":
+            row["launches"] = launches[name]
+    for run, r in runs.items():
+        for done in r["done"]:
+            check_completions(done, prompts, news, f"engine run ({run})")
+        same = all(d[k]["tokens"] == r["done"][0][k]["tokens"]
+                   for d in r["done"][1:] for k in d)
+        gen = sum(news)
+        log(f"engine run ({run}): {len(prompts)} requests, {gen} generated tokens; "
+            f"drain s {spread(r['seconds'])} -> generated tok/s "
+            f"{spread([gen / x for x in r['seconds']])}; repeat drains give the "
+            f"same tokens: {same}; levers by request "
+            f"{[r['done'][-1][k]['lever'][0] for k in sorted(r['done'][-1])]}")
+    by_len: dict = {}
+    for done in runs["a"]["done"]:
+        for rid, d in done.items():
+            by_len.setdefault(len(prompts[rid]), []).append(d["prefill_s"] * 1e3)
+    log("engine run (a) prefill ms by prompt length (host clock, token readback "
+        "included): " + "; ".join(f"{n}: {spread(v)}" for n, v in sorted(by_len.items())))
+    return runs
+
+
+def check_first_tokens(torch, engine, done: dict, prompts, label: str) -> None:
+    """Each request's prefill logits, kernel path vs plain path, within
+    LOGIT_TOL; its first generated token must be the kernel path's argmax,
+    and the plain path's unless the plain logits of the two tokens lie
+    within LOGIT_TOL of each other (a near-tie of bf16 logits)."""
+    from distributed_machine_learning_tpu_torch.inference.kv_blocks import blocks_needed
+
+    worst, ties, failed = 0.0, [], []
+    with torch.inference_mode():
+        for rid, d in sorted(done.items()):
+            model, lp = engine.models[d["lever"]], len(prompts[rid])
+            tokens = torch.tensor([prompts[rid]], device=model.device)
+            slots = blocks_needed(lp, ENGINE["block_size"]) * ENGINE["block_size"]
+
+            def first():
+                cache = model.init_cache(1, slots)
+                return model(tokens, cache=cache, start=0, last_only=True)[0, -1]
+
+            got = first()
+            with plain_kernels():
+                want = first()
+            diff = float((got - want).abs().max())
+            worst = max(worst, diff)
+            tok, plain_tok = d["tokens"][lp], int(want.argmax())
+            gap = float(want[plain_tok] - want[tok])
+            if tok != plain_tok:
+                ties.append((rid, round(gap, 4)))
+            if not torch.isfinite(got).all() or diff > LOGIT_TOL \
+                    or tok != int(got.argmax()) or gap > LOGIT_TOL:
+                failed.append(rid)
+    log(f"{label}: first tokens vs plain path over {len(done)} requests: prefill "
+        f"logits max_abs_diff {worst:.4f} (tol {LOGIT_TOL}); first token = plain "
+        f"argmax in {len(done) - len(ties)}, near-ties (request, plain logit gap) "
+        f"{ties}; failed {failed}")
+    if failed:
+        raise AssertionError(f"{label}: first tokens of requests {failed} disagree")
+
+
+def report_generate_parity(torch, model, done: dict, prompts) -> None:
+    """Report (no gate): requests whose engine tokens equal the port's
+    make_generate_fn at batch 1, and where the first divergence falls."""
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+
+    same, diverged = 0, []
+    for rid, d in sorted(done.items()):
+        lp, n = len(prompts[rid]), d["generated"]
+        out = make_generate_fn(model, n)(torch.tensor([prompts[rid]]))[0, lp:].tolist()
+        ours = d["tokens"][lp:]
+        if out == ours:
+            same += 1
+        else:
+            diverged.append((rid, next(i for i in range(n) if out[i] != ours[i]), n))
+    log(f"engine run (a) vs make_generate_fn at B=1: {same}/{len(done)} requests "
+        f"equal token for token; diverged (request, first differing token, of): "
+        f"{diverged}")
+
+
+def check_engine_step(torch, model, prompts, news):
+    """One engine decode step with all 8 lanes at ragged positions: its
+    logits, kernel path vs plain path, for both levers, within LOGIT_TOL.
+    Returns the engine (with its lanes in flight) and the step's inputs."""
+    from distributed_machine_learning_tpu_torch.inference.continuous import (
+        ContinuousEngine,
+        EngineConfig,
+    )
+
+    engine = ContinuousEngine(model, EngineConfig(**ENGINE), device=model.device)
+    for rid in range(ENGINE["max_lanes"]):
+        engine.submit(rid, prompts[rid], max_new=news[rid])
+    engine.step()  # admits (prefills) all 8 and runs their first decode step
+    if engine.in_flight() != ENGINE["max_lanes"]:
+        raise AssertionError(f"engine: {engine.in_flight()} lanes in flight")
+    step = engine.decode_inputs()
+    failed = []
+    for lever in ("latency", "throughput"):
+        got = engine.decode_logits(lever, step)
+        with plain_kernels():
+            want = engine.decode_logits(lever, step)
+        diff = float((got - want).abs().max())
+        agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"engine decode step ({lever}, positions {step.positions.tolist()}): "
+            f"logits kernel vs plain path max_abs_diff={diff:.4f} (tol {LOGIT_TOL}), "
+            f"argmax agree {agree}/{len(got)}")
+        if not torch.isfinite(got).all() or diff > LOGIT_TOL:
+            failed.append(lever)
+    if failed:
+        raise AssertionError(f"engine decode-step logits disagree: {failed}")
+    return engine, step
+
+
+def time_engine(torch, model, prompts) -> None:
+    """Engine decode step ms between CUDA events (8 lanes in flight, no
+    admission or retirement in the window), per lever, then a profiler view
+    of latency-lever steps."""
+    from distributed_machine_learning_tpu_torch.inference.continuous import (
+        ContinuousEngine,
+        EngineConfig,
+    )
+
+    engine = ContinuousEngine(model, EngineConfig(**ENGINE), device=model.device)
+    for rid in range(ENGINE["max_lanes"]):
+        engine.submit(rid, prompts[rid], max_new=64)
+    engine.step()
+    for lever in ("latency", "throughput"):
+        engine.note_lever(lever)
+        engine.step()  # warm
+        ms = [event_ms(torch, engine.step) for _ in range(20)]
+        med = sorted(ms)[len(ms) // 2]
+        log(f"engine decode step ({lever}, 8 lanes, CUDA events, ms): {spread(ms)} -> "
+            f"{ENGINE['max_lanes'] / med * 1e3:.0f} tok/s at the median")
+    engine.note_lever("latency")
+    engine.step()
+    profile_steps(torch, "engine decode step (latency, 8 lanes)",
+                  lambda i: engine.step())
+    if engine.in_flight() != ENGINE["max_lanes"]:
+        raise AssertionError("engine timing window saw a retirement")
+    engine.abort_all()
+
+
+def serve_engine(torch, build, da, model, rows: dict) -> None:
+    prompts, news = engine_traffic(torch)
+    log(f"engine traffic: prompt lengths {[len(p) for p in prompts]}, new tokens {news}")
+    runs = run_engine_path(torch, build, model, prompts, news, rows)
+    for run in ("a", "b"):
+        check_first_tokens(torch, runs[run]["engine"], runs[run]["done"][-1], prompts,
+                           f"engine run ({run})")
+    report_generate_parity(torch, model, runs["a"]["done"][-1], prompts)
+    del runs
+    engine, step = check_engine_step(torch, model, prompts, news)
+    time_paged(torch, da, rows, step)
+    engine.abort_all()
+    del engine, step
+    time_engine(torch, model, prompts)
 
 
 def perturb(torch, pkg, name: str) -> int:
@@ -506,9 +853,12 @@ def perturb(torch, pkg, name: str) -> int:
     build.build_all()
     caught = []
     log(f"perturbation {name}: kernel checks")
-    for check, mod in ((check_flash, fa), (check_decode, da), (check_int8, qm)):
+    for check in (lambda: check_flash(torch, fa, {}, timing=False),
+                  lambda: check_decode(torch, da, {}, timing=False),
+                  lambda: check_int8(torch, qm, {}, timing=False),
+                  lambda: check_paged(torch, da, {})):
         try:
-            check(torch, mod, {}, timing=False)
+            check()
         except AssertionError as exc:
             caught.append(f"kernel: {exc}")
     models, prompt = make_models(torch, pkg)
@@ -519,33 +869,45 @@ def perturb(torch, pkg, name: str) -> int:
             check_logits(torch, mode, models[mode], prompt, out)
         except AssertionError as exc:
             caught.append(f"logits: {exc}")
+    if kernel == "paged_attention":
+        try:
+            check_engine_step(torch, models["bf16"], *engine_traffic(torch))
+        except AssertionError as exc:
+            caught.append(f"engine logits: {exc}")
     log(f"perturbation {name}: caught by {len(caught)} check(s): {caught}")
     return 0 if any(c.startswith("kernel") for c in caught) else 1
 
 
 def profile_decode(torch, model, prompt, steps: int = 4) -> None:
-    """Device busy share and top kernels over a few bf16 decode steps
-    (torch.profiler); prints "not measured" if the tracer yields nothing."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The profiler view of a few bf16 generate decode steps."""
     with torch.inference_mode():
         cache = model.init_cache(BATCH, cache_slots())
         logits = model(prompt, cache=cache, start=0, last_only=True)
         tok = logits[:, -1].argmax(-1)[:, None]
         model(tok, cache=cache, start=PROMPT)  # warm
         torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for i in range(steps):
-                    model(tok, cache=cache, start=PROMPT + 1 + i)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA)
-        except Exception as exc:  # the tracer is optional: report, keep serving results
-            log(f"profiler: not measured ({type(exc).__name__}: {exc})")
-            return
+        profile_steps(torch, "bf16 decode",
+                      lambda i: model(tok, cache=cache, start=PROMPT + 1 + i), steps)
+
+
+def profile_steps(torch, label: str, run, steps: int = 4) -> None:
+    """Device busy share and top kernels over ``run(0..steps-1)``
+    (torch.profiler); prints "not measured" if the tracer yields nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                run(i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    except Exception as exc:  # the tracer is optional: report, keep serving results
+        log(f"profiler: not measured ({type(exc).__name__}: {exc})")
+        return
     if not spans:
         log("profiler: not measured (no device events traced)")
         return
@@ -558,7 +920,7 @@ def profile_decode(torch, model, prompt, steps: int = 4) -> None:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    log(f"profiler, bf16 decode x{steps}: {len(spans)} device events, busy "
+    log(f"profiler, {label} x{steps}: {len(spans)} device events, busy "
         f"{busy / steps:.1f} us/step of a {window / steps:.1f} us/step device window, "
         f"host wall {wall_us / steps:.1f} us/step, device idle share "
         f"{1 - busy / max(window, 1e-9):.3f}")
@@ -618,16 +980,22 @@ def main(argv=None) -> int:
     check_flash(torch, fa, rows, timing)
     check_decode(torch, da, rows, timing)
     check_int8(torch, qm, rows, timing)
+    check_paged(torch, da, rows)
     if args.check_only:
         log("check-only: kernels build and agree with their plain versions")
         return 0
 
-    serve(torch, pkg, rows)
+    models, prompt = make_models(torch, pkg)
+    serve(torch, build, models, prompt, rows)
+    t0 = time.perf_counter()
+    serve_engine(torch, build, da, models["bf16"], rows)
+    log(f"engine phases: {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "flash_fwd": "distributed_machine_learning_tpu/ops/pallas/flash_attention.py:295",
         "decode_attention": "distributed_machine_learning_tpu/ops/pallas/decode_attention.py:99",
         "quant_matmul": "distributed_machine_learning_tpu/ops/pallas/quant_matmul.py:60",
+        "paged_attention": "distributed_machine_learning_tpu/ops/pallas/decode_attention.py:294",
     }
     kernels = []
     for key, row in rows.items():
@@ -639,7 +1007,7 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "engine_launches": row["engine_launches"], "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

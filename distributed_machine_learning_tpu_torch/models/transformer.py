@@ -15,10 +15,19 @@ reference's decode path:
   qualifies and holds at least 4096 slots, the grouped einsum
   (:func:`_cached_attention`) otherwise.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): ring / ring_flash / ulysses attention, tensor-parallel decode,
-MoE blocks, remat, the int8 KV cache, per-row decode frontiers, and
-multi-token decode continuation.
+Per-row (paged) decode serves the continuous-batching engine: one token
+per lane, each lane at its own position, its K/V written into a shared
+paged pool through its block table (:class:`PagedKV`) and attended by
+``paged_flash_attention``.  (The reference engine gathers the pages into
+a dense per-row cache and runs the einsum instead; see
+``inference/continuous.py``.)
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item
+where the model has the option): ring / ring_flash / ulysses attention,
+remat, the int8 KV cache and multi-token decode continuation; nor
+tensor-parallel decode, MoE blocks, or per-row frontiers over a dense
+cache (the reference's ``decode_batched_frontier`` outside the engine,
+used by batched speculative decoding).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from torch import nn
 from distributed_machine_learning_tpu_torch.ops.decode_attention import (
     cached_flash_attention,
     decode_flash_qualifies,
+    paged_flash_attention,
 )
 from distributed_machine_learning_tpu_torch.ops.flash_attention import (
     flash_self_attention,
@@ -49,16 +59,19 @@ DECODE_KERNEL_MIN_SLOTS = 4096  # the reference's decode-kernel threshold
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32 ``(cos, sin)`` tables [1, L, 1, D] for :func:`rotate`, built once
-    per forward and shared by every layer: ``cos`` repeats the half-width
-    cosines, ``sin`` holds ``(-sin, sin)``."""
+    """f32 ``(cos, sin)`` tables for :func:`rotate`, built once per forward
+    and shared by every layer: [1, L, 1, D] for ``positions`` [L] (one
+    frontier), [B, L, 1, D] for [B, L] (a frontier per row).  ``cos``
+    repeats the half-width cosines, ``sin`` holds ``(-sin, sin)``."""
     d_half = head_dim // 2
     freqs = base ** (-torch.arange(d_half, dtype=torch.float32,
                                    device=positions.device) / d_half)
-    angles = positions.float()[:, None] * freqs  # [L, D/2]
+    angles = positions.float()[..., None] * freqs  # [..., L, D/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
-    return (torch.cat([cos, cos], -1)[None, :, None, :],
-            torch.cat([-sin, sin], -1)[None, :, None, :])
+    cos, sin = torch.cat([cos, cos], -1)[..., None, :], torch.cat([-sin, sin], -1)[..., None, :]
+    if positions.dim() == 1:
+        return cos[None], sin[None]
+    return cos, sin
 
 
 def rotate(x: torch.Tensor, tables: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -141,6 +154,19 @@ class KVCache:
     values: list[torch.Tensor]
 
 
+@dataclass
+class PagedKV:
+    """One paged decode step's view of the shared pool: per-layer pools
+    [num_blocks + 1, Hkv, block_size, D], block tables [W, MB] int32 (lane
+    w's logical block j is pool row ``tables[w, j]``) and positions [W]
+    int32 (lane w writes and attends position ``positions[w]``)."""
+
+    keys: list[torch.Tensor]
+    values: list[torch.Tensor]
+    tables: torch.Tensor
+    positions: torch.Tensor
+
+
 class Attention(nn.Module):
     """Causal self-attention: fused ``qkv`` for MHA, ``q`` + ``kv`` for GQA."""
 
@@ -170,8 +196,10 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, rope,
                 cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-                start: int = 0) -> torch.Tensor:
-        """``rope``: the :func:`rope_tables` of ``positions``."""
+                start: int = 0, paged: tuple | None = None) -> torch.Tensor:
+        """``rope``: the :func:`rope_tables` of ``positions``.  ``paged``:
+        this layer's ``(k_pool, v_pool, tables, positions, page, slot)``,
+        where each lane's fresh K/V row goes to ``pool[page[w], :, slot[w]]``."""
         B, L, E = x.shape
         H, Hkv, hd, cd = self.n_heads, self.n_kv_heads, self.head_dim, self.compute_dtype
         if Hkv == H:
@@ -183,6 +211,12 @@ class Attention(nn.Module):
             k, v = kv[:, :, 0], kv[:, :, 1]
         q = rotate(q, rope)
         k = rotate(k, rope)
+        if paged is not None:
+            k_pool, v_pool, tables, lane_pos, page, slot = paged
+            k_pool[page, :, slot] = k[:, 0]
+            v_pool[page, :, slot] = v[:, 0]
+            out = paged_flash_attention(q, k_pool, v_pool, tables, lane_pos)
+            return _project(self.out, out.reshape(B, L, H * hd), cd)
         if cache is not None:
             k_cache, v_cache = cache
             k_cache[:, :, start:start + L] = k.transpose(1, 2)
@@ -232,8 +266,9 @@ class Block(nn.Module):
         self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
         self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
 
-    def forward(self, x, positions, rope, cache=None, start: int = 0):
-        x = x + self.attn(self.ln1(x), positions, rope, cache, start)
+    def forward(self, x, positions, rope, cache=None, start: int = 0,
+                paged=None):
+        x = x + self.attn(self.ln1(x), positions, rope, cache, start, paged)
         cd = self.compute_dtype
         h = _project(self.fc_in, self.ln2(x), cd)
         h = F.gelu(h, approximate="tanh")  # Flax nn.gelu is the tanh form
@@ -250,6 +285,8 @@ class TransformerLM(nn.Module):
     flash or auto).  ``forward(tokens, cache=..., start=s)`` is the decode
     path: writes K/V for positions s..s+L-1 into the cache and attends
     against it (prefill at s = 0, then one token per call).
+    ``forward(tokens [W, 1], paged=PagedKV(...))`` is one paged decode
+    step: every lane at its own position.
     ``weight_quant="int8"`` builds :class:`QuantLinear` projections (load
     weights from ``ops.quant.quantize_lm_params``)."""
 
@@ -314,16 +351,30 @@ class TransformerLM(nn.Module):
         return KVCache([mk() for _ in self.blocks], [mk() for _ in self.blocks])
 
     def forward(self, tokens: torch.Tensor, cache: KVCache | None = None,
-                start: int = 0, last_only: bool = False) -> torch.Tensor:
+                start: int = 0, last_only: bool = False,
+                paged: PagedKV | None = None) -> torch.Tensor:
         """``last_only=True`` returns logits for the last position only
         ([B, 1, vocab]): the head runs on one row per sequence."""
         B, L = tokens.shape
-        positions = torch.arange(start, start + L, device=tokens.device)
+        layer_paged = None
+        if paged is not None:
+            if cache is not None or L != 1:
+                raise ValueError("a paged decode step takes one token per lane "
+                                 "and no dense cache")
+            lane_pos = paged.positions.long()
+            positions = lane_pos[:, None]  # [W, 1]: RoPE per lane
+            bs = paged.keys[0].shape[2]
+            page = paged.tables.gather(1, (lane_pos // bs)[:, None])[:, 0].long()
+            layer_paged = [(k, v, paged.tables, paged.positions, page, lane_pos % bs)
+                           for k, v in zip(paged.keys, paged.values)]
+        else:
+            positions = torch.arange(start, start + L, device=tokens.device)
         rope = rope_tables(positions, self.head_dim)
         x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else (cache.keys[i], cache.values[i])
-            x = block(x, positions, rope, layer_cache, start)
+            x = block(x, positions, rope, layer_cache, start,
+                      None if layer_paged is None else layer_paged[i])
         if last_only:
             x = x[:, -1:]
         x = self.ln_f(x)

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_fwd", "decode_attention", "quant_matmul")
+KERNELS = ("flash_fwd", "decode_attention", "quant_matmul", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_sms: dict = {}
 _lock = threading.Lock()
 
 
@@ -129,6 +130,15 @@ def check(status: int, name: str) -> None:
     """Raise if a kernel's C entry point returned a nonzero cudaError_t."""
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {status}")
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached per device)."""
+    if device not in _sms:
+        import torch
+
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
 
 
 def stream_handle(device) -> ctypes.c_void_p:

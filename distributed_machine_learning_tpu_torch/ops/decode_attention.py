@@ -1,15 +1,21 @@
-"""Flash decode: one query token against a head-major KV cache.
+"""Flash decode: one query token against a head-major KV cache (K4), or
+against a shared paged pool through per-lane block tables (K5).
 
-Counterpart of ``cached_flash_attention`` in
-``distributed_machine_learning_tpu/ops/pallas/decode_attention.py``, in
-its bf16/f32-cache mode (the int8-cache mode waits: the reference model
-never routes int8 caches to it by default).  CUDA tensors go through the
-hand-written kernel ``csrc/decode_attention.cu``; CPU tensors through
-:func:`cached_attention_reference`, the reference kernel's blockwise
-recurrence in PyTorch.
+Counterparts of ``cached_flash_attention`` (in its bf16/f32-cache mode;
+the int8-cache mode waits: the reference model never routes int8 caches
+to it by default) and ``paged_flash_attention`` in
+``distributed_machine_learning_tpu/ops/pallas/decode_attention.py``.
+CUDA tensors go through the hand-written kernels
+``csrc/decode_attention.cu`` and ``csrc/paged_attention.cu``; CPU tensors
+through :func:`cached_attention_reference` and
+:func:`paged_attention_reference`, the kernels' blockwise recurrence in
+PyTorch.
 
-The position is a host int: the port tracks the decode frontier on the
+K4's position is a host int: the port tracks the decode frontier on the
 host (``start + L`` is known there), so a step needs no device sync.
+K5's positions are a device tensor, one per lane; its split of each
+lane's slots across blocks is chosen from the table width, which the
+host knows.
 """
 
 from __future__ import annotations
@@ -26,6 +32,12 @@ LOG2E = 1.4426950408889634
 KERNEL = "decode_attention"
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
+PAGED_KERNEL = "paged_attention"
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+# Fewest slots one block of the paged kernel walks when a lane's slots are
+# split across blocks (below it the per-block merge costs more than it saves).
+PAGED_MIN_CHUNK = 128
 
 
 def pick_block_s(S: int) -> int | None:
@@ -140,3 +152,145 @@ def cached_flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.is_cuda:
         return _launch(q, k_cache, v_cache, pos)
     return cached_attention_reference(q, k_cache, v_cache, pos)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention (K5): ragged per-lane frontiers through block tables
+# ---------------------------------------------------------------------------
+
+
+def paged_split(W: int, Hkv: int, table_slots: int, n_sms: int) -> tuple[int, int]:
+    """``(splits, chunk)``: how many blocks share one (lane, kv head) of the
+    paged kernel and how many slots each walks.  Enough splits that a batch
+    whose lanes reach the end of their tables gives about four blocks per
+    SM, each walking at least :data:`PAGED_MIN_CHUNK` slots; blocks whose
+    chunk starts past their lane's frontier exit at once."""
+    want = -(-4 * n_sms // (W * Hkv))
+    splits = max(1, min(want, -(-table_slots // PAGED_MIN_CHUNK)))
+    return splits, -(-table_slots // splits)
+
+
+def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, block_tables: torch.Tensor,
+                              positions: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the paged kernel.
+
+    q [W, 1, H, D]; pools [num_blocks + 1, Hkv, block_size, D];
+    block_tables [W, MB] int32 (lane w's logical block j lives in pool row
+    ``block_tables[w, j]``); positions [W] int32 (lane w attends slots
+    0..positions[w]).  Walks each lane's table page by page up to its
+    frontier page (table entries past it are never read: a lane past its
+    frontier re-reads that page, masked), by K4's recurrence: q cast to the
+    pool dtype, f32 scores in log2 space, P rounded to the pool dtype
+    before P·V.  Returns [W, 1, H, D] in q's dtype."""
+    W, _, H, D = q.shape
+    Hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    scale = (1.0 / math.sqrt(D)) * LOG2E
+    qg = q.to(k_pool.dtype).float().reshape(W, Hkv, H // Hkv, D)
+    pos = positions.long()
+    frontier = pos // bs
+    lanes = torch.arange(W, device=q.device)
+    m = torch.full((W, Hkv, H // Hkv), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    for j in range(int(frontier.max()) + 1):
+        page = block_tables[lanes, torch.clamp(frontier, max=j)].long()
+        s = torch.einsum("whrd,whsd->whrs", qg, k_pool[page].float()) * scale
+        slot = j * bs + torch.arange(bs, device=q.device)
+        s = torch.where((slot[None, :] <= pos[:, None])[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        p = torch.where(s > 0.5 * NEG_INF, p, 0.0)
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("whrs,whsd->whrd", p.to(v_pool.dtype).float(),
+                          v_pool[page].float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(W, 1, H, D).to(q.dtype)
+
+
+def _paged_launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                  block_tables: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    W, _, H, D = q.shape
+    Hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    MB = block_tables.shape[1]
+    dtype = k_pool.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"paged kernel takes bf16 or f32 pools, got {dtype}")
+    if q.dtype != dtype or v_pool.dtype != dtype:
+        raise ValueError(f"paged kernel needs q and both pools in one dtype; "
+                         f"got q {q.dtype}, k {dtype}, v {v_pool.dtype}")
+    if D not in (32, 64, 128) or H // Hkv not in (1, 2, 4, 8):
+        raise ValueError(f"paged kernel supports head dim 32/64/128 and group "
+                         f"size 1/2/4/8; got D={D}, H/Hkv={H // Hkv}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"paged kernel needs contiguous 16-byte aligned {name}")
+    if not (block_tables.is_contiguous() and positions.is_contiguous()):
+        raise ValueError("paged kernel needs contiguous block_tables and positions")
+    splits, chunk = paged_split(W, Hkv, MB * bs, build.sm_count(q.device))
+    out = torch.empty_like(q)
+    # Per split: f32 partial acc [W·H, D], then running max and sum [W·H].
+    workspace = (torch.empty(splits * W * H * (D + 2), dtype=torch.float32,
+                             device=q.device) if splits > 1 else None)
+    fn = build.function(PAGED_KERNEL, "paged_attention", _PAGED_ARGTYPES)
+    status = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                None if workspace is None else workspace.data_ptr(),
+                W, H, Hkv, D, bs, MB, chunk, splits, int(dtype == torch.bfloat16),
+                k_pool.shape[0], (1.0 / math.sqrt(D)) * LOG2E,
+                build.stream_handle(q.device))
+    build.check(status, PAGED_KERNEL)
+    build.count_launch(PAGED_KERNEL)
+    return out
+
+
+def paged_flash_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          positions: torch.Tensor) -> torch.Tensor:
+    """One decode step of attention for W lanes at their own frontiers,
+    through block tables over a shared pool (the contract of
+    :func:`paged_attention_reference`).
+
+    On CUDA tensors: the paged kernel, which reads each lane's slots
+    0..positions[w] only (the tables and positions are trusted there:
+    checking their values would cost a device sync; the kernel clamps a
+    position into its table so no read leaves it); on CPU tensors: the
+    plain version, after checking that every position lies in its table
+    and every table entry in the pool."""
+    W, Lq, H, D = q.shape
+    if Lq != 1:
+        raise ValueError(f"paged decode attention is single-token (got Lq={Lq})")
+    if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
+        raise ValueError(f"pools must be [num_blocks, Hkv, block_size, D] of one "
+                         f"shape; got {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    Hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    if k_pool.shape[3] != D or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match pool "
+                         f"{tuple(k_pool.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != W \
+            or positions.shape != (W,):
+        raise ValueError(f"need block_tables [W, MB] and positions [W] for "
+                         f"W={W}; got {tuple(block_tables.shape)}, "
+                         f"{tuple(positions.shape)}")
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise ValueError(f"block_tables and positions must be int32; got "
+                         f"{block_tables.dtype}, {positions.dtype}")
+    if not (q.device == k_pool.device == v_pool.device == block_tables.device
+            == positions.device):
+        raise ValueError("q, the pools, the tables and the positions must "
+                         "lie on one device")
+    if q.is_cuda:
+        return _paged_launch(q, k_pool, v_pool, block_tables, positions)
+    slots = block_tables.shape[1] * bs
+    if bool(((positions < 0) | (positions >= slots)).any()):
+        raise ValueError(f"positions {positions.tolist()} outside the tables' "
+                         f"{slots} slots")
+    if bool(((block_tables < 0) | (block_tables >= k_pool.shape[0])).any()):
+        raise ValueError(f"block table entries outside the pool of "
+                         f"{k_pool.shape[0]} blocks")
+    return paged_attention_reference(q, k_pool, v_pool, block_tables, positions)

@@ -55,15 +55,6 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
     return (acc * scale.float()).to(x.dtype)
 
 
-_SMS: dict = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _SMS[device]
-
-
 def _launch(x: torch.Tensor, q: torch.Tensor,
             scale: torch.Tensor) -> torch.Tensor:
     R, D = x.shape
@@ -81,7 +72,7 @@ def _launch(x: torch.Tensor, q: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int8 kernel needs contiguous 16-byte aligned {name}")
     out = torch.empty((R, K), dtype=x.dtype, device=x.device)
-    splits = split_count(R, D, K, _sm_count(x.device))
+    splits = split_count(R, D, K, build.sm_count(x.device))
     workspace = (torch.empty((splits, R, K), dtype=torch.float32, device=x.device)
                  if splits > 1 else None)
     fn = build.function(KERNEL, "w8a16_matmul", _ARGTYPES)

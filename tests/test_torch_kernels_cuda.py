@@ -54,6 +54,7 @@ def plain_kernels():
     """The model's kernel entry points routed to their plain versions."""
     swaps = [(transformer, "flash_self_attention", fa.flash_attention_reference),
              (transformer, "cached_flash_attention", da.cached_attention_reference),
+             (transformer, "paged_flash_attention", da.paged_attention_reference),
              (quant, "int8_matmul", qm.int8_matmul_reference)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     try:
@@ -102,6 +103,31 @@ def test_decode_kernel_matches_plain(cuda, dtype, pos, D):
            BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+@pytest.mark.parametrize("bs", [4, 16, 128])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_matches_plain(cuda, dtype, rep, D, bs):
+    """Ragged lanes (0, block edges, long) through shuffled tables whose
+    entries past each frontier hold other lanes' blocks, and an idle lane
+    on the scratch block."""
+    Hkv, positions = 2, [0, bs - 1, bs, 300, 1500, 0]
+    mb = -(-1501 // bs)
+    n = 5 * mb
+    tables = torch.randperm(n, device="cuda", generator=cuda).int().reshape(5, mb)
+    tables = torch.cat([tables, torch.full((1, mb), n, dtype=torch.int32, device="cuda")])
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn(6, 1, Hkv * rep, D, device="cuda", generator=cuda).to(dtype)
+    k = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=cuda).to(dtype)
+    v = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=cuda).to(dtype)
+    before = build.launches["paged_attention"]
+    got = da.paged_flash_attention(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert build.launches["paged_attention"] == before + 1 and got.dtype == dtype
+    _close(got, da.paged_attention_reference(q, k, v, tables, pos),
+           BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
 # K = 257 (a byte-level LM head) and 40: columns not a multiple of 16.
 @pytest.mark.parametrize("R,D,K", [(1, 64, 16), (8, 2048, 1024), (13, 320, 960),
                                    (300, 512, 2064), (8, 256, 257), (40, 64, 40)])
@@ -124,6 +150,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_self_attention(x, x, x)
     with pytest.raises(ValueError, match="bf16 or f32"):
         fa.flash_self_attention(x.half(), x.half(), x.half())
+    pool = torch.zeros(3, 2, 4, 48, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        da.paged_flash_attention(x[:, :1], pool, pool,
+                                 torch.zeros(4, 1, dtype=torch.int32, device="cuda"),
+                                 torch.zeros(4, dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="D % 8"):
         qm.int8_matmul(torch.randn(2, 60, device="cuda"),
                        torch.zeros(60, 24, dtype=torch.int8, device="cuda"),
@@ -161,3 +192,46 @@ def test_model_on_the_card_matches_plain_path(cuda, dtype, quant):
         want = fn(prompt)
     assert build.launches["flash_fwd"] == 2  # the plain path launched nothing
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_engine_on_the_card_matches_plain_path(cuda):
+    """The continuous engine in f32 on the card (paged kernel, flash prefill
+    of a 1024-token prompt, int8 lever): the same greedy tokens as with
+    every kernel swapped for its plain version."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.inference.continuous import (
+        ContinuousEngine,
+        EngineConfig,
+    )
+    from distributed_machine_learning_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from distributed_machine_learning_tpu_torch.runtime.scheduler import (
+        RegimeConfig,
+        RegimeScheduler,
+    )
+
+    model = TransformerLM(vocab_size=257, d_model=128, n_layers=2, n_heads=4,
+                          n_kv_heads=2, device="cuda")
+    init_params(model, seed=0)
+    prompts = [torch.randint(0, 257, (n,), generator=cuda, device="cuda").tolist()
+               for n in (1024, 5, 40, 300, 17)]
+
+    def serve():
+        sched = RegimeScheduler(RegimeConfig(thin_width=1, wide_width=4, dwell_steps=2))
+        eng = ContinuousEngine(model, EngineConfig(max_lanes=3, block_size=16,
+                                                   num_blocks=256, max_len=1040),
+                               scheduler=sched)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6 + 2 * i)
+        done = {d["rid"]: d["tokens"] for d in eng.drain()}
+        assert sched.flips >= 1
+        return done
+
+    build.reset_launch_counts()
+    got = serve()
+    assert all(build.launches[k] > 0 for k in ("paged_attention", "flash_fwd",
+                                               "quant_matmul"))
+    with plain_kernels():
+        want = serve()
+    assert got == want
