@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port on one card: build, check, serve, time.
+"""Drive the PyTorch/H100 port on one card: build, check, serve, train, time.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -7,8 +7,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels from ``distributed_machine_learning_tpu_torch/ops/csrc`` (one
    nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card, at
-   the serving paths' shapes, with a stated tolerance (f32 matmuls in the
-   references: TF32 is switched off).
+   the serving and training paths' shapes, with a stated tolerance (f32
+   matmuls in the references: TF32 is switched off): K1 with its lse, K4,
+   K6, K5, the flash backward pair K2 (dQ) and K3 (dK/dV) at the trainer's
+   heads, in f32, at head dim 32 and through the autograd Function at a
+   padded length, and the fused AdamW K7 on f32, bf16 and ragged leaves
+   (8 ulp).
 3. Serves the d2048 / 8-layer / 16-head / 4-KV-head / 32k-vocab LM
    (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
    and 32 new tokens through ``make_generate_fn``: once in bf16, once with
@@ -35,6 +39,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``make_generate_fn`` at batch 1 token for token; times the engine's
    decode step, its tokens/s over a drain, prefill per prompt length and
    the device idle share over a few steps.
+6. Trains the same model through ``cli.lm``'s ``build`` and
+   ``train_epoch``, as its ``main`` runs them (``--parallel dp``, B 4 ×
+   L 4096, bf16 compute over f32 master weights, ``--fused-update``,
+   ``--attn flash``, 8 steps): launch counts zeroed just before and read
+   just after, K1, K2 and K3 once per layer and K7 once per leaf in every
+   step; losses finite and falling.  Reports step ms (median and range),
+   tokens/s, MFU, peak memory and the device idle share; runs two steps
+   with ``--remat --remat-policy mlp`` (same step-0 loss); gates one step
+   kernel path vs plain path (loss, every leaf's gradient, the parameters
+   after the update).  K2, K3 and K7 are timed beside their bounds, plain
+   versions and one library call each (SDPA's backward; torch's fused
+   AdamW over the same 117 tensors).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
@@ -42,14 +58,16 @@ no result, without a CUDA device or outside the repository.
 ``--check-only`` stops after step 2 (a short first run of new kernels).
 ``--perturb NAME`` builds one kernel from a deliberately broken copy of
 its source (under ``build/perturbed/``; the checkout is not touched), runs
-the kernel checks and the logit checks against it, and reports which of
-them catch the fault: it exits 0 only if the kernel checks catch it.
+the kernel checks and the logit checks (for a training kernel: the trainer
+step gates) against it, and reports which of them catch the fault: it
+exits 0 only if the kernel checks catch it.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -71,6 +89,8 @@ BATCH, PROMPT, NEW_TOKENS, SEED = 8, 4096, 32, 0
 # each run drained ENGINE_REPEATS times).
 ENGINE = dict(max_lanes=8, block_size=16, num_blocks=2080, max_len=4160)
 ENGINE_REQUESTS, ENGINE_REPEATS = 16, 3
+# The trainer (cli.lm --parallel dp on one card) at the model's full width.
+TRAIN = dict(seq_len=4096, batch_size=4, max_iters=8)
 
 # Kernel vs plain on the card, bf16 outputs, judged row by row (a row is
 # one output vector: one query head of attention, one row of a GEMM), so
@@ -94,6 +114,24 @@ ROW_RMS_TOL = 1e-2
 # dropped key tile reads 1.56-1.66 and a dropped GEMM K tile 1.71-2.16.
 # A single left-out slot (0.043-0.063) is the kernel checks' to catch.
 LOGIT_TOL = 0.1
+# K1's lse (log2 space, values ~10 at L 4096), kernel vs plain, max |diff|:
+# both sum the same f32 probabilities in another order, ~1e-5; a wrong
+# base or a dropped key tile moves it by O(1).
+LSE_TOL = 1e-3
+# The attention gradients use the row gates above, with each row's scale
+# bounded below by this fraction of the whole tensor's (max, rms): a few
+# rows are zero in exact arithmetic and rounding noise in both versions
+# (dq of query 0, which sees only key 0: there dS = P (dP - delta) and
+# dP = delta = dO . v0).
+GRAD_ROW_FLOOR = 1e-3
+# K7 (fused AdamW) vs its plain version: the reference's parity contract,
+# at most 8 ulp (in the leaf's dtype) on params and moments after one
+# update; FMA contraction is the kernel's one freedom (it rounds
+# b1 m + (1 - b1) g once where the plain chain rounds twice).  An ulp is
+# taken at the larger of the result and the terms it sums: where b1 m and
+# (1 - b1) g cancel, one rounding of a term is hundreds of ulps of the
+# result (455 measured between XLA's chain and the port's on the CPU).
+ADAMW_ULP_TOL = 8
 
 # Faults for ``--perturb``: (kernel, source text, replacement), each a
 # plausible bug the checks must catch.
@@ -122,6 +160,18 @@ PERTURBATIONS = {
     "paged-drop-frontier-slot": (
         "paged_attention", "const int hi = min(pos, lo + chunk - 1);",
         "const int hi = min(pos - 1, lo + chunk - 1);"),
+    # dQ leaves out the diagonal key tile of every query tile.
+    "dq-drop-diagonal-tile": (
+        "flash_bwd", "const int n_tiles = qt + 1;  // causal: key tiles 0..qt (BQ == BKV)",
+        "const int n_tiles = qt;"),
+    # dK/dV leave out the last query tile of every query head.
+    "dkv-drop-last-qtile": (
+        "flash_bwd", "const int nq = (L + BQ3 - 1) / BQ3 - first_qt;",
+        "const int nq = (L + BQ3 - 1) / BQ3 - first_qt - 1;"),
+    # The fused AdamW update drops the bias correction.
+    "adamw-drop-bias-correction": (
+        "fused_adamw", "(m / h.bc1) / (sqrtf(v / h.bc2) + h.eps)",
+        "m / (sqrtf(v) + h.eps)"),
 }
 
 
@@ -163,10 +213,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name: str, got, want, failed: list) -> float:
+def compare(name: str, got, want, failed: list, floor: float = 0.0) -> float:
     """Hold a kernel's output against its plain version row by row (see
     ROW_ELEM_TOL); returns the max abs error, appends ``name`` to
-    ``failed`` if a row is out of tolerance."""
+    ``failed`` if a row is out of tolerance.  ``floor`` (a fraction of the
+    whole output's largest value, resp. rms) bounds each row's scale from
+    below, for outputs with rows that are zero in exact arithmetic (see
+    GRAD_ROW_FLOOR)."""
     import torch
 
     got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
@@ -174,8 +227,10 @@ def compare(name: str, got, want, failed: list) -> float:
         raise AssertionError(f"{name}: kernel output is not finite")
     err = got - want
     tiny = torch.finfo(torch.float32).tiny
-    elem = err.abs().amax(-1) / want.abs().amax(-1).clamp_min(tiny)
-    rms = err.square().mean(-1).sqrt() / want.square().mean(-1).sqrt().clamp_min(tiny)
+    peak = max(floor * float(want.abs().max()), tiny)
+    level = max(floor * float(want.square().mean().sqrt()), tiny)
+    elem = err.abs().amax(-1) / want.abs().amax(-1).clamp_min(peak)
+    rms = err.square().mean(-1).sqrt() / want.square().mean(-1).sqrt().clamp_min(level)
     bad = int(((elem > ROW_ELEM_TOL) | (rms > ROW_RMS_TOL)).sum())
     max_abs = float(err.abs().max())
     log(f"  {name}: max_abs_err={max_abs:.3e}, worst row: elem_err/max|ref|="
@@ -194,15 +249,33 @@ def raise_failed(failed: list) -> None:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel entry points to their plain PyTorch
-    versions, on the card too: the reference the kernel path is held to."""
+    """Route the model's and the trainer's kernel entry points to their
+    plain PyTorch versions, on the card too: the reference the kernel path
+    is held to.  Attention without a gradient (serving) takes the plain
+    forward directly; with one (training) it takes the port's autograd
+    Function with its forward and backward launchers swapped for the plain
+    versions, so the backward never runs through the forward's loop."""
+    import torch
+
     from distributed_machine_learning_tpu_torch.models import transformer
     from distributed_machine_learning_tpu_torch.ops import decode_attention as da
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
     from distributed_machine_learning_tpu_torch.ops import quant
     from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
 
-    swaps = [(transformer, "flash_self_attention", fa.flash_attention_reference),
+    flash = fa.flash_self_attention
+
+    def plain_flash(q, k, v):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return flash(q, k, v)
+        return fa.flash_attention_reference(q, k, v)
+
+    swaps = [(transformer, "flash_self_attention", plain_flash),
+             (fa, "_launch", lambda q, k, v: fa.flash_attention_reference(
+                 q, k, v, return_lse=True)),
+             (fa, "_launch_bwd", fa.flash_attention_backward_reference),
+             (fadam, "_launch", fadam.fused_adamw_reference),
              (transformer, "cached_flash_attention", da.cached_attention_reference),
              (transformer, "paged_flash_attention", da.paged_attention_reference),
              (quant, "int8_matmul", qm.int8_matmul_reference)]
@@ -225,9 +298,16 @@ def check_flash(torch, fa, rows: dict, timing: bool) -> None:
         k = torch.randn(B, L, Hkv, D, device="cuda", generator=gen).bfloat16()
         v = torch.randn(B, L, Hkv, D, device="cuda", generator=gen).bfloat16()
         got = fa.flash_self_attention(q, k, v)
+        _, lse = fa._launch(q, k, v)  # the kernel on these rows as they are
         torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_reference(q, k, v, return_lse=True)
         errs.append(compare(f"flash_fwd B={B} L={L} H={H} Hkv={Hkv} D={D}", got,
-                            fa.flash_attention_reference(q, k, v), failed))
+                            want, failed))
+        lse_err = float((lse - want_lse).abs().max())
+        log(f"  flash_fwd lse L={L}: max_abs_err={lse_err:.3e} (tol {LSE_TOL:g}) -> "
+            f"{'ok' if lse_err <= LSE_TOL else 'BAD'}")
+        if not lse_err <= LSE_TOL:
+            failed.append(f"flash_fwd lse L={L}")
         rows.setdefault("flash_fwd", {})["max_abs_err"] = max(errs)
         if L != 4096 or not timing:
             continue
@@ -251,6 +331,193 @@ def bound(ops: float, peak: float, nbytes: float) -> dict:
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BPS * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# K2/K3 check cases (B, L, H, Hkv, D, dtype): the trainer's heads at B 1,
+# an f32 case and a head-dim-32 case at small L; the padded length runs
+# through the autograd Function in check_flash_bwd.
+BWD_CASES = [(1, 4096, 16, 4, 128, "bfloat16"), (1, 1024, 4, 2, 64, "float32"),
+             (2, 512, 4, 2, 32, "bfloat16")]
+BWD_PAD_CASE = (1, 2100, 16, 4, 128, "bfloat16")  # pads to 2560
+
+
+def bwd_inputs(torch, fa, B, L, H, Hkv, D, dtype, gen):
+    """q, k, v, dO and the plain forward's lse and delta = rowsum(dO o O):
+    the backward kernels and their plain version get the same inputs."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(B, L, n, D, device="cuda", generator=gen).to(dt)
+                   for n in (H, Hkv, Hkv, H))
+    out, lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def check_flash_bwd(torch, fa, rows: dict, timing: bool) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs: dict = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    failed: list = []
+    for case in BWD_CASES:
+        args = bwd_inputs(torch, fa, *case, gen)
+        dq = fa._launch_dq(*args)
+        dk, dv = fa._launch_dkv(*args)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_backward_reference(*args)
+        label = "B={} L={} H={} Hkv={} D={} {}".format(*case)
+        errs["flash_bwd_dq"].append(compare(f"flash_bwd_dq {label}", dq, want[0], failed,
+                                            GRAD_ROW_FLOOR))
+        for name, got, ref in (("dk", dk, want[1]), ("dv", dv, want[2])):
+            errs["flash_bwd_dkv"].append(compare(f"flash_bwd_dkv {name} {label}", got, ref,
+                                                 failed, GRAD_ROW_FLOOR))
+    # A padded length through the autograd Function (pad and slice outside).
+    B, L, H, Hkv, D, dtype = BWD_PAD_CASE
+    q, k, v, do, _, _ = bwd_inputs(torch, fa, *BWD_PAD_CASE, gen)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(fa.flash_self_attention(q, k, v), (q, k, v), do)
+    with plain_kernels():
+        want = torch.autograd.grad(fa.flash_self_attention(q, k, v), (q, k, v), do)
+    label = f"B={B} L={L} (padded) H={H} Hkv={Hkv} D={D} {dtype}, autograd"
+    errs["flash_bwd_dq"].append(compare(f"flash_bwd_dq {label}", got[0], want[0], failed,
+                                        GRAD_ROW_FLOOR))
+    for name, i in (("dk", 1), ("dv", 2)):
+        errs["flash_bwd_dkv"].append(compare(f"flash_bwd_dkv {name} {label}", got[i], want[i],
+                                             failed, GRAD_ROW_FLOOR))
+    for name, e in errs.items():
+        rows[name] = {"max_abs_err": max(e)}
+    raise_failed(failed)
+    if not timing:
+        return
+    B, L, H, Hkv, D = TRAIN["batch_size"], TRAIN["seq_len"], MODEL["n_heads"], \
+        MODEL["n_kv_heads"], MODEL["d_model"] // MODEL["n_heads"]
+    args = bwd_inputs(torch, fa, B, L, H, Hkv, D, "bfloat16", gen)
+    pairs = B * H * L * (L + 1) / 2.0
+    row_bytes = 2 * 4 * B * H * L  # lse and delta, f32
+    qo = 2 * B * L * H * D  # one bf16 [B, L, H, D]
+    kv = 2 * B * L * Hkv * D
+    plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(*args), iters=2,
+                       warmup=1)
+    # The yardstick: SDPA's backward (one call gives dq, dk and dv) with
+    # K/V repeated to H heads, eager between CUDA events.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = args[:4]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+                  (q, k.repeat_interleave(H // Hkv, 2), v.repeat_interleave(H // Hkv, 2)))
+    out = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                             retain_graph=True), iters=5)
+    shape = (f"B={B} L={L} H={H} Hkv={Hkv} D={D} bf16, one call per layer per step; "
+             "plain and library ms are of the whole backward (dq, dk, dv)")
+    rows["flash_bwd_dq"].update(
+        ms=time_ms(lambda: fa._launch_dq(*args)), plain_ms=plain_ms, library_ms=library_ms,
+        **bound(6.0 * D * pairs, BF16_FLOPS, 3 * qo + 2 * kv + row_bytes), shape=shape)
+    rows["flash_bwd_dkv"].update(
+        ms=time_ms(lambda: fa._launch_dkv(*args)), plain_ms=plain_ms, library_ms=library_ms,
+        **bound(8.0 * D * pairs, BF16_FLOPS, 2 * qo + 4 * kv + row_bytes), shape=shape)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = rows[name]
+        flops = (6.0 if name == "flash_bwd_dq" else 8.0) * D * pairs
+        log(f"  {name}: {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), bound "
+            f"{r['bound_ms']:.3f}, plain backward {plain_ms:.2f}, SDPA backward "
+            f"{library_ms:.3f}")
+
+
+def ulp_err(got, want, *terms) -> float:
+    """max |got - want| in units of the last place (of want's dtype: 24
+    significant bits for f32, 8 for bf16) of the larger of |want| and the
+    |terms| it sums (see ADAMW_ULP_TOL)."""
+    import torch
+
+    bits = 8 if want.dtype == torch.bfloat16 else 24
+    scale = want.float().abs()
+    for t in terms:
+        scale = torch.maximum(scale, t.abs())
+    _, e = torch.frexp(scale)
+    ulp = torch.ldexp(torch.ones_like(scale), e - bits)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def adamw_ulp_errs(got, want, old, cfg) -> list:
+    """ulp errors of (p, mu, nu) after one update from ``old`` (p, mu, nu,
+    g), each at the scale of the terms the update sums."""
+    p, mu, nu, g = (t.float() for t in old)
+    terms = ([p], [cfg.beta1 * mu, (1 - cfg.beta1) * g],
+             [cfg.beta2 * nu, (1 - cfg.beta2) * g * g])
+    return [ulp_err(got[i], want[i], *terms[i]) for i in range(3)]
+
+
+def adamw_scalars(step: int, config):
+    """lr, bc1, bc2 as the trainer computes them (f32, from the step)."""
+    from distributed_machine_learning_tpu_torch.train.adamw import bias_corrections
+
+    return (config.learning_rate, *bias_corrections(config, step))
+
+
+def check_adamw(torch, fadam, rows: dict, timing: bool) -> None:
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+
+    cfg = AdamWConfig()
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def leaf(n, dtype):
+        """A leaf of n params at step 10 with non-zero moments."""
+        p = (0.02 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+        mu = 1e-3 * torch.randn(n, device="cuda", generator=gen)
+        nu = 1e-6 * torch.rand(n, device="cuda", generator=gen)
+        g = (1e-3 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+        return p, mu, nu, g
+
+    worst, worst_abs, failed = 0.0, 0.0, []
+    # An f32 leaf, a bf16 leaf, a length that is no multiple of the vector.
+    for n, dtype in ((2048 * 2048, torch.float32), (2048 * 1024, torch.bfloat16),
+                     (1_000_003, torch.float32), (1_000_003, torch.bfloat16)):
+        state = leaf(n, dtype)
+        got = [t.clone() for t in state]
+        want = [t.clone() for t in state]
+        fadam.fused_adamw_leaf(*got, *adamw_scalars(10, cfg), **hyper)
+        torch.cuda.synchronize()
+        fadam.fused_adamw_reference(*want, *adamw_scalars(10, cfg), **hyper)
+        errs = adamw_ulp_errs(got, want, state, cfg)
+        worst = max(worst, *errs)
+        worst_abs = max(worst_abs, *(float((got[i].float() - want[i].float()).abs().max())
+                                     for i in range(3)))
+        ok = max(errs) <= ADAMW_ULP_TOL and all(bool(torch.isfinite(t).all()) for t in got)
+        log(f"  fused_adamw n={n} {str(dtype)[6:]}: ulp error p/mu/nu "
+            f"{errs[0]:.0f}/{errs[1]:.0f}/{errs[2]:.0f} (tol {ADAMW_ULP_TOL}) -> "
+            f"{'ok' if ok else 'BAD'}")
+        if not ok:
+            failed.append(f"fused_adamw n={n} {dtype}")
+    rows["fused_adamw"] = {"max_abs_err": worst_abs, "max_ulp_err": worst}
+    raise_failed(failed)
+    if not timing:
+        return
+    # Every leaf of the trainer's model (f32 params), one launch each.
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+
+    shapes = [p.shape for p in TransformerLM(**MODEL, device="meta").parameters()]
+    leaves = [leaf(math.prod(s), torch.float32) for s in shapes]
+    n = sum(p.numel() for p, *_ in leaves)
+    lr, bc1, bc2 = adamw_scalars(10, cfg)
+
+    def run(update):
+        for p, mu, nu, g in leaves:
+            update(p, mu, nu, g, lr, bc1, bc2, **hyper)
+
+    ms = time_ms(lambda: run(fadam.fused_adamw_leaf), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: run(fadam.fused_adamw_reference), iters=2, warmup=1)
+    params = [p.clone().requires_grad_() for p, *_ in leaves]
+    for q, (_, _, _, g) in zip(params, leaves):
+        q.grad = g.clone()
+    opt = torch.optim.AdamW(params, lr=lr, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
+                            weight_decay=cfg.weight_decay, fused=True)
+    library_ms = eager_ms(torch, opt.step, iters=5)
+    rows["fused_adamw"].update(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(15.0 * n, F32_FLOPS, 28 * n),
+        shape=f"all {len(leaves)} leaves of the model ({n} f32 params), one launch per "
+              "leaf; library: torch.optim.AdamW(fused=True).step() over the same tensors")
+    log(f"  fused_adamw, {len(leaves)} leaves, {n} params: {ms:.3f} ms "
+        f"({28 * n / ms / 1e9:.2f} TB/s), bound {rows['fused_adamw']['bound_ms']:.3f}, plain "
+        f"{plain_ms:.2f}, torch fused AdamW {library_ms:.3f}")
 
 
 def check_decode(torch, da, rows: dict, timing: bool) -> None:
@@ -832,12 +1099,207 @@ def serve_engine(torch, build, da, model, rows: dict) -> None:
     time_engine(torch, model, prompts)
 
 
+# Trainer gates, kernel path vs plain path of one train step from the same
+# state (step 2, after a warm step: the moments are non-zero), each at
+# ~2.5x its reading on an H100 80GB HBM3 (700 W): the mean loss over the
+# B x L tokens (3.6e-5); each leaf's gradient by relative L2 (worst
+# 3.85e-2, the last layer's q projection, whose gradient sums dq rows that
+# cancel; median 4.5e-3); each leaf's parameters after the update, their
+# difference relative to the update's norm (worst 6.3e-2, the embedding,
+# whose rows first seen in this step move by ~lr sign(g); median 6.4e-3).
+# Both versions round P, dS and the outputs to bf16, at other places.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 0.1
+TRAIN_UPDATE_TOL = 0.15
+# --remat --remat-policy mlp recomputes the same ops on the same inputs:
+# its step-0 loss equals the plain run's up to this relative difference.
+REMAT_LOSS_RTOL = 1e-6
+
+
+def trainer_args(*extra: str, iters: int | None = None):
+    """cli.lm's flags for the trainer's main path (full width, bf16,
+    fused AdamW, flash attention)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    return lm.make_parser().parse_args([
+        "--parallel", "dp", "--d-model", str(MODEL["d_model"]),
+        "--n-layers", str(MODEL["n_layers"]), "--n-heads", str(MODEL["n_heads"]),
+        "--n-kv-heads", str(MODEL["n_kv_heads"]), "--vocab", str(MODEL["vocab_size"]),
+        "--seq-len", str(TRAIN["seq_len"]), "--batch-size", str(TRAIN["batch_size"]),
+        "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--fused-update",
+        "--attn", "flash", "--max-iters", str(iters or TRAIN["max_iters"]), *extra])
+
+
+def recorded(step, losses: list):
+    """The train step, keeping each step's loss tensor."""
+    def run(state, tokens, targets):
+        state, loss = step(state, tokens, targets)
+        losses.append(loss)
+        return state, loss
+    return run
+
+
+def run_trainer(torch, build, rows: dict) -> dict:
+    """The trainer's main path, as cli.lm's main runs it (build, then
+    train_epoch over the synthetic stream), with the launch counts zeroed
+    just before and read just after: per step K1, K2 and K3 once per layer
+    and K7 once per leaf.  Reports step ms (median and range over the
+    timed steps), tokens/s, MFU and peak memory; returns the losses."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+    from distributed_machine_learning_tpu_torch.utils.flops import (
+        mfu,
+        transformer_train_flops_per_token,
+    )
+
+    args = trainer_args()
+    step, state, place, model = lm.build(args)
+    n_leaves = sum(1 for _ in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    losses: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    state, timer = train_epoch(recorded(step, losses), state, lm.synthetic_batches(args),
+                               place_batch=place, max_iters=args.max_iters)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n, layers = args.max_iters, MODEL["n_layers"]
+    log(f"trainer path launches ({n} steps): {launches}")
+    want = {"flash_fwd": layers * n, "flash_bwd_dq": layers * n, "flash_bwd_dkv": layers * n,
+            "fused_adamw": n_leaves * n}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"{name}: {launches[name]} launches on the trainer path, "
+                                 f"want {count}")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["train_launches"] = launches[name]
+        if name in ("flash_bwd_dq", "flash_bwd_dkv", "fused_adamw"):
+            row["launches"] = launches[name]
+    values = [float(x) for x in losses]
+    if state.step != n or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"trainer: step {state.step} of {n}, losses {values}")
+    # Random weights on uniform random tokens: the loss starts near
+    # ln(vocab) (logits of std ~1 add ~0.5) and AdamW pulls it down.
+    first_ok = abs(values[0] - math.log(MODEL["vocab_size"])) < 1.5
+    if not first_ok or values[-1] >= values[0]:
+        raise AssertionError(f"trainer losses out of line: {values}")
+    ms = [t * 1e3 for t in timer.times]
+    med = sorted(ms)[len(ms) // 2]
+    tokens = TRAIN["batch_size"] * TRAIN["seq_len"]
+    fpt = transformer_train_flops_per_token(n_params, layers, MODEL["d_model"],
+                                            TRAIN["seq_len"])
+    log(f"trainer: d{MODEL['d_model']}/{layers}L/GQA-{MODEL['n_kv_heads']}, "
+        f"{n_params} params in {n_leaves} leaves, B={TRAIN['batch_size']} "
+        f"L={TRAIN['seq_len']} bf16, fused AdamW, flash; losses "
+        f"{[round(v, 4) for v in values]}")
+    log(f"trainer: step ms (host clock to the loss sync, iteration 0 untimed) {spread(ms)} "
+        f"-> {tokens / med * 1e3:.0f} tokens/s, MFU {mfu(fpt * tokens / med * 1e3):.4f} "
+        f"({fpt:.4g} FLOPs/token at 989 TFLOP/s); peak memory {peak_gb:.2f} GB")
+    profile_steps(torch, "train step", lambda i: step(state, *place(*next(
+        lm.synthetic_batches(args, seed=i, count=1)))), steps=3)
+    return {"losses": values}
+
+
+def check_remat(torch, build, first_loss: float) -> None:
+    """Two steps with --remat --remat-policy mlp: the same step-0 loss as
+    the plain run (the same weights, batch and kernels), and attention is
+    not recomputed (K1 once per layer per step)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    args = trainer_args("--remat", "--remat-policy", "mlp", iters=2)
+    step, state, place, _ = lm.build(args)
+    losses: list = []
+    build.reset_launch_counts()
+    train_epoch(recorded(step, losses), state, lm.synthetic_batches(args), place_batch=place,
+                max_iters=2)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    diff = abs(float(losses[0]) - first_loss) / abs(first_loss)
+    log(f"remat mlp: losses {[float(x) for x in losses]}, step-0 loss vs the plain run: "
+        f"relative diff {diff:.3e} (tol {REMAT_LOSS_RTOL:g}); launches {launches}")
+    if diff > REMAT_LOSS_RTOL or launches["flash_fwd"] != 2 * MODEL["n_layers"]:
+        raise AssertionError("remat run disagrees with the plain run")
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def check_train_step(torch, label: str = "trainer") -> None:
+    """One train step through the kernels and the same step through the
+    plain versions (plain_kernels), from one state after a warm step; the
+    loss, every leaf's gradient and every leaf's parameters after the
+    update are held to the TRAIN_* limits.  Logs every reading first."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    args = trainer_args(iters=2)
+    (x0, y0), (x1, y1) = lm.synthetic_batches(args)
+    step, state, place, model = lm.build(args)
+    step(state, *place(x0, y0))  # warm: non-zero moments
+    step_p, state_p, _, model_p = lm.build(args)
+    with torch.no_grad():
+        for p, q in zip(model_p.parameters(), model.parameters()):
+            p.copy_(q)
+        for which in ("mu", "nu"):
+            for k, v in state_p.momentum[which].items():
+                v.copy_(state.momentum[which][k])
+    state_p.step = state.step
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    x, y = place(x1, y1)
+    _, loss = step(state, x, y)
+    with plain_kernels():
+        _, loss_p = step_p(state_p, x, y)
+    torch.cuda.synchronize()
+    loss, loss_p = float(loss), float(loss_p)
+    params_p = dict(model_p.named_parameters())
+    grad_err, update_err = {}, {}
+    for k, p in model.named_parameters():
+        grad_err[k] = rel_l2(p.grad, params_p[k].grad)
+        update_err[k] = float((p.detach() - params_p[k].detach()).float().norm()
+                              / (params_p[k].detach() - before[k]).float().norm()
+                              .clamp_min(1e-30))
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_u = max(update_err, key=update_err.get)
+    log(f"{label} step, kernel vs plain path: loss {loss:.6f} vs {loss_p:.6f} (diff "
+        f"{abs(loss - loss_p):.3e}, tol {TRAIN_LOSS_TOL:g}); gradient rel L2 worst "
+        f"{grad_err[worst_g]:.3e} ({worst_g}), median "
+        f"{sorted(grad_err.values())[len(grad_err) // 2]:.3e} (tol {TRAIN_GRAD_TOL:g}); "
+        f"params after the update, diff / update norm worst {update_err[worst_u]:.3e} "
+        f"({worst_u}), median {sorted(update_err.values())[len(update_err) // 2]:.3e} "
+        f"(tol {TRAIN_UPDATE_TOL:g})")
+    failed = []
+    if not (math.isfinite(loss) and math.isfinite(loss_p)) or abs(loss - loss_p) > TRAIN_LOSS_TOL:
+        failed.append("loss")
+    if not grad_err[worst_g] <= TRAIN_GRAD_TOL:
+        failed.append(f"gradient of {worst_g}")
+    if not update_err[worst_u] <= TRAIN_UPDATE_TOL:
+        failed.append(f"update of {worst_u}")
+    if failed:
+        raise AssertionError(f"{label} step, kernel vs plain: {', '.join(failed)} disagree")
+
+
+def train(torch, build, rows: dict) -> None:
+    """The trainer phases: the main path with its counts, the remat run,
+    the kernel-vs-plain step gates."""
+    t0 = time.perf_counter()
+    out = run_trainer(torch, build, rows)
+    check_remat(torch, build, out["losses"][0])
+    check_train_step(torch)
+    log(f"trainer phases: {time.perf_counter() - t0:.1f} s")
+
+
 def perturb(torch, pkg, name: str) -> int:
     """Build one kernel from a broken copy of its source and report which
     checks catch it; 0 if the kernel checks do."""
     from distributed_machine_learning_tpu_torch.ops import build
     from distributed_machine_learning_tpu_torch.ops import decode_attention as da
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+    from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
     from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
 
     kernel, old, new = PERTURBATIONS[name]
@@ -853,27 +1315,38 @@ def perturb(torch, pkg, name: str) -> int:
     build.build_all()
     caught = []
     log(f"perturbation {name}: kernel checks")
-    for check in (lambda: check_flash(torch, fa, {}, timing=False),
-                  lambda: check_decode(torch, da, {}, timing=False),
-                  lambda: check_int8(torch, qm, {}, timing=False),
-                  lambda: check_paged(torch, da, {})):
+    training = kernel in ("flash_bwd", "fused_adamw")
+    checks = ([lambda: check_flash_bwd(torch, fa, {}, timing=False),
+               lambda: check_adamw(torch, fadam, {}, timing=False)] if training else
+              [lambda: check_flash(torch, fa, {}, timing=False),
+               lambda: check_decode(torch, da, {}, timing=False),
+               lambda: check_int8(torch, qm, {}, timing=False),
+               lambda: check_paged(torch, da, {})])
+    for check in checks:
         try:
             check()
         except AssertionError as exc:
             caught.append(f"kernel: {exc}")
-    models, prompt = make_models(torch, pkg)
-    outs = {mode: fn(prompt) for mode, fn in generate_fns(models).items()}
-    log(f"perturbation {name}: logit checks")
-    for mode, out in outs.items():
+    if training:
+        log(f"perturbation {name}: trainer step gates")
         try:
-            check_logits(torch, mode, models[mode], prompt, out)
+            check_train_step(torch, f"perturbation {name}")
         except AssertionError as exc:
-            caught.append(f"logits: {exc}")
-    if kernel == "paged_attention":
-        try:
-            check_engine_step(torch, models["bf16"], *engine_traffic(torch))
-        except AssertionError as exc:
-            caught.append(f"engine logits: {exc}")
+            caught.append(f"trainer: {exc}")
+    else:
+        models, prompt = make_models(torch, pkg)
+        outs = {mode: fn(prompt) for mode, fn in generate_fns(models).items()}
+        log(f"perturbation {name}: logit checks")
+        for mode, out in outs.items():
+            try:
+                check_logits(torch, mode, models[mode], prompt, out)
+            except AssertionError as exc:
+                caught.append(f"logits: {exc}")
+        if kernel == "paged_attention":
+            try:
+                check_engine_step(torch, models["bf16"], *engine_traffic(torch))
+            except AssertionError as exc:
+                caught.append(f"engine logits: {exc}")
     log(f"perturbation {name}: caught by {len(caught)} check(s): {caught}")
     return 0 if any(c.startswith("kernel") for c in caught) else 1
 
@@ -951,6 +1424,7 @@ def main(argv=None) -> int:
         from distributed_machine_learning_tpu_torch.ops import build
         from distributed_machine_learning_tpu_torch.ops import decode_attention as da
         from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+        from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
         from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
     except ImportError as exc:
         print(f"chip_smoke: the port package is missing ({exc}); run from "
@@ -967,7 +1441,7 @@ def main(argv=None) -> int:
     seconds = build.build_all()
     log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.1f} s "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }")
-    for name in build.KERNELS:
+    for name in build.SOURCES:
         log_file = build.BUILD_DIR / f"{name}.log"
         if log_file.exists():
             for line in log_file.read_text().splitlines():
@@ -981,6 +1455,8 @@ def main(argv=None) -> int:
     check_decode(torch, da, rows, timing)
     check_int8(torch, qm, rows, timing)
     check_paged(torch, da, rows)
+    check_flash_bwd(torch, fa, rows, timing)
+    check_adamw(torch, fadam, rows, timing)
     if args.check_only:
         log("check-only: kernels build and agree with their plain versions")
         return 0
@@ -990,24 +1466,33 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serve_engine(torch, build, da, models["bf16"], rows)
     log(f"engine phases: {time.perf_counter() - t0:.1f} s")
+    del models, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    train(torch, build, rows)
 
-    replaces = {
-        "flash_fwd": "distributed_machine_learning_tpu/ops/pallas/flash_attention.py:295",
-        "decode_attention": "distributed_machine_learning_tpu/ops/pallas/decode_attention.py:99",
-        "quant_matmul": "distributed_machine_learning_tpu/ops/pallas/quant_matmul.py:60",
-        "paged_attention": "distributed_machine_learning_tpu/ops/pallas/decode_attention.py:294",
+    pallas = "distributed_machine_learning_tpu/ops/pallas/"
+    replaces = {  # kernel name: (source, the TPU kernel body it replaces)
+        "flash_fwd": ("flash_fwd", pallas + "flash_attention.py:295"),
+        "flash_bwd_dq": ("flash_bwd", pallas + "flash_attention.py:408"),
+        "flash_bwd_dkv": ("flash_bwd", pallas + "flash_attention.py:439"),
+        "decode_attention": ("decode_attention", pallas + "decode_attention.py:99"),
+        "quant_matmul": ("quant_matmul", pallas + "quant_matmul.py:60"),
+        "paged_attention": ("paged_attention", pallas + "decode_attention.py:294"),
+        "fused_adamw": ("fused_adamw", pallas + "fused_adamw.py:85"),
     }
     kernels = []
     for key, row in rows.items():
-        name = key.split(":")[0]
+        source, body = replaces[key.split(":")[0]]
         kernels.append({
             "name": key, "route": "cuda",
-            "source": f"distributed_machine_learning_tpu_torch/ops/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": row["launches"],
+            "source": f"distributed_machine_learning_tpu_torch/ops/csrc/{source}.cu",
+            "replaces": body, "launches": row["launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "engine_launches": row["engine_launches"], "shape": row["shape"]})
+            "engine_launches": row["engine_launches"],
+            "train_launches": row["train_launches"], "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,235 @@
+"""Language-model training entry point of the port: ``--parallel dp`` on one card.
+
+Counterpart of ``distributed_machine_learning_tpu/cli/lm.py``.  Trains the
+decoder-only ``TransformerLM`` on the reference's deterministic synthetic
+token stream (``np.random.default_rng(69143)``): f32 master weights, the
+compute dtype of ``--compute-dtype``, AdamW (``--fused-update``: the fused
+kernel K7), flash attention with its backward kernels K2/K3 where
+``--attn`` picks flash.  The measurement protocol is the reference's:
+``--max-iters`` capped, iteration 0 left out of the timing, the loss
+printed every 20 iterations, the total/average summary at the end.  Runs
+on the GPU unless ``--device cpu`` is given.
+
+Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
+
+    python -m distributed_machine_learning_tpu_torch.cli.lm --parallel dp \\
+        --d-model 2048 --n-layers 8 --n-heads 16 --n-kv-heads 4 --vocab 32000 \\
+        --seq-len 4096 --batch-size 4 --compute-dtype bfloat16 \\
+        --optimizer adamw --fused-update --attn flash --max-iters 8
+
+Every flag of the reference that this port does not carry yet raises
+NotImplementedError naming its ROADMAP item (other ``--parallel`` schemes,
+checkpoints, a text corpus, the fused head+loss, telemetry, more than one
+node).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from distributed_machine_learning_tpu_torch import resolve_device
+from distributed_machine_learning_tpu_torch.cli.common import SEED
+from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+from distributed_machine_learning_tpu_torch.train.lm_step import (
+    init_lm_state,
+    make_lm_eval_step,
+    make_lm_train_step,
+    unwrap_dynamic_scale,
+    with_dynamic_scale,
+)
+from distributed_machine_learning_tpu_torch.train.loop import evaluate_lm, train_epoch
+from distributed_machine_learning_tpu_torch.train.optimizers import (
+    get_optimizer,
+    optimizer_names,
+)
+from distributed_machine_learning_tpu_torch.utils.logging import rank0_print
+
+PARALLEL = ["dp", "ring", "ulysses", "fsdp", "fsdp_pl", "tp", "pp", "3d", "ep"]
+
+# Flags of the reference CLI that this slice does not carry: (dest, the
+# value that means "not asked for", the ROADMAP item).
+_NOT_PORTED = [
+    ("ckpt_dir", None, "A3 'train/checkpoint.py'"),
+    ("resume", None, "A3 'train/checkpoint.py'"),
+    ("max_restarts", 3, "A3 'train/checkpoint.py' (--resume auto)"),
+    ("data_dir", None, "A3 \"data/text.py's corpus loader\""),
+    ("fused_ce_chunks", None, "A3 'ops/fused_ce.py'"),
+    ("telemetry_dir", None, "A6 'telemetry'"),
+    ("telemetry_flush_every", 20, "A6 'telemetry'"),
+    ("momentum_dtype", None, "A4 (SGD)"),
+    ("n_experts", 8, "A5 (--parallel ep)"),
+    ("capacity_factor", 1.25, "A5 (--parallel ep)"),
+    ("ep", None, "A5 (--parallel ep)"),
+    ("moe_impl", "einsum", "A5 (--parallel ep)"),
+    ("ep_slots", None, "A5 (--parallel ep)"),
+    ("ep_seq", 1, "A5 (--parallel ep)"),
+    ("microbatches", 2, "A5 (--parallel pp/3d)"),
+    ("pp_schedule", "1f1b", "A5 (--parallel pp)"),
+    ("pp_chunks", None, "A5 (--parallel pp)"),
+    ("dp", None, "A5 (--parallel 3d)"),
+    ("pp", 2, "A5 (--parallel 3d)"),
+    ("tp", 2, "A5 (--parallel 3d)"),
+    ("zero1_dp", False, "A5 (--parallel 3d)"),
+    ("overlap_update", False, "A5 (--parallel fsdp/pp)"),
+]
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # Node flags (the reference's add_node_flags).
+    p.add_argument("--master-ip", dest="master_ip", default="127.0.1.1:8000")
+    p.add_argument("--rank", default=0, type=int)
+    p.add_argument("--num-nodes", dest="num_nodes", default=1, type=int,
+                   help="processes; more than 1 is not ported yet")
+    p.add_argument("--telemetry-dir", dest="telemetry_dir", default=None)
+    p.add_argument("--telemetry-flush-every", dest="telemetry_flush_every",
+                   default=20, type=int)
+    p.add_argument("--parallel", default="dp", choices=PARALLEL,
+                   help="dp only (one card) in this port so far")
+    p.add_argument("--n-experts", dest="n_experts", default=8, type=int)
+    p.add_argument("--capacity-factor", dest="capacity_factor", default=1.25,
+                   type=float)
+    p.add_argument("--ep", default=None, type=int)
+    p.add_argument("--moe-impl", dest="moe_impl", default="einsum",
+                   choices=["einsum", "grouped"])
+    p.add_argument("--ep-slots", dest="ep_slots", default=None, type=int)
+    p.add_argument("--ep-seq", dest="ep_seq", default=1, type=int)
+    p.add_argument("--d-model", dest="d_model", default=256, type=int)
+    p.add_argument("--n-layers", dest="n_layers", default=4, type=int)
+    p.add_argument("--n-heads", dest="n_heads", default=8, type=int)
+    p.add_argument("--n-kv-heads", dest="n_kv_heads", default=None, type=int,
+                   help="grouped-query attention: K/V heads (default: MHA)")
+    p.add_argument("--vocab", default=256, type=int)
+    p.add_argument("--seq-len", dest="seq_len", default=256, type=int)
+    p.add_argument("--batch-size", dest="batch_size", default=8, type=int,
+                   help="global batch (sequences per step)")
+    p.add_argument("--max-iters", dest="max_iters", default=40, type=int)
+    p.add_argument("--microbatches", default=2, type=int)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--resume", nargs="?", const="latest", default=None,
+                   choices=["latest", "auto"])
+    p.add_argument("--max-restarts", dest="max_restarts", default=3, type=int)
+    p.add_argument("--guard-nonfinite", dest="guard_nonfinite", action="store_true",
+                   help="a NaN/Inf gradient skips that update (state unchanged, "
+                        "step not counted)")
+    p.add_argument("--loss-scale", dest="loss_scale", default="none",
+                   choices=["none", "dynamic"],
+                   help="'dynamic': dynamic loss scaling (overflow skips the "
+                        "update and halves the scale, 200 good steps double it)")
+    p.add_argument("--pp-schedule", dest="pp_schedule", default="1f1b",
+                   choices=["1f1b", "gpipe", "interleaved"])
+    p.add_argument("--pp-chunks", dest="pp_chunks", default=None, type=int)
+    p.add_argument("--dp", default=None, type=int)
+    p.add_argument("--pp", default=2, type=int)
+    p.add_argument("--tp", default=2, type=int)
+    p.add_argument("--zero1-dp", dest="zero1_dp", action="store_true")
+    p.add_argument("--overlap-update", dest="overlap_update", action="store_true")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--optimizer", default="adamw", choices=optimizer_names())
+    p.add_argument("--lr", default=None, type=float,
+                   help="override the optimizer config's learning rate")
+    p.add_argument("--fused-update", dest="fused_update", action="store_true",
+                   help="run the AdamW update as the fused kernel K7 (adamw only)")
+    p.add_argument("--momentum-dtype", dest="momentum_dtype", default=None)
+    p.add_argument("--data-dir", dest="data_dir", default=None)
+    p.add_argument("--eval-batches", dest="eval_batches", default=0, type=int,
+                   help="after training, the perplexity of this many synthetic "
+                        "batches (0 skips)")
+    p.add_argument("--fused-ce-chunks", dest="fused_ce_chunks", default=None,
+                   type=int)
+    p.add_argument("--attn", default="auto", choices=["auto", "dense", "flash"],
+                   help="'auto': flash from the reference's length policy up "
+                        "(ops/flash_attention.flash_wins), dense below")
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing (torch.utils.checkpoint)")
+    p.add_argument("--remat-policy", dest="remat_policy", default="mlp",
+                   choices=["mlp", "block"],
+                   help="with --remat: 'mlp' recomputes only LN2+MLP (attention's "
+                        "out and lse stay saved); 'block' the whole block")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.parallel != "dp":
+        raise NotImplementedError(
+            f"--parallel {args.parallel} is not ported yet: ROADMAP A5 "
+            "(parallelism beyond data parallelism)")
+    if args.num_nodes > 1:
+        raise NotImplementedError(
+            "--num-nodes > 1 is not ported yet: ROADMAP A3 'multi-card dp' "
+            "(runtime/distributed.py over NCCL)")
+    for dest, default, item in _NOT_PORTED:
+        if getattr(args, dest) != default:
+            flag = "--" + dest.replace("_", "-")
+            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
+
+
+def synthetic_tokens(rng: np.random.Generator, batch: int, seq_len: int,
+                     vocab: int) -> np.ndarray:
+    """[B, L+1] int32 token block; [:, :-1] feeds, [:, 1:] targets (the
+    reference's stream, draw for draw)."""
+    return rng.integers(0, vocab, (batch, seq_len + 1)).astype(np.int32)
+
+
+def synthetic_batches(args, seed: int = SEED, count: int | None = None):
+    """The ``(tokens, targets)`` host batches of the run (numpy int32)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(args.max_iters if count is None else count):
+        block = synthetic_tokens(rng, args.batch_size, args.seq_len, args.vocab)
+        yield block[:, :-1], block[:, 1:]
+
+
+def build(args):
+    """``(step, state, place, model)`` of ``--parallel dp`` on one device:
+    the model (f32 parameters from SEED), its TrainState, the train step and
+    the batch placement."""
+    _refuse_unported(args)
+    get_optimizer(args.optimizer)  # raises for the optimizers not ported
+    if args.fused_update and args.optimizer != "adamw":
+        raise ValueError("--fused-update applies to --optimizer adamw only")
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    model = TransformerLM(
+        vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
+        n_heads=args.n_heads, n_kv_heads=args.n_kv_heads, compute_dtype=dtype,
+        attn_impl=args.attn, remat=args.remat, remat_policy=args.remat_policy,
+        device=device)
+    cfg = {"fused": args.fused_update}
+    if args.lr is not None:
+        cfg["learning_rate"] = args.lr
+    state = init_lm_state(model, seed=SEED, config=AdamWConfig(**cfg))
+    step = make_lm_train_step(model, guard_nonfinite=args.guard_nonfinite,
+                              dynamic_scale=args.loss_scale == "dynamic")
+
+    def place(tokens, targets):
+        return (torch.from_numpy(tokens).to(device, torch.long),
+                torch.from_numpy(targets).to(device, torch.long))
+
+    return step, state, place, model
+
+
+def main(argv=None) -> None:
+    args = make_parser().parse_args(argv)
+    step, state, place, model = build(args)
+    rank0_print(f"lm parallel={args.parallel} devices=1 ({model.device}) "
+                f"d_model={args.d_model} layers={args.n_layers} "
+                f"seq_len={args.seq_len} batch={args.batch_size}")
+    if args.loss_scale == "dynamic":
+        state = with_dynamic_scale(state)
+    state, _ = train_epoch(step, state, synthetic_batches(args), place_batch=place,
+                           max_iters=args.max_iters)
+    state = unwrap_dynamic_scale(state)
+    if args.eval_batches:
+        batches = (place(x, y) for x, y in
+                   synthetic_batches(args, SEED + 1, args.eval_batches))
+        evaluate_lm(make_lm_eval_step(model), state.params, batches)
+
+
+if __name__ == "__main__":
+    main()

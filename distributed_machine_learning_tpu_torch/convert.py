@@ -19,8 +19,10 @@ Flax                                  port
 int8: ``w_q`` [D_in, K] + ``scale``   ``w_q`` [D_in, K] + ``scale``
 ====================================  ===================================
 
-Biases are flattened to [out].  :func:`init_params` draws fresh weights
-for a port model from a ``torch.Generator``.
+Biases are flattened to [out].  :func:`flax_adamw_state` maps the
+reference's AdamW moments (params-shaped trees) with the same table.
+:func:`init_params` draws fresh weights for a port model from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -75,6 +77,17 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         _projection("fc_out", blk["fc_out"], f"{pre}.fc_out", out)
     _layer_norm(params["ln_f"], "ln_f", out)
     _projection("lm_head", params["lm_head"], "lm_head", out)
+    return out
+
+
+def flax_adamw_state(moments: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """The reference's AdamW moments ``{"mu": tree, "nu": tree}`` (each
+    shaped like the params tree, f32) → ``{"mu": state_dict, "nu":
+    state_dict}``, the port's ``TrainState.momentum``: the moments are
+    elementwise per parameter, so the parameter map carries them."""
+    out = {which: flax_to_state_dict(moments[which]) for which in ("mu", "nu")}
+    if out["mu"].keys() != out["nu"].keys():
+        raise ValueError("mu and nu do not hold the same parameters")
     return out
 
 

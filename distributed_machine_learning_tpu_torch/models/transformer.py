@@ -22,9 +22,18 @@ paged pool through its block table (:class:`PagedKV`) and attended by
 a dense per-row cache and runs the einsum instead; see
 ``inference/continuous.py``.)
 
+Training: the full causal pass is differentiable (flash attention's
+backward is an autograd Function over K2/K3).  Parameters stay f32 and
+each projection casts them to the compute dtype, as Flax's
+``Dense(dtype=...)`` does.  ``remat=True`` checkpoints the LN2+MLP
+sub-layer (``remat_policy="mlp"``: attention's saved ``(out, lse)`` stay
+resident, so the backward never re-runs attention) or the whole block
+(``"block"``), with ``torch.utils.checkpoint`` (reference
+``models/transformer.py:614-709``).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item
 where the model has the option): ring / ring_flash / ulysses attention,
-remat, the int8 KV cache and multi-token decode continuation; nor
+the int8 KV cache and multi-token decode continuation; nor
 tensor-parallel decode, MoE blocks, or per-row frontiers over a dense
 cache (the reference's ``decode_batched_frontier`` outside the engine,
 used by batched speculative decoding).
@@ -38,6 +47,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributed_machine_learning_tpu_torch.ops.decode_attention import (
     cached_flash_attention,
@@ -250,15 +260,18 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN block: x + attn(ln1(x)), then + fc_out(gelu(fc_in(ln2(x))))."""
+    """Pre-LN block: x + attn(ln1(x)), then + fc_out(gelu(fc_in(ln2(x)))).
+    ``remat_mlp``: the LN2+MLP sub-layer is recomputed in the backward
+    instead of saving its activations (the selective remat policy)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: int | None, attn_impl: str,
                  compute_dtype: torch.dtype, weight_quant: str | None,
-                 device=None):
+                 device=None, remat_mlp: bool = False):
         super().__init__()
         quant = weight_quant == "int8"
         self.compute_dtype = compute_dtype
+        self.remat_mlp = remat_mlp
         self.ln1 = LayerNorm(d_model, compute_dtype, device)
         self.attn = Attention(d_model, n_heads, n_kv_heads, attn_impl,
                               compute_dtype, weight_quant, device)
@@ -266,13 +279,19 @@ class Block(nn.Module):
         self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
         self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
 
-    def forward(self, x, positions, rope, cache=None, start: int = 0,
-                paged=None):
-        x = x + self.attn(self.ln1(x), positions, rope, cache, start, paged)
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """LN2 + feed-forward sub-layer (the residual is added by the caller)."""
         cd = self.compute_dtype
         h = _project(self.fc_in, self.ln2(x), cd)
         h = F.gelu(h, approximate="tanh")  # Flax nn.gelu is the tanh form
-        return x + _project(self.fc_out, h, cd)
+        return _project(self.fc_out, h, cd)
+
+    def forward(self, x, positions, rope, cache=None, start: int = 0,
+                paged=None):
+        x = x + self.attn(self.ln1(x), positions, rope, cache, start, paged)
+        if self.remat_mlp and cache is None and paged is None:
+            return x + checkpoint(self.mlp, x, use_reentrant=False)
+        return x + self.mlp(x)
 
 
 _ATTN_IMPLS = ("dense", "flash", "auto")
@@ -288,7 +307,9 @@ class TransformerLM(nn.Module):
     ``forward(tokens [W, 1], paged=PagedKV(...))`` is one paged decode
     step: every lane at its own position.
     ``weight_quant="int8"`` builds :class:`QuantLinear` projections (load
-    weights from ``ops.quant.quantize_lm_params``)."""
+    weights from ``ops.quant.quantize_lm_params``).  ``remat`` with
+    ``remat_policy`` "mlp" or "block": activation checkpointing on the
+    full causal pass (see the module note)."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_layers: int = 4,
                  n_heads: int = 8, d_ff: int | None = None,
@@ -296,7 +317,7 @@ class TransformerLM(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  n_kv_heads: int | None = None, kv_cache_dtype=None,
                  weight_quant: str | None = None, remat: bool = False,
-                 device=None):
+                 remat_policy: str = "mlp", device=None):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise NotImplementedError(
@@ -307,9 +328,9 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "a KV-cache dtype other than the compute dtype (the int8 KV "
                 "cache) is not ported yet: ROADMAP A1 'K4's int8-cache mode'")
-        if remat:
-            raise NotImplementedError(
-                "remat is a training feature: ROADMAP A3 'the LM trainer'")
+        if remat_policy not in ("mlp", "block"):
+            raise ValueError(f"remat_policy must be 'mlp' or 'block', got "
+                             f"{remat_policy!r}")
         if weight_quant not in (None, "int8"):
             raise ValueError(f"weight_quant must be None or 'int8', got "
                              f"{weight_quant!r}")
@@ -317,8 +338,10 @@ class TransformerLM(nn.Module):
             vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
             n_heads=n_heads, d_ff=d_ff, attn_impl=attn_impl,
             compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
-            weight_quant=weight_quant)
+            weight_quant=weight_quant, remat=remat, remat_policy=remat_policy)
         self.vocab_size = vocab_size
+        self.attn_impl = attn_impl
+        self.remat_block = remat and remat_policy == "block"
         self.compute_dtype = compute_dtype
         self.weight_quant = weight_quant
         self.n_heads = n_heads
@@ -328,7 +351,8 @@ class TransformerLM(nn.Module):
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, d_ff, n_kv_heads, attn_impl,
-                  compute_dtype, weight_quant, device)
+                  compute_dtype, weight_quant, device,
+                  remat_mlp=remat and remat_policy == "mlp")
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, compute_dtype, device)
         self.lm_head = _linear(d_model, vocab_size, weight_quant == "int8",
@@ -338,10 +362,12 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
-    def clone(self, **overrides) -> "TransformerLM":
-        """A new model of this config (with ``overrides``) on this device;
-        its weights are freshly initialized, not copied."""
-        return TransformerLM(**{**self.config, **overrides}, device=self.device)
+    def clone(self, device=None, **overrides) -> "TransformerLM":
+        """A new model of this config (with ``overrides``) on ``device``
+        (default: this model's); its weights are freshly initialized, not
+        copied."""
+        return TransformerLM(**{**self.config, **overrides},
+                             device=self.device if device is None else device)
 
     def init_cache(self, batch: int, slots: int) -> KVCache:
         """Zeroed head-major caches [batch, Hkv, slots, D] per layer, in
@@ -352,9 +378,12 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: KVCache | None = None,
                 start: int = 0, last_only: bool = False,
-                paged: PagedKV | None = None) -> torch.Tensor:
+                paged: PagedKV | None = None,
+                return_hidden: bool = False) -> torch.Tensor:
         """``last_only=True`` returns logits for the last position only
-        ([B, 1, vocab]): the head runs on one row per sequence."""
+        ([B, 1, vocab]): the head runs on one row per sequence.
+        ``return_hidden=True`` returns the post-``ln_f`` hidden states [B, L,
+        E] in the compute dtype instead of logits, skipping the head."""
         B, L = tokens.shape
         layer_paged = None
         if paged is not None:
@@ -373,9 +402,14 @@ class TransformerLM(nn.Module):
         x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else (cache.keys[i], cache.values[i])
+            if self.remat_block and layer_cache is None and layer_paged is None:
+                x = checkpoint(block, x, positions, rope, use_reentrant=False)
+                continue
             x = block(x, positions, rope, layer_cache, start,
                       None if layer_paged is None else layer_paged[i])
         if last_only:
             x = x[:, -1:]
         x = self.ln_f(x)
+        if return_hidden:
+            return x
         return _project(self.lm_head, x, self.compute_dtype).float()

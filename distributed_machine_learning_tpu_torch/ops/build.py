@@ -8,9 +8,10 @@ an edited source is never served by a stale build.  ``build_all``
 starts one ``nvcc`` per source at once, so the kernels build in
 parallel.  A failed build raises with the compiler's output.
 
-``launches`` holds one plain int per kernel.  A wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels (``reset_launch_counts`` zeroes them).
+``launches`` holds one plain int per kernel (``KERNELS``; one source may
+hold several, as ``flash_bwd.cu`` holds dQ and dK/dV).  A wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels (``reset_launch_counts`` zeroes them).
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_fwd", "decode_attention", "quant_matmul", "paged_attention")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul",
+           "paged_attention", "fused_adamw")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+           "quant_matmul", "paged_attention", "fused_adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,8 +70,8 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
-    """Compile every named kernel not built yet, one ``nvcc`` process per
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every named source not built yet, one ``nvcc`` process per
     source, all started together.  Returns the wall seconds each build
     took (0.0 for a library already on disk); raises on any failure.
     The compiler's output (``-Xptxas -v``: registers, shared memory,
@@ -104,7 +108,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built on first use."""
+    """The loaded shared library of source ``name``, built on first use."""
     lib = _libs.get(name)
     if lib is None:
         build_all([name])
@@ -116,7 +120,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def function(name: str, symbol: str, argtypes: list):
-    """C entry point ``symbol`` of kernel ``name`` with its argument types
+    """C entry point ``symbol`` of source ``name`` with its argument types
     declared (every pointer and the stream as ``c_void_p``) and a
     cudaError_t (int) result."""
     fn = getattr(library(name), symbol)

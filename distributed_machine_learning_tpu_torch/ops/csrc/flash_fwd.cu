@@ -26,8 +26,10 @@
 //   of query head h is h / (H / Hkv), read in place: repeated K/V are
 //   never materialised.  Inputs are read through their strides, so q, k, v
 //   can be slices of a fused projection.  Query tiles are issued longest
-//   first (the diagonal makes late tiles the heaviest).  No lse output:
-//   serving needs none; the training slice adds it.  No wgmma/TMA yet.
+//   first (the diagonal makes late tiles the heaviest).  Each row's
+//   logsumexp is written in log2 space, m + log2(max(l, 1e-30)) as f32
+//   [B, H, L] (the TPU kernel's lse output, the one O(L) residual the
+//   backward kernels need; serving drops it).  No wgmma/TMA yet.
 //
 // f32 inputs (a float32 compute dtype) take a second, plain kernel on the
 //   CUDA cores, so the scores stay true f32 products as in the TPU
@@ -36,7 +38,8 @@
 //   4th of the row's D dims (conflict-free shared-memory reads); 32-key
 //   K/V tiles in shared memory; per tile, the 32 scores (a 4-lane shuffle
 //   sum each), one max/rescale, then P V.  Same causal tile loop, masking
-//   and base-2 softmax as the bf16 kernel; P needs no rounding.
+//   and base-2 softmax as the bf16 kernel; P needs no rounding.  Same lse
+//   output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,8 +95,8 @@ template <int D>
 __global__ void __launch_bounds__(NWARPS * 32)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     Strides qs, Strides ks, Strides vs, Strides os, int L, int H, int Hkv,
-                     float scale_log2) {
+                     float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+                     int L, int H, int Hkv, float scale_log2) {
   constexpr int P = D + 8;  // smem row pitch (bf16): conflict-free fragment loads
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
@@ -249,7 +252,9 @@ __global__ void __launch_bounds__(NWARPS * 32)
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + wr + g + half * 8;
     if (row >= L) continue;
-    const float inv = 1.f / fmaxf(l_run[half], 1e-30f);
+    const float l_safe = fmaxf(l_run[half], 1e-30f);
+    const float inv = 1.f / l_safe;
+    if (t == 0) lse[static_cast<long long>(bh) * L + row] = m_run[half] + log2f(l_safe);
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {
       *reinterpret_cast<__nv_bfloat162*>(ob + row * os.l + nd * 8 + 2 * t) =
@@ -264,9 +269,9 @@ constexpr int F32_BQ = 64, F32_BKV = 32, F32_TPR = 4;  // rows, keys, threads pe
 template <int D>
 __global__ void __launch_bounds__(F32_BQ* F32_TPR)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out, Strides qs,
-                         Strides ks, Strides vs, Strides os, int L, int H, int Hkv,
-                         float scale_log2) {
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+                         int L, int H, int Hkv, float scale_log2) {
   constexpr int NT = F32_BQ * F32_TPR;
   constexpr int DPT = D / F32_TPR;  // dims per thread: d = i * F32_TPR + t
   __shared__ float Ks[F32_BKV][D];
@@ -327,26 +332,28 @@ __global__ void __launch_bounds__(F32_BQ* F32_TPR)
     m = m_new;
   }
   if (row >= L) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
+  const float l_safe = fmaxf(l, 1e-30f);
+  const float inv = 1.f / l_safe;
+  if (t == 0) lse[static_cast<long long>(bh) * L + row] = m + log2f(l_safe);
   float* orow = out + b * os.b + h * os.h + static_cast<long long>(row) * os.l;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) orow[i * F32_TPR + t] = acc[i] * inv;
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
-               Strides vs, Strides os, int B, int L, int H, int Hkv, float scale_log2,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, Strides qs,
+               Strides ks, Strides vs, Strides os, int B, int L, int H, int Hkv,
+               float scale_log2, cudaStream_t stream) {
   dim3 grid((L + F32_BQ - 1) / F32_BQ, B * H);
   flash_fwd_f32_kernel<D><<<grid, F32_BQ * F32_TPR, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), qs, ks, vs, os, L, H, Hkv, scale_log2);
+      static_cast<float*>(out), lse, qs, ks, vs, os, L, H, Hkv, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
-           Strides vs, Strides os, int B, int L, int H, int Hkv, float scale_log2,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, Strides qs,
+           Strides ks, Strides vs, Strides os, int B, int L, int H, int Hkv, float scale_log2,
            cudaStream_t stream) {
   constexpr int smem = (BQ + 4 * BKV) * (D + 8) * 2;
   static bool configured = false;
@@ -359,8 +366,8 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides qs, S
   dim3 grid((L + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), qs, ks, vs, os, L,
-      H, Hkv, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, qs, ks, vs, os,
+      L, H, Hkv, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,9 +375,10 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides qs, S
 
 // q [B, L, H, D], k/v [B, L, Hkv, D], out [B, L, H, D]: views of one
 // dtype (is_bf16 ? bf16 : f32) whose last dim is contiguous, with element
-// strides (batch, seq, head) given.  Returns the cudaError_t of the launch;
-// cudaErrorInvalidValue for an unsupported head dim.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
+// strides (batch, seq, head) given; lse: a contiguous f32 [B, H, L].
+// Returns the cudaError_t of the launch; cudaErrorInvalidValue for an
+// unsupported head dim.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          long long q_sb, long long q_sl, long long q_sh, long long k_sb,
                          long long k_sl, long long k_sh, long long v_sb, long long v_sl,
                          long long v_sh, long long o_sb, long long o_sl, long long o_sh, int B,
@@ -379,10 +387,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   const Strides qs{q_sb, q_sl, q_sh}, ks{k_sb, k_sl, k_sh}, vs{v_sb, v_sl, v_sh},
       os{o_sb, o_sl, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
 #define FLASH_CASE(DIM)                                                                      \
   case DIM:                                                                                  \
-    return is_bf16 ? launch<DIM>(q, k, v, out, qs, ks, vs, os, B, L, H, Hkv, scale_log2, s)  \
-                   : launch_f32<DIM>(q, k, v, out, qs, ks, vs, os, B, L, H, Hkv, scale_log2, s);
+    return is_bf16 ? launch<DIM>(q, k, v, out, lse_f, qs, ks, vs, os, B, L, H, Hkv, scale_log2, s) \
+                   : launch_f32<DIM>(q, k, v, out, lse_f, qs, ks, vs, os, B, L, H, Hkv, scale_log2,  \
+                                     s);
   switch (D) {
     FLASH_CASE(32)
     FLASH_CASE(64)

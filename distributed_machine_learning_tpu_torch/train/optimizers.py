@@ -1,0 +1,58 @@
+"""Optimizer registry: name → (config class, init, update).
+
+Counterpart of ``distributed_machine_learning_tpu/train/optimizers.py``.
+Every update fn shares the signature ``(params, moments, grads, config,
+lr=None, step=None) -> (params, moments)`` and updates in place.  Only
+AdamW is ported; SGD and LARS (the reference-parity VGG optimizers) come
+with ROADMAP A4.
+"""
+
+from __future__ import annotations
+
+from distributed_machine_learning_tpu_torch.train.adamw import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+)
+
+OPTIMIZERS = {
+    "adamw": (AdamWConfig, adamw_init, adamw_update),
+}
+NOT_PORTED = ("lars", "sgd")
+
+
+def optimizer_names() -> list[str]:
+    """Every optimizer name the reference knows, ported or not."""
+    return sorted([*OPTIMIZERS, *NOT_PORTED])
+
+
+def get_optimizer(name: str):
+    """(config_class, init_fn, update_fn) for ``name``."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet: ROADMAP A4 (the "
+            "reference-parity VGG CLIs bring train/sgd.py and train/lars.py)")
+    try:
+        return OPTIMIZERS[name]
+    except KeyError:
+        raise ValueError(f"unknown optimizer {name!r}; choose from "
+                         f"{optimizer_names()}") from None
+
+
+def _entry_for_config(config):
+    for entry in OPTIMIZERS.values():
+        if type(config) is entry[0]:
+            return entry
+    raise ValueError(f"no registered optimizer for config type "
+                     f"{type(config).__name__} (registered: {sorted(OPTIMIZERS)})")
+
+
+def init_for_config(config):
+    """Moments init fn for a config instance, with the config bound in."""
+    init = _entry_for_config(config)[1]
+    return lambda params: init(params, config)
+
+
+def update_fn_for_config(config):
+    """Update fn for a config instance."""
+    return _entry_for_config(config)[2]

@@ -15,6 +15,7 @@ from distributed_machine_learning_tpu_torch.models import transformer
 from distributed_machine_learning_tpu_torch.ops import build
 from distributed_machine_learning_tpu_torch.ops import decode_attention as da
 from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
+from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
 from distributed_machine_learning_tpu_torch.ops import quant
 from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
 
@@ -26,6 +27,20 @@ from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
 # spacings of the row's largest value.  f32: summation order only.
 BF16_TOL = (2.0 ** -6, 1e-2)
 F32_TOL = (1e-4, 1e-4)
+# Attention gradients: the same row gates, each row's scale bounded below by
+# a fraction of the whole tensor's: dq of query 0 (which sees only key 0)
+# is zero in exact arithmetic, rounding noise in both versions (~2e-6 of
+# the tensor's scale in f32, so the f32 gate of 1e-4 needs a floor of 5e-2
+# for that row; other f32 rows agree to ~1e-6 of their own scale).
+GRAD_ROW_FLOOR = {torch.bfloat16: 1e-3, torch.float32: 5e-2}
+# f32 gradients: summation order only, but a dq row sums dS K with
+# sum_k dS = 0, so its terms cancel: 10x the forward's f32 limit (a worst
+# row read 1.2e-4 at D 128).
+F32_GRAD_TOL = (1e-3, 1e-3)
+# lse (log2 space, ~log2 L): the same f32 sums in another order.
+LSE_TOL = 1e-3
+# K7 vs its plain version: the reference's contract, 8 ulp per update.
+ADAMW_ULP_TOL = 8
 
 
 @pytest.fixture()
@@ -37,22 +52,37 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, want, tol):
+def _close(got, want, tol, floor=0.0):
     elem_tol, rms_tol = tol
     got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
     assert torch.isfinite(got).all()
     err = got - want
     tiny = torch.finfo(torch.float32).tiny
-    elem = err.abs().amax(-1) / want.abs().amax(-1).clamp_min(tiny)
-    rms = err.square().mean(-1).sqrt() / want.square().mean(-1).sqrt().clamp_min(tiny)
+    peak = max(floor * float(want.abs().max()), tiny)
+    level = max(floor * float(want.square().mean().sqrt()), tiny)
+    elem = err.abs().amax(-1) / want.abs().amax(-1).clamp_min(peak)
+    rms = err.square().mean(-1).sqrt() / want.square().mean(-1).sqrt().clamp_min(level)
     assert float(elem.max()) <= elem_tol, f"worst row elem error {float(elem.max()):.3e}"
     assert float(rms.max()) <= rms_tol, f"worst row rms error {float(rms.max()):.3e}"
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The model's kernel entry points routed to their plain versions."""
-    swaps = [(transformer, "flash_self_attention", fa.flash_attention_reference),
+    """The model's and the trainer's kernel entry points routed to their
+    plain versions (attention with a gradient keeps the autograd Function,
+    with its launchers swapped)."""
+    flash = fa.flash_self_attention
+
+    def plain_flash(q, k, v):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return flash(q, k, v)
+        return fa.flash_attention_reference(q, k, v)
+
+    swaps = [(transformer, "flash_self_attention", plain_flash),
+             (fa, "_launch", lambda q, k, v: fa.flash_attention_reference(
+                 q, k, v, return_lse=True)),
+             (fa, "_launch_bwd", fa.flash_attention_backward_reference),
+             (fadam, "_launch", fadam.fused_adamw_reference),
              (transformer, "cached_flash_attention", da.cached_attention_reference),
              (transformer, "paged_flash_attention", da.paged_attention_reference),
              (quant, "int8_matmul", qm.int8_matmul_reference)]
@@ -88,6 +118,153 @@ def test_flash_kernel_reads_strided_slices(cuda):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     _close(fa.flash_self_attention(q, k, v),
            fa.flash_attention_reference(q, k, v), BF16_TOL)
+
+
+@pytest.mark.parametrize("L", [100, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_lse_matches_plain(cuda, dtype, L):
+    q = torch.randn(2, L, 8, 128, device="cuda", generator=cuda).to(dtype)
+    k = torch.randn(2, L, 2, 128, device="cuda", generator=cuda).to(dtype)
+    v = torch.randn(2, L, 2, 128, device="cuda", generator=cuda).to(dtype)
+    out, lse = fa._launch(q, k, v)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    assert lse.shape == (2, 8, L) and lse.dtype == torch.float32
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    _close(out, want, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
+def _bwd_inputs(gen, B, L, H, Hkv, D, dtype):
+    q, k, v, do = (torch.randn(B, L, n, D, device="cuda", generator=gen).to(dtype)
+                   for n in (H, Hkv, Hkv, H))
+    out, lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("L", [100, 1024])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (4, 2, 32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_kernels_match_plain(cuda, L, H, Hkv, D, dtype):
+    """K2 and K3 on the same inputs as their plain version (MHA and GQA,
+    head dims 32/64/128, a ragged length)."""
+    args = _bwd_inputs(cuda, 2, L, H, Hkv, D, dtype)
+    before = (build.launches["flash_bwd_dq"], build.launches["flash_bwd_dkv"])
+    dq = fa._launch_dq(*args)
+    dk, dv = fa._launch_dkv(*args)
+    torch.cuda.synchronize()
+    assert (build.launches["flash_bwd_dq"], build.launches["flash_bwd_dkv"]) == (
+        before[0] + 1, before[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_GRAD_TOL
+    for got, want in zip((dq, dk, dv), fa.flash_attention_backward_reference(*args)):
+        _close(got, want, tol, GRAD_ROW_FLOOR[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_gradients_through_autograd_padded(cuda, dtype):
+    """A padded length (1100 → 1536) through the autograd Function, kernel
+    path vs plain path, GQA."""
+    q, k, v, do, _, _ = _bwd_inputs(cuda, 1, 1100, 8, 2, 64, dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(fa.flash_self_attention(q, k, v), (q, k, v), do)
+    with plain_kernels():
+        want = torch.autograd.grad(fa.flash_self_attention(q, k, v), (q, k, v), do)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_GRAD_TOL
+    for g, w in zip(got, want):
+        _close(g, w, tol, GRAD_ROW_FLOOR[dtype])
+
+
+def test_flash_attention_has_a_gradient_on_the_card(cuda):
+    """A loss through the kernel path reaches q, k and v."""
+    q, k, v = (torch.randn(1, 512, n, 64, device="cuda", generator=cuda,
+                           dtype=torch.bfloat16, requires_grad=True) for n in (4, 2, 2))
+    fa.flash_self_attention(q, k, v).float().square().sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert all(bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0
+               for t in (q, k, v))
+
+
+def _ulp_err(got, want, *terms):
+    """ulps of want's dtype at the larger of |want| and the |terms| it sums
+    (FMA contraction rounds once where the plain chain rounds twice; where
+    the terms cancel, that is many ulps of the result)."""
+    bits = 8 if want.dtype == torch.bfloat16 else 24
+    scale = want.float().abs()
+    for t in terms:
+        scale = torch.maximum(scale, t.abs())
+    _, e = torch.frexp(scale)
+    ulp = torch.ldexp(torch.ones_like(scale), e - bits)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 13, 4096, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_adamw_kernel_matches_plain(cuda, n, dtype):
+    """One update from a non-zero state at step 10, ragged lengths included:
+    params and moments within 8 ulp of the plain version."""
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    p = (0.02 * torch.randn(n, device="cuda", generator=cuda)).to(dtype)
+    mu = 1e-3 * torch.randn(n, device="cuda", generator=cuda)
+    nu = 1e-6 * torch.rand(n, device="cuda", generator=cuda)
+    g = (1e-3 * torch.randn(n, device="cuda", generator=cuda)).to(dtype)
+    got = [t.clone() for t in (p, mu, nu, g)]
+    want = [t.clone() for t in (p, mu, nu, g)]
+    before = build.launches["fused_adamw"]
+    scalars = (3e-4, 1 - 0.9 ** 11, 1 - 0.999 ** 11)
+    fadam.fused_adamw_leaf(*got, *scalars, **hyper)
+    torch.cuda.synchronize()
+    assert build.launches["fused_adamw"] == before + 1
+    fadam.fused_adamw_reference(*want, *scalars, **hyper)
+    assert got[0].dtype == dtype
+    g32 = g.float()
+    terms = ([p.float()], [0.9 * mu, 0.1 * g32], [0.999 * nu, 0.001 * g32 * g32])
+    for i in range(3):
+        assert _ulp_err(got[i], want[i], *terms[i]) <= ADAMW_ULP_TOL
+
+
+def test_fused_adamw_kernel_refuses_what_it_does_not_take(cuda):
+    p = torch.zeros(64, device="cuda")
+    f32 = torch.zeros(64, device="cuda")
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fadam.fused_adamw_leaf(p.half(), f32, f32, p.half(), 1e-3, 0.1, 0.001,
+                               beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0)
+    with pytest.raises(ValueError, match="aligned"):
+        fadam.fused_adamw_leaf(p[1:], f32[1:], f32[1:], p[1:], 1e-3, 0.1, 0.001,
+                               beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0)
+
+
+def test_trainer_on_the_card_matches_plain_path(cuda):
+    """Two bf16 train steps of a small GQA model with flash attention and the
+    fused update, kernel path vs plain path from the same weights: the
+    losses agree and every kernel of the step launched."""
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+    from distributed_machine_learning_tpu_torch.train.lm_step import (
+        init_lm_state,
+        make_lm_train_step,
+    )
+
+    tokens = torch.randint(0, 257, (3, 2, 1025), device="cuda", generator=cuda)
+
+    def train():
+        model = TransformerLM(vocab_size=257, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, attn_impl="flash",
+                              compute_dtype=torch.bfloat16, device="cuda")
+        state = init_lm_state(model, seed=0, config=AdamWConfig(fused=True))
+        step = make_lm_train_step(model)
+        return [float(step(state, t[:, :-1], t[:, 1:])[1]) for t in tokens]
+
+    build.reset_launch_counts()
+    got = train()
+    assert build.launches["flash_fwd"] == build.launches["flash_bwd_dq"] == 2 * 3
+    assert build.launches["flash_bwd_dkv"] == 2 * 3
+    assert build.launches["fused_adamw"] == 3 * (1 + 14 * 2 + 4)
+    with plain_kernels():
+        want = train()
+    assert build.launches["fused_adamw"] == 3 * 33  # the plain path launched nothing
+    # bf16 logits of one model, kernel vs plain attention: ~1e-3 apart.
+    assert all(abs(g - w) <= 2e-2 for g, w in zip(got, want)), (got, want)
 
 
 @pytest.mark.parametrize("D", [32, 128])
