@@ -21,6 +21,11 @@ int8: ``w_q`` [D_in, K] + ``scale``   ``w_q`` [D_in, K] + ``scale``
 
 Biases are flattened to [out].  :func:`flax_adamw_state` maps the
 reference's AdamW moments (params-shaped trees) with the same table.
+:func:`flax_vgg_to_state_dict` maps a reference ``VGG``'s params and
+batch_stats (``Conv_i`` kernels HWIO -> ``convs.i.weight`` OIHW,
+``BatchNorm_i`` scale/bias/mean/var -> ``bns.i``, ``fc1`` kernel
+transposed); :func:`flax_vgg_tree` maps a params-shaped tree of the port
+(gradients, SGD buffers) the other way.
 :func:`init_params` draws fresh weights for a port model from a
 ``torch.Generator``.
 """
@@ -111,3 +116,44 @@ def init_params(model, seed: int = 0) -> None:
             p.fill_(1.0)
         else:
             p.zero_()
+
+
+def flax_vgg_to_state_dict(params: dict, batch_stats: dict | None = None
+                           ) -> dict[str, torch.Tensor]:
+    """A reference ``VGG``'s variables as the port's ``VGG`` state_dict."""
+    out = {}
+    n_conv = sum(1 for k in params if k.startswith("Conv_"))
+    for i in range(n_conv):
+        conv = params[f"Conv_{i}"]
+        out[f"convs.{i}.weight"] = _tensor(conv["kernel"]).permute(3, 2, 0, 1).contiguous()
+        out[f"convs.{i}.bias"] = _tensor(conv["bias"])
+        if f"BatchNorm_{i}" in params:
+            bn = params[f"BatchNorm_{i}"]
+            out[f"bns.{i}.weight"] = _tensor(bn["scale"])
+            out[f"bns.{i}.bias"] = _tensor(bn["bias"])
+            stats = (batch_stats or {})[f"BatchNorm_{i}"]
+            out[f"bns.{i}.running_mean"] = _tensor(stats["mean"])
+            out[f"bns.{i}.running_var"] = _tensor(stats["var"])
+    out["fc1.weight"] = _tensor(params["fc1"]["kernel"]).T.contiguous()
+    out["fc1.bias"] = _tensor(params["fc1"]["bias"])
+    return out
+
+
+def flax_vgg_tree(named: dict) -> dict:
+    """A port ``VGG``'s params-shaped tensors by name (parameters,
+    gradients, momentum buffers) as the reference's nested numpy tree."""
+    tree: dict = {}
+    for name, t in named.items():
+        if name.startswith("fc1."):
+            continue
+        a = t.detach().cpu().float().numpy()
+        group, i, leaf = name.split(".")
+        if group == "convs":
+            key, leaf = f"Conv_{i}", {"weight": "kernel", "bias": "bias"}[leaf]
+            a = a.transpose(2, 3, 1, 0) if leaf == "kernel" else a
+        else:
+            key, leaf = f"BatchNorm_{i}", {"weight": "scale", "bias": "bias"}[leaf]
+        tree.setdefault(key, {})[leaf] = a
+    tree["fc1"] = {"kernel": named["fc1.weight"].detach().cpu().float().numpy().T,
+                   "bias": named["fc1.bias"].detach().cpu().float().numpy()}
+    return tree

@@ -1,0 +1,156 @@
+"""Multi-process bootstrap and the transport the gradient sync runs over.
+
+Counterpart of ``distributed_machine_learning_tpu/runtime/distributed.py``.
+The reference rendezvouses over raw TCP,
+``dist.init_process_group("gloo", init_method="tcp://" + master_ip,
+world_size=num_nodes, rank=rank)`` (``part2/2a/main.py:197``), with the
+flags ``--master-ip`` (default ``127.0.1.1:8000``), ``--rank`` and
+``--num-nodes``.  The JAX package maps them onto its coordination service
+and runs every rank of a host in one process; the port goes back to the
+reference's shape: one process per rank, through ``torch.distributed``.
+``num_nodes == 1`` initializes nothing, as the reference's part1 never
+calls ``init_process_group``.
+
+Rank ``r`` runs on ``cuda:{r % device_count}`` (or on the CPU under
+``--device cpu``).  The backend follows where the ranks live:
+
+- ``nccl`` when every rank has a card of its own;
+- ``gloo`` when ranks share a card (world > the host's card count) or run
+  on the CPU: NCCL refuses two ranks on one device.
+
+gloo's ``send``/``recv``/``all_gather`` take CPU tensors only, so under
+gloo with CUDA tensors :class:`Comm` stages every payload through host
+buffers itself (the "host" wire).  That is a choice of wire, stated in the
+run's banner, not a fallback: compute and the codec kernels stay on the
+card, and a failure under the chosen backend raises.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from distributed_machine_learning_tpu_torch import resolve_device
+
+# Reference defaults (part2/2a/main.py:213-215).
+DEFAULT_MASTER_IP = "127.0.1.1:8000"
+# Rendezvous and collective timeout: a rank that never arrives (or dies)
+# fails the run instead of hanging it.
+TIMEOUT_S = 300.0
+
+
+def rank_device(rank: int, device=None) -> torch.device:
+    """The device rank ``rank`` runs on: ``cuda:{rank % device_count}`` by
+    default (raises without a card), the CPU when ``device`` says so."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def choose_backend(world: int, device: torch.device) -> str:
+    """``nccl`` when each of ``world`` ranks has a card of its own, else
+    ``gloo`` (ranks sharing a card, or on the CPU)."""
+    if device.type == "cuda" and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+class Comm:
+    """The point-to-point and collective calls the sync strategies use,
+    for this rank of a ``world``-rank group (the default process group).
+
+    ``wire`` says how payloads travel: ``"nccl"``, ``"gloo"`` (CPU tensors)
+    or ``"host"`` (gloo with CUDA tensors: each payload is copied to a host
+    buffer, sent, and copied back to the card).  At world 1 every call is
+    the identity."""
+
+    def __init__(self, rank: int = 0, world: int = 1, backend: str | None = None,
+                 device: torch.device | None = None):
+        self.rank, self.world, self.backend = rank, world, backend
+        self.device = device or torch.device("cpu")
+        self.host = backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def wire(self) -> str:
+        if self.world == 1:
+            return "none"
+        return "host" if self.host else self.backend
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self.host else t
+
+    def send_recv(self, payload: tuple, dst: int, src: int) -> tuple:
+        """One ring hop, as one ``batch_isend_irecv``: send each tensor of
+        ``payload`` to ``dst`` and return the same-shaped tensors received
+        from ``src`` (every rank's payloads share shapes and dtypes)."""
+        outs = [self._out(t.contiguous()) for t in payload]
+        ins = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in outs]
+        ops = [dist.P2POp(dist.isend, t, dst, tag=i) for i, t in enumerate(outs)]
+        ops += [dist.P2POp(dist.irecv, t, src, tag=i) for i, t in enumerate(ins)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return tuple(t.to(p.device) for t, p in zip(ins, payload)) if self.host else tuple(ins)
+
+    def all_gather(self, t: torch.Tensor) -> list:
+        """Every rank's ``t``, in rank order, on this rank's device."""
+        if self.world == 1:
+            return [t]
+        src = self._out(t.contiguous())
+        parts = [torch.empty_like(src) for _ in range(self.world)]
+        dist.all_gather(parts, src)
+        return [p.to(t.device) for p in parts] if self.host else parts
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns ``t``."""
+        if self.world == 1:
+            return t
+        if not self.host:
+            dist.all_reduce(t)
+            return t
+        host = t.cpu()
+        dist.all_reduce(host)
+        return t.copy_(host)
+
+
+@dataclass
+class DistributedContext:
+    num_nodes: int
+    rank: int
+    master_ip: str
+    initialized: bool
+    device: torch.device
+    backend: str | None = None
+
+    @property
+    def comm(self) -> Comm:
+        return Comm(self.rank, self.num_nodes, self.backend, self.device)
+
+    def shutdown(self) -> None:
+        """Counterpart of ``dist.destroy_process_group()`` (part2/2a/main.py:207)."""
+        if self.initialized and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def initialize_from_flags(master_ip: str = DEFAULT_MASTER_IP, rank: int = 0,
+                          num_nodes: int = 1, device=None, init_method: str | None = None,
+                          timeout_s: float = TIMEOUT_S) -> DistributedContext:
+    """Join the ``num_nodes``-process group as ``rank`` (tcp rendezvous at
+    ``master_ip`` unless ``init_method`` names another, e.g. ``file://``);
+    nothing at ``num_nodes == 1``."""
+    if num_nodes < 1 or not 0 <= rank < num_nodes:
+        raise ValueError(f"rank {rank} out of range for --num-nodes {num_nodes}")
+    dev = rank_device(rank, device)
+    if num_nodes == 1:
+        return DistributedContext(1, 0, master_ip, False, dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = choose_backend(num_nodes, dev)
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method or f"tcp://{master_ip}",
+                            world_size=num_nodes, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    return DistributedContext(num_nodes, rank, master_ip, True, dev, backend)

@@ -1,7 +1,7 @@
 """Training/eval drivers with the reference's measurement protocol.
 
 Counterpart of ``distributed_machine_learning_tpu/train/loop.py``
-(``train_epoch``, ``evaluate_lm``): a hard cap at ``max_iters``, per-
+(``train_epoch``, ``evaluate``, ``evaluate_lm``): a hard cap at ``max_iters``, per-
 iteration wall clock with iteration 0 excluded (where the kernels build
 and the first launches land), the loss printed every 20 iterations, and
 the same total/average summary lines.  Each step is timed to a host sync
@@ -25,11 +25,13 @@ LOSS_PRINT_EVERY = 20
 def train_epoch(train_step, state, batches: Iterable, place_batch=None,
                 max_iters: int = MAX_ITERS,
                 loss_print_every: int = LOSS_PRINT_EVERY,
-                timer: IterationTimer | None = None):
+                timer: IterationTimer | None = None, local_loss_rank: int | None = None):
     """One epoch, reference-style: returns ``(state, timer)``.
 
     ``place_batch(tokens, targets)`` moves a host batch onto the device;
-    defaults to identity."""
+    defaults to identity.  ``local_loss_rank``: every rank prints its own
+    loss, tagged with this rank (the reference's per-rank print surface,
+    ``part2/2a/main.py:58-61``); otherwise rank 0 prints."""
     timer = timer or IterationTimer(skip_first=1)
     for batch_idx, (tokens, targets) in enumerate(batches):
         if batch_idx == max_iters:  # part1/main.py:32-33
@@ -41,7 +43,11 @@ def train_epoch(train_step, state, batches: Iterable, place_batch=None,
         loss = loss.item()  # the host sync the step is timed to
         timer.stop()
         if (batch_idx + 1) % loss_print_every == 0:  # part1/main.py:49-50
-            rank0_print(f"Loss at {batch_idx + 1}th batch is {loss}")
+            if local_loss_rank is None:
+                rank0_print(f"Loss at {batch_idx + 1}th batch is {loss}")
+            else:
+                rank0_print(f"Loss at {batch_idx + 1}th batch is {loss} "
+                            f"(rank {local_loss_rank})", all_ranks=True)
     rank0_print(timer.summary())  # part1/main.py:57-58
     return state, timer
 
@@ -61,3 +67,24 @@ def evaluate_lm(eval_step, params, batches: Iterable) -> tuple[float, float]:
     rank0_print(f"Eval: nll/token {mean_nll:.4f}, perplexity {ppl:.2f} "
                 f"({total_tokens} tokens)")
     return mean_nll, ppl
+
+
+def evaluate(eval_step, batches: Iterable, place_batch=None) -> tuple[float, float]:
+    """Whole-test-set eval, ``test_model`` parity (``part1/main.py:62-77``):
+    the mean of per-batch mean losses and top-1 accuracy, printed as the
+    reference prints them.  Every rank evaluates everything (the reference's
+    protocol); rank 0 prints."""
+    total_loss, correct, total, num_batches = 0.0, 0, 0, 0
+    for images, labels in batches:
+        if place_batch is not None:
+            images, labels = place_batch(images, labels)
+        loss, c = eval_step(images, labels)
+        total_loss += float(loss)
+        correct += int(c)
+        total += len(labels)
+        num_batches += 1
+    avg_loss = total_loss / max(num_batches, 1)
+    accuracy = 100.0 * correct / max(total, 1)
+    rank0_print("Test set: Average loss: {:.4f}, Accuracy: {}/{} ({:.0f}%)\n".format(
+        avg_loss, correct, total, accuracy))
+    return avg_loss, accuracy

@@ -3,8 +3,7 @@
 Counterpart of ``distributed_machine_learning_tpu/train/optimizers.py``.
 Every update fn shares the signature ``(params, moments, grads, config,
 lr=None, step=None) -> (params, moments)`` and updates in place.  Only
-AdamW is ported; SGD and LARS (the reference-parity VGG optimizers) come
-with ROADMAP A4.
+AdamW and SGD are ported; LARS is ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -14,11 +13,13 @@ from distributed_machine_learning_tpu_torch.train.adamw import (
     adamw_init,
     adamw_update,
 )
+from distributed_machine_learning_tpu_torch.train.sgd import SGDConfig, sgd_init, sgd_update
 
 OPTIMIZERS = {
     "adamw": (AdamWConfig, adamw_init, adamw_update),
+    "sgd": (SGDConfig, sgd_init, sgd_update),
 }
-NOT_PORTED = ("lars", "sgd")
+NOT_PORTED = ("lars",)
 
 
 def optimizer_names() -> list[str]:
@@ -30,8 +31,7 @@ def get_optimizer(name: str):
     """(config_class, init_fn, update_fn) for ``name``."""
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: ROADMAP A4 (the "
-            "reference-parity VGG CLIs bring train/sgd.py and train/lars.py)")
+            f"optimizer {name!r} is not ported yet: ROADMAP A4 (train/lars.py)")
     try:
         return OPTIMIZERS[name]
     except KeyError:

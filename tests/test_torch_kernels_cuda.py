@@ -412,3 +412,84 @@ def test_engine_on_the_card_matches_plain_path(cuda):
     with plain_kernels():
         want = serve()
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The int8 ring codec K8-K10: BITWISE equal to the plain versions (a
+# truncated scale makes every q * scale exact; IEEE division, rint).
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(a, b):
+    view = {4: torch.int32, 1: torch.int8}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 4096, 4097, 669_379, 1_338_757])
+@pytest.mark.parametrize("kind", ["normal", "zero", "nan", "inf", "tiny"])
+def test_ring_codec_kernels_bitwise(cuda, n, kind):
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    v = torch.randn(n, device="cuda", generator=cuda) * 0.01
+    if kind == "zero":
+        v.zero_()
+    elif kind == "nan":
+        v[n // 2] = float("nan")
+    elif kind == "inf":
+        v[n // 3] = float("inf")
+    elif kind == "tiny":
+        v *= 1e-38  # subnormal scale: no flush to zero
+    acc = torch.randn(n, device="cuda", generator=cuda)
+    build.reset_launch_counts()
+    q, scale, err = rc.encode_int8_residual(v)
+    q2, scale2 = rc.encode_int8(v)
+    added = rc.decode_add_int8(q, scale, acc.clone())
+    dec = rc.decode_int8(q, scale, n)
+    torch.cuda.synchronize()
+    assert build.launches["ring_encode_int8"] == 2
+    assert build.launches["ring_decode_add_int8"] == build.launches["ring_decode_int8"] == 1
+    wq, wscale, werr = rc.encode_int8_residual_reference(v)
+    for got, want in ((q, wq), (scale, wscale), (err, werr), (q2, wq), (scale2, wscale),
+                      (added, rc.decode_add_int8_reference(wq, wscale, acc.clone())),
+                      (dec, rc.decode_int8_reference(wq, wscale, n))):
+        assert _bits_equal(got, want)
+
+
+def test_ring_codec_kernels_refuse_what_they_do_not_take(cuda):
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    v = torch.randn(64, device="cuda", generator=cuda)
+    q, scale = rc.encode_int8(v)
+    with pytest.raises(ValueError):
+        rc.encode_int8(v.double())
+    with pytest.raises(ValueError):
+        rc.encode_int8(v.view(8, 8))
+    with pytest.raises(ValueError):
+        rc.encode_int8(v[1:])  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        rc.decode_add_int8(q.to(torch.int16), scale, v.clone())
+    with pytest.raises(ValueError):
+        rc.decode_add_int8(q, scale.double(), v.clone())
+    with pytest.raises(ValueError):
+        rc.decode_int8(q, scale, 63)
+    with pytest.raises(ValueError):
+        rc.decode_add_int8(q.cpu(), scale, v.clone())
+
+
+def test_int8_ring_step_kernels_match_plain_codec(cuda):
+    """A world-1 ring has no hop, so the path's kernels are exercised on one
+    process through the scheme's seams: encode with residual, decode-add,
+    decode of a VGG-sized bucket chunk, kernels vs the "xla" impl."""
+    from distributed_machine_learning_tpu_torch.ops import ring
+
+    v = torch.randn(1_338_757, device="cuda", generator=cuda)
+    acc = torch.randn(1_338_757, device="cuda", generator=cuda)
+    ks, ps = ring.Int8Scheme("pallas"), ring.Int8Scheme("xla")
+    (kq, ks_), kerr = ks.encode_with_residual(v)
+    (pq, ps_), perr = ps.encode_with_residual(v)
+    a1, a2 = acc.clone(), acc.clone()
+    ks.decode_add((kq, ks_), a1)
+    ps.decode_add((pq, ps_), a2)
+    for got, want in ((kq, pq), (ks_, ps_), (kerr, perr), (a1, a2),
+                      (ks.decode((kq, ks_), v.numel()), ps.decode((pq, ps_), v.numel()))):
+        assert _bits_equal(got, want)
