@@ -12,7 +12,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    K6, K5, the flash backward pair K2 (dQ) and K3 (dK/dV) at the trainer's
    heads, in f32, at head dim 32 and through the autograd Function at a
    padded length, and the fused AdamW K7 on f32, bf16 and ragged leaves
-   (8 ulp).
+   (8 ulp); the ring flash chunk kernels K11 (forward carry), K12 (dQ) and
+   K13 (dK/dV) at the ring path's chunk (B 1, Lc 4096, H 16 / Hkv 4, D 128,
+   bf16; the diagonal step and a full step with a carry and accumulators
+   in) and in f32 at Lc 32, D 32, timed at a full step.
 3. Serves the d2048 / 8-layer / 16-head / 4-KV-head / 32k-vocab LM
    (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
    and 32 new tokens through ``make_generate_fn``: once in bf16, once with
@@ -66,6 +69,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Reports step ms, the sync inside the step, images/s, backend and wire;
    then part3 int8 through the real command (two processes of
    ``python -m ...cli.part3 --master-ip --rank --num-nodes``).
+
+8. Trains the same LM context-parallel through ``cli.lm``'s ``build`` and
+   ``train_epoch`` in 4 spawned ranks sharing the card (gloo over host
+   buffers): ``--parallel ring --num-nodes 4``, B 1 × L 16384 (a chunk of
+   4096 tokens a rank), bf16, ``--fused-update``, ``--attn flash`` (the
+   upgrade rule picks ``ring_flash``), 6 steps.  Launch counts zeroed just
+   before and read just after on every rank: K11, K12 and K13 once per
+   layer per chunk pair (8·(r+1) a step on rank r), K1-K3 never, K7 once
+   per leaf.  Gates: every rank's parameters bit for bit equal; losses
+   finite and falling; the step-0 loss against the one-process dp path on
+   the same batch; one step kernel path vs plain path on every rank (the
+   trainer's limits).  Reports step ms, tokens/s, hop and gradient-mean ms
+   a step (CUDA events), peak memory per rank and the device idle share;
+   then the real command: two processes of ``python -m
+   ...cli.lm --parallel ring --num-nodes 2`` at 2 layers × L 8192.
 
 Step 2 also holds the int8 ring codec K8 (with and without residual), K9
 and K10 to their plain versions BIT FOR BIT at the VGG path's chunk
@@ -199,6 +217,19 @@ PERTURBATIONS = {
     # K9 skips the ragged tail (a length that is no multiple of 4).
     "codec-decode-add-skip-tail": (
         "ring_codec", "acc[j] = acc[j] + static_cast<float>(q[j]) * s;", "(void)j;"),
+    # K11 ignores the carry in: every step starts from an empty (m, l, acc).
+    "ring-fwd-ignore-carry": (
+        "ring_flash", "const bool has_carry = row < Lc;  // padded rows start empty",
+        "const bool has_carry = false;"),
+    # K12 skips the last key tile of its walk.
+    "ring-dq-skip-last-tile": (
+        "ring_flash",
+        "const int n_key_tiles = CAUSAL ? qt + 1 : (Lc + BKV - 1) / BKV;  // dQ's key-tile walk",
+        "const int n_key_tiles = (CAUSAL ? qt + 1 : (Lc + BKV - 1) / BKV) - 1;"),
+    # K13 adds only the first query head of each KV group.
+    "ring-dkv-first-head-only": (
+        "ring_flash", "const int n_iters = rep * nq;  // (query head of the group, query tile)",
+        "const int n_iters = nq;"),
 }
 
 
@@ -275,13 +306,15 @@ def raise_failed(failed: list) -> None:
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route the model's, the trainers' and the ring codec's kernel entry
-    points to their plain PyTorch versions, on the card too: the reference
-    the kernel path is held to.  Attention without a gradient (serving) takes the plain
-    forward directly; with one (training) it takes the port's autograd
-    Function with its forward and backward launchers swapped for the plain
-    versions, so the backward never runs through the forward's loop."""
+def plain_kernels(ring_block: int | None = None):
+    """Route the model's, the trainers', the ring codec's and the ring
+    attention's kernel entry points to their plain PyTorch versions, on the
+    card too: the reference the kernel path is held to.  Attention without
+    a gradient (serving) takes the plain forward directly; with one
+    (training) it takes the port's autograd Function with its forward and
+    backward launchers swapped for the plain versions, so the backward
+    never runs through the forward's loop.  ``ring_block``: the tile of the
+    ring chunk steps' plain versions (default: the reference's)."""
     import torch
 
     from distributed_machine_learning_tpu_torch.models import transformer
@@ -291,8 +324,18 @@ def plain_kernels():
     from distributed_machine_learning_tpu_torch.ops import quant
     from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
     from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+    from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
 
     flash = fa.flash_self_attention
+
+    def in_place(plain, n_out):
+        """A ring chunk step's plain version, writing into its accumulators
+        (the last ``n_out`` tensor arguments) as the kernel does."""
+        def run(*args):
+            outs = plain(*args, block=ring_block)
+            for t, new in zip(args[-1 - n_out:-1], outs if n_out > 1 else (outs,)):
+                t.copy_(new)
+        return run
 
     def plain_flash(q, k, v):
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -311,7 +354,10 @@ def plain_kernels():
                  rc.encode_int8_residual_reference(v) if residual
                  else rc.encode_int8_reference(v))),
              (rc, "_launch_decode_add", rc.decode_add_int8_reference),
-             (rc, "_launch_decode", rc.decode_int8_reference)]
+             (rc, "_launch_decode", rc.decode_int8_reference),
+             (rf, "_launch_fwd", in_place(rf.chunk_fwd_reference, 3)),
+             (rf, "_launch_dq", in_place(rf.chunk_dq_reference, 1)),
+             (rf, "_launch_dkv", in_place(rf.chunk_dkv_reference, 2))]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     try:
         for mod, attr, fn in swaps:
@@ -1644,6 +1690,454 @@ def run_vgg_cli(torch) -> None:
                              f"{[o[-2000:] for o in outs]}")
 
 
+# The ring flash chunk kernels K11-K13 (step 2), held to their plain
+# versions with the row gates of K1-K3 at the ring path's chunk: rank 1 of
+# a two-chunk ring, B 1, Lc 4096, H 16 / Hkv 4, D 128, bf16 (the diagonal
+# step from the empty carry, then the full step with the diagonal's carry
+# in, and K12/K13 adding into the diagonal step's dq and traveling dK/dV),
+# and f32 at Lc 32, D 32.  m within LSE_TOL, l within LSE_TOL relative.
+RING_CHECKS = [(4096, 16, 4, 128, "bfloat16"), (32, 4, 2, 32, "float32")]
+
+
+def ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen):
+    """q, dO of chunk 1; (k, v) of chunk 1 (diagonal) and chunk 0 (full);
+    the lse and delta = rowsum(dO o O) of the two-chunk rows (plain)."""
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn(1, Lc, H, D, device="cuda", generator=gen).to(dt) for _ in "ab")
+    own, prev = ([torch.randn(1, Lc, Hkv, D, device="cuda", generator=gen).to(dt)
+                  for _ in "ab"] for _ in "ab")
+    m = torch.full((1, H, Lc), -1e30, device="cuda")
+    empty = (m, torch.zeros_like(m), torch.zeros(1, Lc, H, D, device="cuda"))
+    m1, l1, acc1 = rf.chunk_fwd_reference(q, *prev, *rf.chunk_fwd_reference(
+        q, *own, *empty, True), False)
+    out = (acc1 / l1.transpose(1, 2)[..., None]).to(dt)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, do, own, prev, empty, m1 + torch.log2(l1), delta
+
+
+def check_ring_flash(torch, rf, rows: dict, timing: bool) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs: dict = {"ring_flash_fwd": [], "ring_flash_dq": [], "ring_flash_dkv": []}
+    failed: list = []
+    for Lc, H, Hkv, D, dtype in RING_CHECKS:
+        q, do, own, prev, empty, lse, delta = ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen)
+        carry = empty
+        dq = torch.zeros(1, Lc, H, D, device="cuda")
+        dk, dv = torch.zeros(1, Lc, Hkv, D, device="cuda"), torch.zeros(1, Lc, Hkv, D,
+                                                                        device="cuda")
+        for causal, (k, v) in ((True, own), (False, prev)):
+            label = f"{'diagonal' if causal else 'full'} Lc={Lc} H={H} Hkv={Hkv} D={D} {dtype}"
+            got = [t.clone() for t in carry]
+            rf._launch_fwd(q, k, v, *got, causal)
+            gdq, gdk, gdv = dq.clone(), dk.clone(), dv.clone()
+            rf._launch_dq(q, k, v, do, lse, delta, gdq, causal)
+            rf._launch_dkv(q, k, v, do, lse, delta, gdk, gdv, causal)
+            torch.cuda.synchronize()
+            want = rf.chunk_fwd_reference(q, k, v, *carry, causal)
+            m_err = float((got[0] - want[0]).abs().max())
+            l_err = float(((got[1] - want[1]) / want[1]).abs().max())
+            log(f"  ring_flash_fwd {label}: m max_abs_err={m_err:.3e}, l max_rel_err="
+                f"{l_err:.3e} (tol {LSE_TOL:g}) -> "
+                f"{'ok' if max(m_err, l_err) <= LSE_TOL else 'BAD'}")
+            if not max(m_err, l_err) <= LSE_TOL:
+                failed.append(f"ring_flash_fwd m/l {label}")
+            errs["ring_flash_fwd"].append(compare(f"ring_flash_fwd acc {label}", got[2],
+                                                  want[2], failed))
+            want_dq = rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal)
+            errs["ring_flash_dq"].append(compare(f"ring_flash_dq {label}", gdq, want_dq,
+                                                 failed, GRAD_ROW_FLOOR))
+            want_kv = rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv, causal)
+            for name, g, w in (("dk", gdk, want_kv[0]), ("dv", gdv, want_kv[1])):
+                errs["ring_flash_dkv"].append(compare(f"ring_flash_dkv {name} {label}", g, w,
+                                                      failed, GRAD_ROW_FLOOR))
+            # The full step starts from the diagonal step's results.
+            carry, dq, (dk, dv) = want, want_dq, want_kv
+    for name, e in errs.items():
+        rows[name] = {"max_abs_err": max(e)}
+    raise_failed(failed)
+    if timing:
+        time_ring_flash(torch, rf, rows, gen)
+
+
+def time_ring_flash(torch, rf, rows: dict, gen) -> None:
+    """K11-K13 at the ring path's full step (an earlier chunk, every pair,
+    B 1, Lc 4096, H 16 / Hkv 4, D 128, bf16) beside their bounds, plain
+    versions and one library call: SDPA (non-causal, K/V repeated) for K11,
+    SDPA's backward (one call: dq, dk, dv) for K12 and K13; the diagonal
+    step's times are logged beside them."""
+    Lc, H, Hkv, D, dtype = RING_CHECKS[0]
+    q, do, own, prev, empty, lse, delta = ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen)
+    carry = [t.clone() for t in rf.chunk_fwd_reference(q, *own, *empty, True)]
+    dq = torch.zeros(1, Lc, H, D, device="cuda")
+    dk, dv = torch.zeros(1, Lc, Hkv, D, device="cuda"), torch.zeros(1, Lc, Hkv, D, device="cuda")
+    k, v = prev
+    pairs = float(H * Lc * Lc)
+    qo, kv, rowb = 2 * Lc * H * D, 2 * Lc * Hkv * D, 4 * H * Lc  # bf16 q/dO, k/v; f32 row
+    acc_q, acc_kv = 4 * Lc * H * D, 4 * Lc * Hkv * D  # f32 accumulators
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+                  (q, k.repeat_interleave(H // Hkv, 2), v.repeat_interleave(H // Hkv, 2)))
+    out = sdpa(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                         retain_graph=True), iters=5)
+    cases = {
+        "ring_flash_fwd": (lambda c: rf._launch_fwd(q, k, v, *carry, c),
+                           lambda: rf.chunk_fwd_reference(q, k, v, *carry, False),
+                           4.0 * D * pairs, qo + 2 * kv + 4 * rowb + 2 * acc_q,
+                           time_ms(lambda: sdpa(qt.detach(), kt.detach(), vt.detach())),
+                           "SDPA, non-causal, K/V repeated"),
+        "ring_flash_dq": (lambda c: rf._launch_dq(q, k, v, do, lse, delta, dq, c),
+                          lambda: rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, False),
+                          6.0 * D * pairs, 2 * qo + 2 * kv + 2 * rowb + 2 * acc_q, bwd_ms,
+                          "SDPA backward, non-causal: dq, dk and dv"),
+        "ring_flash_dkv": (lambda c: rf._launch_dkv(q, k, v, do, lse, delta, dk, dv, c),
+                           lambda: rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv,
+                                                          False),
+                           8.0 * D * pairs, 2 * qo + 2 * kv + 2 * rowb + 4 * acc_kv, bwd_ms,
+                           "SDPA backward, non-causal: dq, dk and dv"),
+    }
+    for name, (kernel, plain, flops, nbytes, library_ms, library) in cases.items():
+        full_ms = time_ms(lambda: kernel(False))
+        diag_ms = time_ms(lambda: kernel(True))
+        rows[name].update(
+            ms=full_ms, plain_ms=eager_ms(torch, plain, iters=2), library_ms=library_ms,
+            **bound(flops, BF16_FLOPS, nbytes),
+            shape=f"full ring step, B=1 Lc={Lc} H={H} Hkv={Hkv} D={D} bf16 "
+                  f"(diagonal step {diag_ms:.4f} ms); library: {library}")
+        r = rows[name]
+        log(f"  {name}: full step {full_ms:.4f} ms ({flops / full_ms / 1e9:.1f} TFLOP/s), "
+            f"diagonal {diag_ms:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.2f}, {library} {library_ms:.4f}")
+
+
+# The context-parallel trainer (step 8): cli.lm --parallel ring at the
+# model's full width, RING["world"] ranks sharing the card (gloo over host
+# buffers), each rank a chunk of seq_len / world = 4096 tokens.
+RING = dict(world=4, seq_len=16384, batch_size=1, max_iters=6)
+# The real command: two processes of cli.lm --parallel ring, cut to 2 layers.
+RING_CLI = dict(world=2, n_layers=2, seq_len=8192, max_iters=3)
+# The ring path's step-0 loss (the mean CE over B 1 x L 16384 tokens at the
+# seeded weights, ~ln 32000 = 10.4) against the one-process dp path (K1 over
+# the whole sequence) on the same batch: both bf16, with P and the
+# activations rounded at other places (64-key tiles of one chunk vs of the
+# whole row); per-token differences of ~1e-3 average down over 16384
+# tokens, so 2e-3 is an order of magnitude above the expected reading.
+RING_DP_LOSS_TOL = 2e-3
+RING_KERNELS = ("ring_flash_fwd", "ring_flash_dq", "ring_flash_dkv")
+# The ring step gate holds each leaf's gradient, kernel path vs plain path,
+# to TRAIN_GRAD_TOL or to RING_NOISE_FACTOR times the distance between two
+# correct plain versions (the chunk steps tiled by 512, the reference's
+# tile, and by RING_NOISE_BLOCK), whichever is larger.  At L 16384 the q
+# projections' gradients sum dq rows over up to 16384 keys that cancel: on
+# an H100 80GB HBM3 (700 W) kernel vs plain read 0.18 on
+# blocks.5.attn.q.weight (median leaf 3.1e-3; the dp trainer's worst at
+# L 4096 is 0.0385) and the two plain tilings 0.153 on the same leaf, with
+# the loss within 8e-6 and every update within 7.5e-3.  A wrong kernel (a
+# dropped tile, chunk or head) moves gradients by O(1), far above either
+# limit.
+RING_NOISE_BLOCK = 256
+RING_NOISE_FACTOR = 2.5
+
+
+def ring_args(rank: int, world: int, seq_len: int, iters: int):
+    """cli.lm's flags for the ring path (full width, bf16, fused AdamW,
+    --attn flash, which the upgrade rule turns into ring_flash)."""
+    return trainer_args("--parallel", "ring", "--num-nodes", str(world), "--rank", str(rank),
+                        "--seq-len", str(seq_len), "--batch-size", str(RING["batch_size"]),
+                        iters=iters)
+
+
+class WireTimer:
+    """CUDA events around every ring hop (``Comm.shift``) and every gradient
+    mean of a rank, summed per step: how long the stream waited on the
+    wire (under the host wire each call is a D2H copy, TCP and an H2D
+    copy)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events: dict = {"hop": [], "mean": []}
+        self.marks: list = []
+
+    def wrap(self, kind: str, fn):
+        def timed(*args, **kwargs):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events[kind].append((start, end))
+            return out
+        return timed
+
+    def mark(self) -> None:
+        self.marks.append({k: len(v) for k, v in self.events.items()})
+
+    def per_step(self, kind: str) -> list:
+        """ms of ``kind`` in each step after the first (call after a sync)."""
+        ends = [m[kind] for m in self.marks]
+        ev = self.events[kind]
+        return [sum(s.elapsed_time(e) for s, e in ev[a:b]) for a, b in zip(ends, ends[1:])]
+
+
+def ring_rank(rank: int, world: int, init_method: str) -> dict:
+    """One rank of the ring path: cli.lm's build and train_epoch, as its
+    main runs them, the launch counts zeroed just before and read just
+    after; then a parameter digest, a profiled view on rank 0 (every rank
+    steps alike), and one step through the kernels and the same step through
+    the plain versions from the same state, compared leaf by leaf."""
+    import hashlib
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.ops import build
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+    from distributed_machine_learning_tpu_torch.train import lm_step
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    args = ring_args(rank, world, RING["seq_len"], RING["max_iters"])
+    ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method)
+    try:
+        step, state, place, model = lm.build(args, ctx)
+        comm = model.comm
+        wire = WireTimer(torch)
+        comm.shift = wire.wrap("hop", comm.shift)
+        lm_step.mean_over_ranks_ = wire.wrap("mean", lm_step.mean_over_ranks_)
+        losses: list = []
+
+        def run(state, tokens, targets):
+            state, loss = step(state, tokens, targets)
+            losses.append(loss)
+            wire.mark()
+            return state, loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        state, timer = train_epoch(run, state, lm.synthetic_batches(args), place_batch=place,
+                                   max_iters=args.max_iters)
+        torch.cuda.synchronize()
+        out = {"launches": dict(build.launches), "losses": [float(x) for x in losses],
+               "times": timer.times, "hop_ms": wire.per_step("hop"),
+               "mean_ms": wire.per_step("mean"), "steps": state.step,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "attn": model.attn_impl,
+               "backend": ctx.backend, "wire": comm.wire, "device": str(ctx.device),
+               "n_leaves": sum(1 for _ in model.parameters())}
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().view(torch.int32).cpu().numpy().tobytes())
+        out["digest"] = digest.hexdigest()
+
+        def one(i):
+            step(state, *place(*next(lm.synthetic_batches(args, seed=100 + i, count=1))))
+
+        if rank == 0:
+            profile_steps(torch, f"ring train step, rank 0 of {world}", one, steps=2)
+        else:
+            for i in range(2):
+                one(i)
+        torch.cuda.synchronize()
+        out.update(ring_step_gate(torch, step, state, model, place, args))
+        return out
+    finally:
+        ctx.shutdown()
+
+
+def ring_step_gate(torch, step, state, model, place, args) -> dict:
+    """One ring step through the kernels and the same step through the
+    plain versions (plain_kernels) from one state, then the plain step
+    again with the chunk steps tiled by RING_NOISE_BLOCK: the bf16 noise
+    between two correct plain versions, per leaf.  The state is kept on the
+    host in between.  Returns the loss pair, the worst and median leaf of
+    the update error, and of the gradient error against its limit
+    max(TRAIN_GRAD_TOL, RING_NOISE_FACTOR x that leaf's noise)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    x, y = place(*next(lm.synthetic_batches(args, seed=200, count=1)))
+    params = dict(model.named_parameters())
+    snap = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+    moments = {w: {k: v.to("cpu", copy=True) for k, v in state.momentum[w].items()}
+               for w in ("mu", "nu")}
+    counter = state.step
+
+    def restore():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(snap[k])
+            for w in ("mu", "nu"):
+                for k, v in state.momentum[w].items():
+                    v.copy_(moments[w][k])
+        state.step = counter
+
+    _, loss = step(state, x, y)
+    grads = {k: p.grad.detach().clone() for k, p in params.items()}
+    after = {k: p.detach().clone() for k, p in params.items()}
+    restore()
+    with plain_kernels():
+        _, loss_p = step(state, x, y)
+    torch.cuda.synchronize()
+    grad_err, update_err = {}, {}
+    for k, p in params.items():
+        grad_err[k] = rel_l2(grads[k], p.grad)
+        moved = (p.detach() - snap[k].to(p.device)).float().norm().clamp_min(1e-30)
+        update_err[k] = float((after[k] - p.detach()).float().norm() / moved)
+    del after
+    grads = {k: p.grad.detach().clone() for k, p in params.items()}  # the plain path's
+    restore()
+    with plain_kernels(ring_block=RING_NOISE_BLOCK):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    noise = {k: rel_l2(p.grad, grads[k]) for k, p in params.items()}
+    ratio = {k: grad_err[k] / max(TRAIN_GRAD_TOL, RING_NOISE_FACTOR * noise[k])
+             for k in grad_err}
+    med = lambda d: sorted(d.values())[len(d) // 2]  # noqa: E731
+    worst_g, worst_u = max(ratio, key=ratio.get), max(update_err, key=update_err.get)
+    worst_e = max(grad_err, key=grad_err.get)
+    return {"gate": {"loss": float(loss), "loss_plain": float(loss_p),
+                     "grad": (worst_g, grad_err[worst_g], noise[worst_g], ratio[worst_g],
+                              med(grad_err), worst_e, grad_err[worst_e], noise[worst_e]),
+                     "update": (worst_u, update_err[worst_u], med(update_err))}}
+
+
+def ring_dp_loss(torch) -> float:
+    """The step-0 loss of the one-process dp path (K1 over the whole
+    sequence) on the ring path's first batch, at the same seeded weights."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train.lm_step import lm_loss
+
+    args = trainer_args("--seq-len", str(RING["seq_len"]), "--batch-size",
+                        str(RING["batch_size"]), iters=1)
+    _, _, place, model = lm.build(args)
+    with torch.no_grad():
+        loss = float(lm_loss(model, *place(*next(lm.synthetic_batches(args)))))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def run_ring(torch, rows: dict) -> None:
+    """The ring path (RING) in its ranks; gates: K11/K12/K13 launched
+    layers x (r + 1) times a step on rank r, K1-K3 never, K7 once per leaf a
+    step; every rank's parameters bit for bit equal; losses finite and
+    falling; the step-0 loss against the dp path; one step kernel vs plain
+    on every rank.  Reports step ms, tokens/s, hop and gradient-mean ms a
+    step, peak memory per rank and the wire."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    world, layers = RING["world"], MODEL["n_layers"]
+    t0 = time.perf_counter()
+    dp_loss = ring_dp_loss(torch)
+    ranks = spawn(ring_rank, world, timeout_s=900)
+    r0, n = ranks[0], RING["max_iters"]
+    failed = []
+    log(f"ring: world {world} x B {RING['batch_size']} x L {RING['seq_len']} (chunk "
+        f"{RING['seq_len'] // world}), attn {r0['attn']}, backend {r0['backend']}, wire "
+        f"{r0['wire']}, {r0['device']}; {time.perf_counter() - t0:.1f} s with process start")
+    for r, out in enumerate(ranks):
+        want = {name: layers * (r + 1) * n for name in RING_KERNELS}
+        want.update(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                    fused_adamw=out["n_leaves"] * n)
+        got = {k: out["launches"][k] for k in want}
+        ok = got == want
+        log(f"ring rank {r}: launches over {n} steps {got} (want {want}): "
+            f"{'ok' if ok else 'BAD'}; peak memory {out['peak_gb']:.2f} GB")
+        if not ok:
+            failed.append(f"rank {r} launches")
+    losses = r0["losses"]
+    finite = all(math.isfinite(x) for r in ranks for x in r["losses"])
+    same_loss = all(r["losses"] == losses for r in ranks)
+    if not (finite and same_loss and losses[-1] < losses[0] and r0["steps"] == n
+            and abs(losses[0] - math.log(MODEL["vocab_size"])) < 1.5):
+        failed.append(f"losses {[r['losses'] for r in ranks]}")
+    diff = abs(losses[0] - dp_loss)
+    log(f"ring: losses {[round(x, 4) for x in losses]}; step-0 loss vs the one-process dp "
+        f"path {losses[0]:.6f} vs {dp_loss:.6f} (diff {diff:.3e}, tol {RING_DP_LOSS_TOL:g})")
+    if not diff <= RING_DP_LOSS_TOL:
+        failed.append("step-0 loss vs dp")
+    same = len({r["digest"] for r in ranks}) == 1
+    log(f"ring: parameters bit for bit equal on all {world} ranks: {same}")
+    if not same:
+        failed.append("ranks' parameters differ")
+    for r, out in enumerate(ranks):
+        g = out["gate"]
+        name, err, noise, ratio, median, name_e, err_e, noise_e = g["grad"]
+        log(f"ring rank {r} step, kernel vs plain path: loss {g['loss']:.6f} vs "
+            f"{g['loss_plain']:.6f} (tol {TRAIN_LOSS_TOL:g}); gradient rel L2 median "
+            f"{median:.3e}, largest {err_e:.3e} ({name_e}; plain tiled {RING_NOISE_BLOCK} vs "
+            f"plain: {noise_e:.3e}); worst against its limit {err:.3e} ({name}; limit "
+            f"max({TRAIN_GRAD_TOL:g}, {RING_NOISE_FACTOR:g} x {noise:.3e}), ratio {ratio:.3f}); "
+            f"update worst {g['update'][1]:.3e} ({g['update'][0]}), median "
+            f"{g['update'][2]:.3e} (tol {TRAIN_UPDATE_TOL:g})")
+        if not (abs(g["loss"] - g["loss_plain"]) <= TRAIN_LOSS_TOL
+                and ratio <= 1.0 and g["update"][1] <= TRAIN_UPDATE_TOL):
+            failed.append(f"rank {r} kernel vs plain step")
+    ms = [t * 1e3 for t in r0["times"]]
+    tokens = RING["batch_size"] * RING["seq_len"]
+    log(f"ring: step ms (host clock to the loss sync, rank 0, iteration 0 untimed) "
+        f"{spread(ms)} -> {tokens / sorted(ms)[len(ms) // 2] * 1e3:.0f} tokens/s")
+    for r, out in enumerate(ranks):
+        log(f"ring rank {r}: hops {spread(out['hop_ms'])} ms a step, gradient mean "
+            f"{spread(out['mean_ms'])} ms a step (CUDA events)")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["ring_launches"] = sum(r["launches"][name] for r in ranks)
+        if name in RING_KERNELS:
+            row["launches"] = row["ring_launches"]
+    if failed:
+        raise AssertionError("ring: " + "; ".join(failed))
+
+
+def run_ring_cli(torch) -> None:
+    """The ring path through the real command: RING_CLI["world"] processes
+    of ``python -m distributed_machine_learning_tpu_torch.cli.lm --parallel
+    ring --master-ip --rank --num-nodes`` (full width, cut to 2 layers);
+    every process exits 0 and rank 0 prints the protocol lines."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    world = RING_CLI["world"]
+    args = ring_args(0, world, RING_CLI["seq_len"], RING_CLI["max_iters"])
+    flags = [f"--{k.replace('_', '-')}={v}" for k, v in (
+        ("d_model", args.d_model), ("n_layers", RING_CLI["n_layers"]), ("n_heads", args.n_heads),
+        ("n_kv_heads", args.n_kv_heads), ("vocab", args.vocab), ("seq_len", args.seq_len),
+        ("batch_size", args.batch_size), ("max_iters", args.max_iters))]
+    cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.lm",
+           "--parallel", "ring", "--num-nodes", str(world), "--master-ip", f"127.0.0.1:{port}",
+           "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--fused-update",
+           "--attn", "flash", *flags]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([*cmd, "--rank", str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    lines = [ln for ln in outs[0].splitlines()
+             if ln.startswith(("lm parallel=", "Total execution", "Average execution"))]
+    log(f"cli.lm --parallel ring, {world} processes ({time.perf_counter() - t0:.1f} s): "
+        f"exit codes {rcs}; rank 0: {lines}")
+    want = (f"lm parallel=ring devices={world}", "Total execution time is",
+            "Average execution time is")
+    if rcs != [0] * world or not all(any(ln.startswith(w) for ln in lines) for w in want) \
+            or "attn=ring_flash" not in lines[0]:
+        raise AssertionError(f"cli.lm ring: exit codes {rcs}; output tails "
+                             f"{[o[-2000:] for o in outs]}")
+
+
 def perturb(torch, pkg, name: str) -> int:
     """Build one kernel from a broken copy of its source and report which
     checks catch it; 0 if the kernel checks do."""
@@ -1671,6 +2165,10 @@ def perturb(torch, pkg, name: str) -> int:
         from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
 
         checks = [lambda: check_codec(torch, rc, {}, timing=False)]
+    elif kernel == "ring_flash":
+        from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+
+        checks = [lambda: check_ring_flash(torch, rf, {}, timing=False)]
     elif training:
         checks = [lambda: check_flash_bwd(torch, fa, {}, timing=False),
                   lambda: check_adamw(torch, fadam, {}, timing=False)]
@@ -1684,8 +2182,8 @@ def perturb(torch, pkg, name: str) -> int:
             check()
         except AssertionError as exc:
             caught.append(f"kernel: {exc}")
-    if kernel == "ring_codec":
-        pass  # the bitwise kernel gate is this kernel's gate
+    if kernel in ("ring_codec", "ring_flash"):
+        pass  # the kernel gates are what these faults must meet
     elif training:
         log(f"perturbation {name}: trainer step gates")
         try:
@@ -1786,6 +2284,7 @@ def main(argv=None) -> int:
         from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
         from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
         from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+        from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
     except ImportError as exc:
         print(f"chip_smoke: the port package is missing ({exc}); run from "
               "the repository root", file=sys.stderr)
@@ -1818,6 +2317,7 @@ def main(argv=None) -> int:
     check_flash_bwd(torch, fa, rows, timing)
     check_adamw(torch, fadam, rows, timing)
     check_codec(torch, rc, rows, timing)
+    check_ring_flash(torch, rf, rows, timing)
     if args.check_only:
         log("check-only: kernels build and agree with their plain versions")
         return 0
@@ -1837,6 +2337,10 @@ def main(argv=None) -> int:
     run_vgg(torch, rows)
     run_vgg_cli(torch)
     log(f"vgg phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_ring(torch, rows)
+    run_ring_cli(torch)
+    log(f"ring phases: {time.perf_counter() - t0:.1f} s")
 
     pallas = "distributed_machine_learning_tpu/ops/pallas/"
     replaces = {  # kernel name: (source, the TPU kernel body it replaces)
@@ -1850,6 +2354,9 @@ def main(argv=None) -> int:
         "ring_encode_int8": ("ring_codec", pallas + "ring_codec.py:156"),
         "ring_decode_add_int8": ("ring_codec", pallas + "ring_codec.py:246"),
         "ring_decode_int8": ("ring_codec", pallas + "ring_codec.py:252"),
+        "ring_flash_fwd": ("ring_flash", pallas + "ring_flash_attention.py:95"),
+        "ring_flash_dq": ("ring_flash", pallas + "ring_flash_attention.py:208"),
+        "ring_flash_dkv": ("ring_flash", pallas + "ring_flash_attention.py:238"),
     }
     kernels = []
     for key, row in rows.items():
@@ -1863,7 +2370,7 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "engine_launches": row["engine_launches"],
             "train_launches": row["train_launches"], "vgg_launches": row["vgg_launches"],
-            "shape": row["shape"]})
+            "ring_launches": row["ring_launches"], "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Language-model training entry point of the port: ``--parallel dp`` on one card.
+"""Language-model training entry point of the port: ``--parallel dp`` and ``ring``.
 
 Counterpart of ``distributed_machine_learning_tpu/cli/lm.py``.  Trains the
 decoder-only ``TransformerLM`` on the reference's deterministic synthetic
@@ -10,6 +10,16 @@ kernel K7), flash attention with its backward kernels K2/K3 where
 printed every 20 iterations, the total/average summary at the end.  Runs
 on the GPU unless ``--device cpu`` is given.
 
+``--num-nodes W`` runs W processes, one per rank (``--rank``,
+``--master-ip``), over ``torch.distributed``: nccl when each rank has a
+card, gloo through host buffers when ranks share one (or on the CPU).
+Every rank draws the same global batch; ``--parallel dp`` gives each rank
+its rows, ``--parallel ring`` its sequence chunk of ``--seq-len / W``
+tokens, with attention as a ring over the ranks: the einsum ring, or the
+ring flash kernels K11-K13 where the reference's upgrade rule picks them
+(``--attn auto``/``flash`` and a chunk the kernels tile).  Gradients and
+loss are averaged over the ranks each step.
+
 Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
     python -m distributed_machine_learning_tpu_torch.cli.lm --parallel dp \\
@@ -17,10 +27,14 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
         --seq-len 4096 --batch-size 4 --compute-dtype bfloat16 \\
         --optimizer adamw --fused-update --attn flash --max-iters 8
 
+    # context parallel over 2 ranks (one process each)
+    for r in 0 1; do python -m distributed_machine_learning_tpu_torch.cli.lm \\
+        --parallel ring --num-nodes 2 --rank $r --master-ip 127.0.0.1:29500 \\
+        --seq-len 8192 --batch-size 1 ... & done; wait
+
 Every flag of the reference that this port does not carry yet raises
 NotImplementedError naming its ROADMAP item (other ``--parallel`` schemes,
-checkpoints, a text corpus, the fused head+loss, telemetry, more than one
-node).
+checkpoints, a text corpus, the fused head+loss, telemetry).
 """
 
 from __future__ import annotations
@@ -30,14 +44,22 @@ import argparse
 import numpy as np
 import torch
 
-from distributed_machine_learning_tpu_torch import resolve_device
 from distributed_machine_learning_tpu_torch.cli.common import SEED
-from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+from distributed_machine_learning_tpu_torch.models.transformer import (
+    TransformerLM,
+    _ring_flash_wins,
+)
+from distributed_machine_learning_tpu_torch.ops.flash_attention import _needs_pad
+from distributed_machine_learning_tpu_torch.runtime.distributed import (
+    DistributedContext,
+    initialize_from_flags,
+)
 from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
 from distributed_machine_learning_tpu_torch.train.lm_step import (
     init_lm_state,
     make_lm_eval_step,
     make_lm_train_step,
+    shard_lm_batch,
     unwrap_dynamic_scale,
     with_dynamic_scale,
 )
@@ -83,12 +105,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--master-ip", dest="master_ip", default="127.0.1.1:8000")
     p.add_argument("--rank", default=0, type=int)
     p.add_argument("--num-nodes", dest="num_nodes", default=1, type=int,
-                   help="processes; more than 1 is not ported yet")
+                   help="processes (ranks), one per rank")
     p.add_argument("--telemetry-dir", dest="telemetry_dir", default=None)
     p.add_argument("--telemetry-flush-every", dest="telemetry_flush_every",
                    default=20, type=int)
     p.add_argument("--parallel", default="dp", choices=PARALLEL,
-                   help="dp only (one card) in this port so far")
+                   help="dp (each rank its rows) or ring (each rank its sequence "
+                        "chunk) in this port so far")
     p.add_argument("--n-experts", dest="n_experts", default=8, type=int)
     p.add_argument("--capacity-factor", dest="capacity_factor", default=1.25,
                    type=float)
@@ -155,18 +178,55 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.parallel != "dp":
+    if args.parallel == "ulysses":
+        raise NotImplementedError(
+            "--parallel ulysses is not ported yet: ROADMAP A5 '--parallel ulysses' "
+            "(ops/ulysses.py)")
+    if args.parallel not in ("dp", "ring"):
         raise NotImplementedError(
             f"--parallel {args.parallel} is not ported yet: ROADMAP A5 "
-            "(parallelism beyond data parallelism)")
-    if args.num_nodes > 1:
-        raise NotImplementedError(
-            "--num-nodes > 1 is not ported yet: ROADMAP A3 'multi-card dp' "
-            "(runtime/distributed.py over NCCL)")
+            "(parallelism beyond data and context parallelism)")
     for dest, default, item in _NOT_PORTED:
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
+    if args.optimizer != "adamw":
+        raise NotImplementedError(
+            f"--optimizer {args.optimizer} on the LM trainer is not ported yet: ROADMAP "
+            "A4 (train/sgd.py serves the VGG parts; the LM's sgd, lars and "
+            "--momentum-dtype are queued there)")
+
+
+def _check_layout(args) -> None:
+    """The reference's divisibility checks (``cli/lm.py:370-388``), made
+    before any rank joins the group."""
+    n = args.num_nodes
+    if args.parallel == "dp" and args.batch_size % n:
+        raise ValueError(f"--batch-size {args.batch_size} must be divisible by "
+                         f"the {n}-device data axis")
+    if args.parallel == "ring" and args.seq_len % n:
+        raise ValueError(f"--seq-len {args.seq_len} must be divisible by the "
+                         f"{n}-device sequence axis ({args.parallel} shards the "
+                         "sequence)")
+
+
+def attn_impl(args) -> str:
+    """The model's attention: ``--attn`` under dp; under ring the einsum
+    ring, upgraded to the ring flash kernels as the reference decides
+    (``cli/lm.py:394-419``): ``--attn flash`` on any chunk the kernels tile
+    natively, ``--attn auto`` where ``_ring_flash_wins(chunk)``."""
+    if args.parallel != "ring":
+        return args.attn
+    chunk = args.seq_len // args.num_nodes
+    if (args.attn == "flash" and not _needs_pad(chunk)) or (
+            args.attn == "auto" and _ring_flash_wins(chunk)):
+        return "ring_flash"
+    if args.attn == "flash":
+        rank0_print(f"WARNING: --attn flash with --parallel ring: per-device chunk "
+                    f"{chunk} is not natively tileable (largest power-of-two divisor "
+                    "< 128) and the ring kernels have no pad path — falling back to "
+                    "the einsum ring")
+    return "ring"
 
 
 def synthetic_tokens(rng: np.random.Generator, batch: int, seq_len: int,
@@ -184,52 +244,70 @@ def synthetic_batches(args, seed: int = SEED, count: int | None = None):
         yield block[:, :-1], block[:, 1:]
 
 
-def build(args):
-    """``(step, state, place, model)`` of ``--parallel dp`` on one device:
-    the model (f32 parameters from SEED), its TrainState, the train step and
-    the batch placement."""
+def build(args, ctx: DistributedContext | None = None):
+    """``(step, state, place, model)`` of this rank: the model (f32
+    parameters from SEED, the same on every rank), its TrainState, the
+    train step and the batch placement (the global host batch → this rank's
+    shard on its device).  ``ctx``: the rank's process group (from
+    :func:`initialize_from_flags`); without one, a one-process run."""
     _refuse_unported(args)
-    if args.optimizer != "adamw":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} on the LM trainer is not ported yet: ROADMAP "
-            "A4 (train/sgd.py serves the VGG parts; the LM's sgd, lars and "
-            "--momentum-dtype are queued there)")
-    device = resolve_device(args.device)
+    _check_layout(args)
+    if ctx is None:
+        if args.num_nodes > 1:
+            raise ValueError("--num-nodes > 1: join the group first "
+                             "(initialize_from_flags) and pass its context")
+        ctx = initialize_from_flags(device=args.device)
+    comm, device = ctx.comm, ctx.device
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     model = TransformerLM(
         vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads, compute_dtype=dtype,
-        attn_impl=args.attn, remat=args.remat, remat_policy=args.remat_policy,
-        device=device)
+        attn_impl=attn_impl(args), remat=args.remat, remat_policy=args.remat_policy,
+        device=device, comm=comm)
     cfg = {"fused": args.fused_update}
     if args.lr is not None:
         cfg["learning_rate"] = args.lr
     state = init_lm_state(model, seed=SEED, config=AdamWConfig(**cfg))
-    step = make_lm_train_step(model, guard_nonfinite=args.guard_nonfinite,
+    step = make_lm_train_step(model, comm, guard_nonfinite=args.guard_nonfinite,
                               dynamic_scale=args.loss_scale == "dynamic")
+    axis = "seq" if args.parallel == "ring" else "batch"
 
     def place(tokens, targets):
-        return (torch.from_numpy(tokens).to(device, torch.long),
-                torch.from_numpy(targets).to(device, torch.long))
+        tokens, targets = shard_lm_batch(tokens, targets, comm.rank, comm.world, axis)
+        return (torch.from_numpy(np.ascontiguousarray(tokens)).to(device, torch.long),
+                torch.from_numpy(np.ascontiguousarray(targets)).to(device, torch.long))
 
     return step, state, place, model
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
-    step, state, place, model = build(args)
-    rank0_print(f"lm parallel={args.parallel} devices=1 ({model.device}) "
-                f"d_model={args.d_model} layers={args.n_layers} "
-                f"seq_len={args.seq_len} batch={args.batch_size}")
-    if args.loss_scale == "dynamic":
-        state = with_dynamic_scale(state)
-    state, _ = train_epoch(step, state, synthetic_batches(args), place_batch=place,
-                           max_iters=args.max_iters)
-    state = unwrap_dynamic_scale(state)
-    if args.eval_batches:
-        batches = (place(x, y) for x, y in
-                   synthetic_batches(args, SEED + 1, args.eval_batches))
-        evaluate_lm(make_lm_eval_step(model), state.params, batches)
+    # Refuse before joining the group, so a refusal never waits for peers.
+    _refuse_unported(args)
+    _check_layout(args)
+    ctx = initialize_from_flags(args.master_ip, args.rank, args.num_nodes, device=args.device)
+    try:
+        step, state, place, model = build(args, ctx)
+        rank0_print(f"lm parallel={args.parallel} devices={ctx.num_nodes} ({model.device}) "
+                    f"d_model={args.d_model} layers={args.n_layers} "
+                    f"seq_len={args.seq_len} batch={args.batch_size} "
+                    f"attn={model.attn_impl} backend={ctx.backend or 'none'} "
+                    f"wire={ctx.comm.wire}")
+        if args.loss_scale == "dynamic":
+            state = with_dynamic_scale(state)
+        state, _ = train_epoch(step, state, synthetic_batches(args), place_batch=place,
+                               max_iters=args.max_iters)
+        state = unwrap_dynamic_scale(state)
+        if args.eval_batches:
+            # Every rank evaluates the whole held-out batches on its own
+            # (dense, one program: the reference's eval); rank 0 prints.
+            dev = model.device
+            batches = ((torch.from_numpy(x).to(dev, torch.long),
+                        torch.from_numpy(y).to(dev, torch.long))
+                       for x, y in synthetic_batches(args, SEED + 1, args.eval_batches))
+            evaluate_lm(make_lm_eval_step(model), state.params, batches)
+    finally:
+        ctx.shutdown()
 
 
 if __name__ == "__main__":

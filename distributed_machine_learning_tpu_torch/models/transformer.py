@@ -23,7 +23,12 @@ a dense per-row cache and runs the einsum instead; see
 ``inference/continuous.py``.)
 
 Training: the full causal pass is differentiable (flash attention's
-backward is an autograd Function over K2/K3).  Parameters stay f32 and
+backward is an autograd Function over K2/K3).  Context-parallel training
+shards the sequence over the ranks of ``comm`` (the model's
+:class:`~distributed_machine_learning_tpu_torch.runtime.distributed.Comm`):
+``attn_impl="ring"`` is the einsum ring, ``"ring_flash"`` the ring over the
+chunk kernels K11-K13; rank r's chunk holds global positions
+``r·Lc + arange(Lc)``, which RoPE sees.  Parameters stay f32 and
 each projection casts them to the compute dtype, as Flax's
 ``Dense(dtype=...)`` does.  ``remat=True`` checkpoints the LN2+MLP
 sub-layer (``remat_policy="mlp"``: attention's saved ``(out, lse)`` stay
@@ -32,11 +37,11 @@ resident, so the backward never re-runs attention) or the whole block
 ``models/transformer.py:614-709``).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item
-where the model has the option): ring / ring_flash / ulysses attention,
-the int8 KV cache and multi-token decode continuation; nor
-tensor-parallel decode, MoE blocks, or per-row frontiers over a dense
-cache (the reference's ``decode_batched_frontier`` outside the engine,
-used by batched speculative decoding).
+where the model has the option): ulysses attention, the int8 KV cache
+and multi-token decode continuation; nor tensor-parallel decode, MoE
+blocks, or per-row frontiers over a dense cache (the reference's
+``decode_batched_frontier`` outside the engine, used by batched
+speculative decoding).
 """
 
 from __future__ import annotations
@@ -55,13 +60,19 @@ from distributed_machine_learning_tpu_torch.ops.decode_attention import (
     paged_flash_attention,
 )
 from distributed_machine_learning_tpu_torch.ops.flash_attention import (
+    _needs_pad,
     flash_self_attention,
     flash_wins,
 )
 from distributed_machine_learning_tpu_torch.ops.quant import QuantLinear
 from distributed_machine_learning_tpu_torch.ops.ring_attention import (
     dense_self_attention,
+    ring_self_attention,
 )
+from distributed_machine_learning_tpu_torch.ops.ring_flash_attention import (
+    ring_flash_self_attention,
+)
+from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
 
 LN_EPS = 1e-6  # Flax LayerNorm's epsilon (torch's default is 1e-5)
 DECODE_KERNEL_MIN_SLOTS = 4096  # the reference's decode-kernel threshold
@@ -99,6 +110,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotate [B, L, H, D] by per-position angles (split halves, not
     interleaved pairs); f32 math, dtype preserved.  ``positions``: [L]."""
     return rotate(x, rope_tables(positions, x.shape[-1], base))
+
+
+def _ring_flash_wins(chunk_len: int) -> bool:
+    """The ring → ring_flash upgrade policy (reference
+    ``models/transformer.py:179-194``): the length policy of one-device flash
+    applied to the local chunk, minus the lengths that one-device flash
+    pads, since the ring kernels have no pad path."""
+    return flash_wins(chunk_len) and not _needs_pad(chunk_len)
 
 
 def _repeat_kv(t: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -182,8 +201,9 @@ class Attention(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
                  attn_impl: str, compute_dtype: torch.dtype,
-                 weight_quant: str | None, device=None):
+                 weight_quant: str | None, device=None, comm: Comm | None = None):
         super().__init__()
+        self.comm = comm or Comm()
         if d_model % n_heads:
             raise ValueError("n_heads must divide d_model")
         self.n_heads = n_heads
@@ -243,6 +263,14 @@ class Attention(nn.Module):
                     "multi-token decode continuation (speculative "
                     "decoding's verify pass) is not ported yet: "
                     "ROADMAP A1 'speculative decoding'")
+        if self.attn_impl in ("ring", "ring_flash"):
+            if cache is not None or paged is not None:
+                raise ValueError("decode runs dense cached attention; clone the model "
+                                 'with attn_impl="dense"')
+            # GQA: the narrow K/V chunks travel the ring.
+            ring = ring_self_attention if self.attn_impl == "ring" else ring_flash_self_attention
+            out = ring(q, k, v, self.comm)
+            return _project(self.out, out.reshape(B, L, H * hd), cd)
         # Full causal pass, or prefill (the cache was empty, so attention is
         # plain causal attention over the fresh K/V; the decode path picks
         # flash by length alone, whatever attn_impl says).
@@ -267,14 +295,14 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: int | None, attn_impl: str,
                  compute_dtype: torch.dtype, weight_quant: str | None,
-                 device=None, remat_mlp: bool = False):
+                 device=None, remat_mlp: bool = False, comm: Comm | None = None):
         super().__init__()
         quant = weight_quant == "int8"
         self.compute_dtype = compute_dtype
         self.remat_mlp = remat_mlp
         self.ln1 = LayerNorm(d_model, compute_dtype, device)
         self.attn = Attention(d_model, n_heads, n_kv_heads, attn_impl,
-                              compute_dtype, weight_quant, device)
+                              compute_dtype, weight_quant, device, comm)
         self.ln2 = LayerNorm(d_model, compute_dtype, device)
         self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
         self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
@@ -294,15 +322,16 @@ class Block(nn.Module):
         return x + self.mlp(x)
 
 
-_ATTN_IMPLS = ("dense", "flash", "auto")
+_ATTN_IMPLS = ("dense", "flash", "auto", "ring", "ring_flash")
 
 
 class TransformerLM(nn.Module):
     """Causal LM: tokens [B, L] → f32 logits [B, L, vocab].
 
     ``forward(tokens)`` is the full causal pass (``attn_impl`` dense,
-    flash or auto).  ``forward(tokens, cache=..., start=s)`` is the decode
-    path: writes K/V for positions s..s+L-1 into the cache and attends
+    flash or auto; ring or ring_flash on this rank's sequence chunk of the
+    context-parallel group ``comm``).  ``forward(tokens, cache=...,
+    start=s)`` is the decode path: writes K/V for positions s..s+L-1 into the cache and attends
     against it (prefill at s = 0, then one token per call).
     ``forward(tokens [W, 1], paged=PagedKV(...))`` is one paged decode
     step: every lane at its own position.
@@ -317,13 +346,12 @@ class TransformerLM(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  n_kv_heads: int | None = None, kv_cache_dtype=None,
                  weight_quant: str | None = None, remat: bool = False,
-                 remat_policy: str = "mlp", device=None):
+                 remat_policy: str = "mlp", device=None, comm: Comm | None = None):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: sequence-parallel attention is not "
-                "ported yet (ROADMAP A5 'ring / ulysses attention'); use one "
-                f"of {_ATTN_IMPLS}")
+                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A5 "
+                f"'--parallel ulysses'); use one of {_ATTN_IMPLS}")
         if kv_cache_dtype is not None:
             raise NotImplementedError(
                 "a KV-cache dtype other than the compute dtype (the int8 KV "
@@ -338,7 +366,9 @@ class TransformerLM(nn.Module):
             vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
             n_heads=n_heads, d_ff=d_ff, attn_impl=attn_impl,
             compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
-            weight_quant=weight_quant, remat=remat, remat_policy=remat_policy)
+            weight_quant=weight_quant, remat=remat, remat_policy=remat_policy,
+            comm=comm)
+        self.comm = comm or Comm()
         self.vocab_size = vocab_size
         self.attn_impl = attn_impl
         self.remat_block = remat and remat_policy == "block"
@@ -352,7 +382,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, d_ff, n_kv_heads, attn_impl,
                   compute_dtype, weight_quant, device,
-                  remat_mlp=remat and remat_policy == "mlp")
+                  remat_mlp=remat and remat_policy == "mlp", comm=comm)
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, compute_dtype, device)
         self.lm_head = _linear(d_model, vocab_size, weight_quant == "int8",
@@ -397,7 +427,9 @@ class TransformerLM(nn.Module):
             layer_paged = [(k, v, paged.tables, paged.positions, page, lane_pos % bs)
                            for k, v in zip(paged.keys, paged.values)]
         else:
-            positions = torch.arange(start, start + L, device=tokens.device)
+            # A ring rank's chunk sits at rank·L in the global sequence.
+            offset = self.comm.rank * L if self.attn_impl in ("ring", "ring_flash") else start
+            positions = torch.arange(offset, offset + L, device=tokens.device)
         rope = rope_tables(positions, self.head_dim)
         x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)
         for i, block in enumerate(self.blocks):

@@ -87,6 +87,8 @@ class Comm:
         """One ring hop, as one ``batch_isend_irecv``: send each tensor of
         ``payload`` to ``dst`` and return the same-shaped tensors received
         from ``src`` (every rank's payloads share shapes and dtypes)."""
+        if self.world == 1:
+            return tuple(payload)
         outs = [self._out(t.contiguous()) for t in payload]
         ins = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in outs]
         ops = [dist.P2POp(dist.isend, t, dst, tag=i) for i, t in enumerate(outs)]
@@ -94,6 +96,13 @@ class Comm:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return tuple(t.to(p.device) for t, p in zip(ins, payload)) if self.host else tuple(ins)
+
+    def shift(self, payload: tuple, offset: int = 1) -> tuple:
+        """One ring hop: send ``payload`` to rank + ``offset`` and receive
+        rank − ``offset``'s (the reference's ``lax.ppermute`` over the
+        ring; ``offset=-1`` is its transpose)."""
+        n = self.world
+        return self.send_recv(payload, (self.rank + offset) % n, (self.rank - offset) % n)
 
     def all_gather(self, t: torch.Tensor) -> list:
         """Every rank's ``t``, in rank order, on this rank's device."""
@@ -114,6 +123,37 @@ class Comm:
         host = t.cpu()
         dist.all_reduce(host)
         return t.copy_(host)
+
+
+# The gradient mean packs its f32 tensors, in order, into buffers of at most
+# this many bytes (a larger tensor takes a buffer of its own): one
+# all-reduce per buffer instead of one per leaf.
+MEAN_BUCKET_BYTES = 256 * 2**20
+
+
+def mean_over_ranks_(comm: Comm, tensors) -> None:
+    """Replace each f32 tensor of ``tensors`` by its mean over the ranks, in
+    place: the reference's ``lax.pmean`` (sum, then divide by W), so every
+    rank ends with the same bits.  The tensors are packed into a few
+    coalesced buffers, one ``all_reduce_`` each: on the host wire every
+    call is a D2H copy, a TCP all-reduce and an H2D copy, which 117 leaves
+    would each pay.  Every rank must call it with the same tensor shapes."""
+    if comm.world == 1:
+        return
+    bucket: list = []
+    size = 0
+    for t in [*tensors, None]:
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"mean_over_ranks_ takes f32 tensors, got {t.dtype}")
+        if bucket and (t is None or size + 4 * t.numel() > MEAN_BUCKET_BYTES):
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            comm.all_reduce_(flat).div_(comm.world)
+            for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                b.copy_(part.view_as(b))
+            bucket, size = [], 0
+        if t is not None:
+            bucket.append(t)
+            size += 4 * t.numel()
 
 
 @dataclass

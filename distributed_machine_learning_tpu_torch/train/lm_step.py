@@ -1,17 +1,21 @@
-"""The LM train step on one device, dynamic loss scaling, and the eval step.
+"""The LM train step, dynamic loss scaling, batch sharding and the eval step.
 
-Counterpart of ``distributed_machine_learning_tpu/train/lm_step.py`` for
-the no-mesh case (``make_lm_train_step(model)``): forward, mean next-token
-cross-entropy, backward, the optimizer from the state's config, the step
-counter.  The reference compiles this into one donated program; here it
+Counterpart of ``distributed_machine_learning_tpu/train/lm_step.py``:
+forward, mean next-token cross-entropy, backward, the optimizer from the
+state's config, the step counter.  With a ``comm`` of W ranks the step is
+the reference's ``make_lm_train_step(model, mesh=...)`` over a (batch,
+seq) mesh of (W, 1) (``--parallel dp``: each rank its rows) or (1, W)
+(``--parallel ring``: each rank its sequence chunk, the model's attention
+a ring over ``comm``): after the backward the gradients and the loss are
+averaged over the ranks (the reference's ``pmean``), so every rank applies
+the same update to the same parameters.  The reference compiles this into one donated program; here it
 runs eagerly and updates the state in place, so ``step(state, tokens,
 targets)`` returns the same state object and the loss tensor (the caller
 syncs on it).  The gradients stay on the parameters (``p.grad``) until
 the next step clears them.
 
-Multi-device steps (the reference's ``mesh=``), the fused head+loss
-(``fused_ce_chunks``) and sequence-parallel attention are not ported yet:
-ROADMAP A3/A5; ``cli/lm.py`` refuses their flags.
+The fused head+loss (``fused_ce_chunks``) and Ulysses attention are not
+ported yet: ROADMAP A3/A5; ``cli/lm.py`` refuses their flags.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from functools import partial
 import torch
 
 from distributed_machine_learning_tpu_torch.convert import init_params
+from distributed_machine_learning_tpu_torch.runtime.distributed import mean_over_ranks_
 from distributed_machine_learning_tpu_torch.train.common import (
     guard_update,
     tree_all_finite,
@@ -80,12 +85,17 @@ def lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return lm_cross_entropy(model(tokens), targets)
 
 
-def _backward(model, loss: torch.Tensor) -> dict:
+def _backward(model, loss: torch.Tensor, comm) -> tuple[dict, torch.Tensor]:
     """Gradients of ``loss`` on the parameters, by name (the previous step's
-    are cleared first)."""
+    are cleared first), and the detached loss; with ``comm`` both are
+    averaged over its ranks in place (every rank reaches this call)."""
     model.zero_grad(set_to_none=True)
     loss.backward()
-    return {name: p.grad for name, p in model.named_parameters()}
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    loss = loss.detach()
+    if comm is not None:
+        mean_over_ranks_(comm, [*grads.values(), loss])
+    return grads, loss
 
 
 def _apply_update(state: TrainState, grads: dict) -> None:
@@ -94,23 +104,23 @@ def _apply_update(state: TrainState, grads: dict) -> None:
     state.step += 1
 
 
-def _lm_step_impl(model, state: TrainState, tokens, targets, *, guard: bool):
-    loss = lm_loss(model, tokens, targets)
-    grads = _backward(model, loss)
+def _lm_step_impl(model, state: TrainState, tokens, targets, *, guard: bool, comm):
+    grads, loss = _backward(model, lm_loss(model, tokens, targets), comm)
     if guard:
         # Non-finite gradients skip the update wholesale (step counter
         # included); the non-finite loss still returns so the host sees it.
+        # Decided on the averaged gradients: every rank decides the same.
         guard_update(tree_all_finite(grads), state, partial(_apply_update, grads=grads))
     else:
         _apply_update(state, grads)
-    return state, loss.detach()
+    return state, loss
 
 
-def _lm_scaled_step_impl(model, sstate: DynamicScaleState, tokens, targets):
-    """The dynamic-loss-scaled step (guard always on)."""
+def _lm_scaled_step_impl(model, sstate: DynamicScaleState, tokens, targets, *, comm):
+    """The dynamic-loss-scaled step (guard always on; gradients unscaled
+    after the mean over the ranks, as the reference)."""
     scale = sstate.loss_scale
-    scaled_loss = lm_loss(model, tokens, targets) * scale
-    grads = _backward(model, scaled_loss)
+    grads, scaled_loss = _backward(model, lm_loss(model, tokens, targets) * scale, comm)
     for g in grads.values():
         g.div_(scale)
     finite = guard_update(tree_all_finite(grads), sstate.inner,
@@ -124,21 +134,44 @@ def _lm_scaled_step_impl(model, sstate: DynamicScaleState, tokens, targets):
         sstate.good_steps = 0
     # The unscaled loss (non-finite on overflow steps, which is how the
     # host observes the backoff).
-    return sstate, scaled_loss.detach() / scale
+    return sstate, scaled_loss / scale
 
 
-def make_lm_train_step(model, guard_nonfinite: bool = False,
+def make_lm_train_step(model, comm=None, guard_nonfinite: bool = False,
                        dynamic_scale: bool = False):
-    """Build ``step(state, tokens, targets) -> (state, loss)`` for one device
-    (the reference's no-mesh case).
+    """Build ``step(state, tokens, targets) -> (state, loss)``.
+
+    Without ``comm`` (or at world 1): one device, the reference's no-mesh
+    case.  With a ``comm`` of W ranks: each rank passes its shard of the
+    global batch (:func:`shard_lm_batch`) and every rank must call the step
+    each time; gradients and loss are averaged over the ranks before the
+    update.  A dense or flash model shards the batch (dp); a ring model
+    the sequence, over the same ``comm``.
 
     ``guard_nonfinite``: a non-finite gradient skips the update (state and
     step counter unchanged).  ``dynamic_scale``: dynamic loss scaling
     (implies the guard); the step then takes a :class:`DynamicScaleState`
     (:func:`with_dynamic_scale`)."""
+    if comm is not None and comm.world == 1:
+        comm = None
     if dynamic_scale:
-        return partial(_lm_scaled_step_impl, model)
-    return partial(_lm_step_impl, model, guard=guard_nonfinite)
+        return partial(_lm_scaled_step_impl, model, comm=comm)
+    return partial(_lm_step_impl, model, guard=guard_nonfinite, comm=comm)
+
+
+def shard_lm_batch(tokens, targets, rank: int, world: int, axis: str):
+    """This rank's part of a global [B, L] batch (numpy arrays or tensors):
+    rows ``[r·B/W, (r+1)·B/W)`` for ``axis="batch"`` (dp), columns
+    ``[r·L/W, (r+1)·L/W)`` for ``axis="seq"`` (ring), as the reference's
+    ``shard_lm_batch`` places them on a (batch, seq) mesh of (W, 1) or
+    (1, W).  Every rank draws the same global batch from the seed."""
+    dim = {"batch": 0, "seq": 1}[axis]
+    n = tokens.shape[dim]
+    if n % world:
+        raise ValueError(f"{axis} length {n} is not divisible by {world} ranks")
+    part = slice(rank * n // world, (rank + 1) * n // world)
+    index = (part,) if dim == 0 else (slice(None), part)
+    return tokens[index], targets[index]
 
 
 def make_lm_eval_step(model):

@@ -493,3 +493,91 @@ def test_int8_ring_step_kernels_match_plain_codec(cuda):
     for got, want in ((kq, pq), (ks_, ps_), (kerr, perr), (a1, a2),
                       (ks.decode((kq, ks_), v.numel()), ps.decode((pq, ps_), v.numel()))):
         assert _bits_equal(got, want)
+
+
+# The ring flash chunk kernels K11-K13 vs their plain versions: rank 1 of a
+# two-chunk ring (q and dO of chunk 1; K/V of chunk 0 for the full step, of
+# chunk 1 for the diagonal), a carry in from the step before, non-zero dq
+# and traveling dK/dV accumulators, the lse and delta of the whole rows.
+def _ring_case(gen, Lc, H, Hkv, D, dtype):
+    from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+
+    q, do = (torch.randn(1, Lc, H, D, device="cuda", generator=gen).to(dtype) for _ in "ab")
+    kv = [torch.randn(1, Lc, Hkv, D, device="cuda", generator=gen).to(dtype) for _ in "abcd"]
+    m = torch.full((1, H, Lc), -1e30, device="cuda")
+    carry = rf.chunk_fwd_reference(q, kv[2], kv[3], m, torch.zeros_like(m),
+                                   torch.zeros(1, Lc, H, D, device="cuda"), True)
+    m1, l1, acc1 = rf.chunk_fwd_reference(q, kv[0], kv[1], *carry, False)
+    out = (acc1 / l1.transpose(1, 2)[..., None]).to(dtype)
+    lse = m1 + torch.log2(l1)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    acc = lambda n: torch.randn(1, Lc, n, D, device="cuda", generator=gen)  # noqa: E731
+    return rf, q, do, kv, carry, lse, delta, acc(H), acc(Hkv), acc(Hkv)
+
+
+@pytest.mark.parametrize("Lc", [32, 384, 1024])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (4, 2, 32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_flash_kernels_match_plain(cuda, Lc, H, Hkv, D, dtype):
+    rf, q, do, kv, carry, lse, delta, dq, dk, dv = _ring_case(cuda, Lc, H, Hkv, D, dtype)
+    names = ("ring_flash_fwd", "ring_flash_dq", "ring_flash_dkv")
+    before = [build.launches[n] for n in names]
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gtol = BF16_TOL if dtype == torch.bfloat16 else F32_GRAD_TOL
+    for causal, (k, v) in ((True, kv[2:]), (False, kv[:2])):
+        start = carry if not causal else (torch.full_like(carry[0], -1e30),
+                                          torch.zeros_like(carry[1]),
+                                          torch.zeros_like(carry[2]))
+        got = [t.clone() for t in start]
+        rf._launch_fwd(q, k, v, *got, causal)
+        want = rf.chunk_fwd_reference(q, k, v, *start, causal)
+        gdq, gdk, gdv = dq.clone(), dk.clone(), dv.clone()
+        rf._launch_dq(q, k, v, do, lse, delta, gdq, causal)
+        rf._launch_dkv(q, k, v, do, lse, delta, gdk, gdv, causal)
+        torch.cuda.synchronize()
+        assert float((got[0] - want[0]).abs().max()) <= LSE_TOL
+        assert float(((got[1] - want[1]) / want[1]).abs().max()) <= LSE_TOL
+        _close(got[2], want[2], tol)
+        _close(gdq, rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal), gtol,
+               GRAD_ROW_FLOOR[dtype])
+        for g, w in zip((gdk, gdv), rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv,
+                                                           causal)):
+            _close(g, w, gtol, GRAD_ROW_FLOOR[dtype])
+    assert [build.launches[n] - b for n, b in zip(names, before)] == [2, 2, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_flash_world1_is_causal_flash(cuda, dtype):
+    """A one-rank ring is one diagonal step forward and backward: kernel path
+    (K11-K13) vs the plain flash forward and backward (K1-K3's plain
+    versions)."""
+    from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+    from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
+
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 2, 1024, 8, 2, 64, dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = rf.ring_flash_self_attention(q, k, v, Comm())
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    _close(out, fa.flash_attention_reference(q.detach(), k.detach(), v.detach()), tol)
+    want = fa.flash_attention_backward_reference(q.detach(), k.detach(), v.detach(), do,
+                                                 lse, delta)
+    for g, w in zip(grads, want):
+        _close(g, w, BF16_TOL if dtype == torch.bfloat16 else F32_GRAD_TOL,
+               GRAD_ROW_FLOOR[dtype])
+
+
+def test_ring_flash_kernels_refuse_what_they_do_not_take(cuda):
+    from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+
+    q = torch.randn(1, 64, 4, 48, device="cuda")
+    kv = torch.randn(1, 64, 2, 48, device="cuda")
+    m = torch.zeros(1, 4, 64, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        rf._chunk_fwd(q, kv, kv, m, m.clone(), torch.zeros(1, 64, 4, 48, device="cuda"), True)
+    q, kv = q[..., :32].half(), kv[..., :32].half()
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        rf._chunk_fwd(q, kv, kv, m, m.clone(), torch.zeros(1, 64, 4, 32, device="cuda"), True)
+    q, kv = q.float(), kv.float()
+    with pytest.raises(ValueError, match="contiguous f32"):
+        rf._chunk_dq(q, kv, kv, q, m, m, torch.zeros(1, 4, 64, 32, device="cuda"), True)

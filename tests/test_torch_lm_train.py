@@ -232,7 +232,7 @@ def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
         cli_lm.main(["--max-iters", "1"])
     for flags, item in ((["--parallel", "fsdp"], "A5"), (["--ckpt-dir", "x"], "A3"),
                         (["--data-dir", "x"], "A3"), (["--fused-ce-chunks", "2"], "A3"),
-                        (["--telemetry-dir", "x"], "A6"), (["--num-nodes", "2"], "A3"),
+                        (["--telemetry-dir", "x"], "A6"), (["--parallel", "ulysses"], "A5"),
                         (["--optimizer", "sgd"], "A4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             cli_lm.main(["--device", "cpu", *flags])

@@ -125,7 +125,7 @@ def test_cached_decode_matches_full_forward(n_kv_heads):
 
 
 def test_out_of_slice_features_raise():
-    for kwargs in ({"attn_impl": "ring"}, {"kv_cache_dtype": "int8"}):
+    for kwargs in ({"attn_impl": "ulysses"}, {"kv_cache_dtype": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1,
                           n_heads=4, device="cpu", **kwargs)
