@@ -8,7 +8,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes, with a stated tolerance (f32
-   matmuls in the references: TF32 is switched off): K1 with its lse, K4,
+   matmuls in the references: TF32 is switched off): K1 with its lse, K4
+   in both modes (bf16, and int8 rows with f32 scales from the model's
+   quantized write, q bf16 at the serving shape and q f32 at a small one),
    K6, K5, the flash backward pair K2 (dQ) and K3 (dK/dV) at the trainer's
    heads, in f32, at head dim 32 and through the autograd Function at a
    padded length, and the fused AdamW K7 on f32, bf16 and ragged leaves
@@ -29,6 +31,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    prefill + first token and the decode loop (model step + greedy sample)
    between CUDA events, repeated, as median and range; and a
    torch.profiler view of a few decode steps.
+   Then the card's crossover of the tiered int8 switch: K4's int8 mode
+   against the scale-folding einsum at S 32768, B 1 and 8, across fills.
+4b. Serves the same model with an int8 KV cache through
+   ``make_generate_fn``: (a) the default dispatch at the same traffic
+   (launches: K1 once per layer, K4 in neither mode; first-two-step logits
+   against the plain path; decode timing, peak memory and greedy agreement
+   against the bf16-KV run); (b) the tiered switch on, B 8 × prompt 128 ×
+   1024 new tokens, K4's int8 mode launched exactly where 100·p < 19·S
+   (1312 times), its first 16 steps' logits against the default dispatch
+   on the same tokens; (c) ``python -m ...cli.generate --random-init
+   --kv-cache-dtype int8`` at full width, which must exit 0.
 5. Serves the same model through the continuous-batching engine
    (``ContinuousEngine``, 8 lanes over a paged pool of 2080 blocks of 16
    slots): 16 requests of seeded prompt lengths (256-4096) and new-token
@@ -187,6 +200,10 @@ PERTURBATIONS = {
         "decode_attention",
         "sc[u][r] = base + sub + u * NWARPS * SPW <= pos ?",
         "sc[u][r] = base + sub + u * NWARPS * SPW < pos ?"),
+    # K4's int8 mode ignores the V scales (dequantizes V by 1).
+    "decode-int8-ignore-v-scale": (
+        "decode_attention", "vsc[u] = C::QUANT ? __ldg(vsb + slot) : 1.f;",
+        "vsc[u] = 1.f;"),
     # The last split of the contraction skips its last K tile.
     "int8-drop-last-ktile": (
         "quant_matmul", "for (int kt = 0; kt < ktiles; ++kt) {",
@@ -271,15 +288,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name: str, got, want, failed: list, floor: float = 0.0) -> float:
+def compare(name: str, got, want, failed: list, floor: float = 0.0,
+            tol: tuple = (ROW_ELEM_TOL, ROW_RMS_TOL)) -> float:
     """Hold a kernel's output against its plain version row by row (see
-    ROW_ELEM_TOL); returns the max abs error, appends ``name`` to
-    ``failed`` if a row is out of tolerance.  ``floor`` (a fraction of the
-    whole output's largest value, resp. rms) bounds each row's scale from
-    below, for outputs with rows that are zero in exact arithmetic (see
-    GRAD_ROW_FLOOR)."""
+    ROW_ELEM_TOL; ``tol`` is (element, rms)); returns the max abs error,
+    appends ``name`` to ``failed`` if a row is out of tolerance.  ``floor``
+    (a fraction of the whole output's largest value, resp. rms) bounds each
+    row's scale from below, for outputs with rows that are zero in exact
+    arithmetic (see GRAD_ROW_FLOOR)."""
     import torch
 
+    elem_tol, rms_tol = tol
     got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
@@ -289,11 +308,11 @@ def compare(name: str, got, want, failed: list, floor: float = 0.0) -> float:
     level = max(floor * float(want.square().mean().sqrt()), tiny)
     elem = err.abs().amax(-1) / want.abs().amax(-1).clamp_min(peak)
     rms = err.square().mean(-1).sqrt() / want.square().mean(-1).sqrt().clamp_min(level)
-    bad = int(((elem > ROW_ELEM_TOL) | (rms > ROW_RMS_TOL)).sum())
+    bad = int(((elem > elem_tol) | (rms > rms_tol)).sum())
     max_abs = float(err.abs().max())
     log(f"  {name}: max_abs_err={max_abs:.3e}, worst row: elem_err/max|ref|="
-        f"{float(elem.max()):.3e} (tol {ROW_ELEM_TOL:.4g}), rms_err/rms(ref)="
-        f"{float(rms.max()):.3e} (tol {ROW_RMS_TOL:g}) -> "
+        f"{float(elem.max()):.3e} (tol {elem_tol:.4g}), rms_err/rms(ref)="
+        f"{float(rms.max()):.3e} (tol {rms_tol:g}) -> "
         f"{'ok' if not bad else f'{bad} of {len(rms)} rows BAD'}")
     if bad:
         failed.append(name)
@@ -731,6 +750,129 @@ def check_decode(torch, da, rows: dict, timing: bool) -> None:
     log(f"  decode_attention pos={pos}: {r['ms']:.4f} ms, {nbytes / r['ms'] / 1e6:.1f} GB/s")
 
 
+# K4's int8 mode in f32 (q f32, a small shape), kernel vs plain: both
+# dequantize each value in f32 the same way and keep P in f32, so only the
+# order of the f32 sums differs; per row (worst element / max|row|, rms).
+INT8_F32_TOL = (1e-4, 1e-5)
+
+
+def int8_cache(torch, B, Hkv, S, D, gen):
+    """An int8 cache and its f32 scales, from random bf16 K/V through the
+    model's quantized write."""
+    from distributed_machine_learning_tpu_torch.models.transformer import quantize_kv
+
+    k = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+    return (*quantize_kv(k), *quantize_kv(v))
+
+
+def check_decode_int8(torch, da, rows: dict, timing: bool) -> None:
+    """K4's int8 mode at the serving shape (B 8, S 4608, H 16/4, D 128, q
+    bf16) at block edges and the frontier, with the row gates; q f32 at a
+    small shape with INT8_F32_TOL.  Timed at the main path's middle decode
+    position beside its bytes bound, its plain version and the
+    scale-folding einsum on the same cache (no one PyTorch call computes
+    it)."""
+    from distributed_machine_learning_tpu_torch.models.transformer import (
+        _cached_attention_quant,
+    )
+
+    B, S, H, Hkv, D = 8, 4608, 16, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
+    kq, ks, vq, vs = int8_cache(torch, B, Hkv, S, D, gen)
+    errs, failed = [], []
+    for pos in (0, 511, 512, 2047, 2048, 4095, 4607):
+        got = da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        errs.append(compare(f"decode_attention_int8 B={B} S={S} pos={pos}", got,
+                            da.cached_attention_reference(q, kq, vq, pos, ks, vs), failed))
+    small = int8_cache(torch, 2, 2, 1024, 64, gen)
+    qf = torch.randn(2, 1, 8, 64, device="cuda", generator=gen)
+    for pos in (0, 700, 1023):
+        got = da.cached_flash_attention(qf, small[0], small[2], pos, k_scale=small[1],
+                                        v_scale=small[3])
+        torch.cuda.synchronize()
+        compare(f"decode_attention_int8 f32 q B=2 S=1024 H=8 Hkv=2 D=64 pos={pos}", got,
+                da.cached_attention_reference(qf, small[0], small[2], pos, *small[1::2]),
+                failed, tol=INT8_F32_TOL)
+    rows["decode_attention_int8"] = {"max_abs_err": max(errs)}
+    raise_failed(failed)
+    if not timing:
+        return
+    pos = PROMPT + NEW_TOKENS // 2 - 1  # the middle decode step of the main path
+    n = pos + 1
+    nbytes = 2 * B * Hkv * n * (D + 4) + 2 * B * H * D * 2
+    flops = 4.0 * B * H * n * D + 2.0 * B * Hkv * n * D  # dots + dequantization
+    positions = torch.tensor([pos], device="cuda")
+    rows["decode_attention_int8"].update(
+        ms=time_ms(lambda: da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs),
+                   iters=50),
+        plain_ms=time_ms(lambda: da.cached_attention_reference(q, kq, vq, pos, ks, vs)),
+        library_ms=None,
+        context_ms=time_ms(lambda: _cached_attention_quant(q, kq, ks, vq, vs, positions)),
+        **bound(flops, F32_FLOPS, nbytes),
+        shape=f"B={B} S_alloc={S} H={H} Hkv={Hkv} D={D} int8 + f32 scales, q bf16 "
+              f"pos={pos}, one call per layer per decode step below the break-even")
+    r = rows["decode_attention_int8"]
+    log(f"  decode_attention_int8 pos={pos}: {r['ms']:.4f} ms, {nbytes / r['ms'] / 1e6:.1f} "
+        f"GB/s, bound {r['bound_ms']:.4f} ms; no one PyTorch call computes it; the "
+        f"scale-folding einsum on the same cache (reads all {S} slots): "
+        f"{r['context_ms']:.4f} ms")
+
+
+# The card's crossover of the tiered int8 switch: K4's int8 mode (reads
+# O(pos)) vs the scale-folding einsum (reads the whole allocation) at the
+# reference's measurement allocation, per batch, across fills pos/S.
+CROSSOVER_S = 32768
+CROSSOVER_FILLS = (0.05, 0.1, 0.19, 0.3, 0.5, 0.95)
+
+
+def crossover(torch, da) -> None:
+    """Log both ladders and the fill where the kernel stops winning
+    (linear between the ladder's points); records, decides nothing."""
+    from distributed_machine_learning_tpu_torch.models.transformer import (
+        INT8_TIER_BREAK_EVEN_PCT,
+        _cached_attention_quant,
+    )
+
+    H, Hkv, D = MODEL["n_heads"], MODEL["n_kv_heads"], MODEL["d_model"] // MODEL["n_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for B in (1, 8):
+        shape = (B, Hkv, CROSSOVER_S, D)
+        kq = torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int8)
+        vq = torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int8)
+        ks = torch.rand(shape[:3], device="cuda", generator=gen) / 127
+        vs = torch.rand(shape[:3], device="cuda", generator=gen) / 127
+        q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
+        kernel, einsum = [], []
+        for f in CROSSOVER_FILLS:
+            pos = int(f * CROSSOVER_S)
+            positions = torch.tensor([pos], device="cuda")
+            kernel.append(time_ms(lambda: da.cached_flash_attention(
+                q, kq, vq, pos, k_scale=ks, v_scale=vs), iters=50))
+            einsum.append(time_ms(lambda: _cached_attention_quant(
+                q, kq, ks, vq, vs, positions), iters=10))
+        cross = None
+        for i, f in enumerate(CROSSOVER_FILLS):
+            if kernel[i] >= einsum[i]:
+                if i == 0:
+                    cross = f
+                else:
+                    d0, d1 = einsum[i - 1] - kernel[i - 1], einsum[i] - kernel[i]
+                    f0 = CROSSOVER_FILLS[i - 1]
+                    cross = f0 + (f - f0) * d0 / (d0 - d1)
+                break
+        log(f"int8 tier crossover B={B} S_alloc={CROSSOVER_S} H={H} Hkv={Hkv} D={D} q bf16 "
+            f"(ms per call, fills {list(CROSSOVER_FILLS)}): kernel "
+            f"{[round(x, 4) for x in kernel]}; einsum {[round(x, 4) for x in einsum]}; "
+            + (f"crossover pos/S = {cross:.3f}" if cross is not None else
+               "the kernel wins at every fill")
+            + f" (the reference's break-even: {INT8_TIER_BREAK_EVEN_PCT} %)")
+        del kq, vq, ks, vs
+        torch.cuda.empty_cache()
+
+
 def gemm_shapes():
     """(D, K) of every int8 projection of one forward: per layer q, kv,
     out, fc_in, fc_out, then the LM head."""
@@ -1020,7 +1162,7 @@ def time_serving(torch, mode: str, model, fn, prompt, reps: int = 10) -> None:
         f"ms/step {spread(decode)} -> {BATCH / med * 1e3:.0f} tok/s at the median")
 
 
-def serve(torch, build, models, prompt, rows: dict) -> None:
+def serve(torch, build, models, prompt, rows: dict):
     fns = generate_fns(models)
     for warm in generate_fns(models, 2).values():  # first launches, cuBLAS handles
         warm(prompt[:, :512])
@@ -1031,6 +1173,170 @@ def serve(torch, build, models, prompt, rows: dict) -> None:
     for mode, out in outs.items():
         time_serving(torch, mode, models[mode], fns[mode], prompt)
     profile_decode(torch, models["bf16"], prompt)
+    return outs["bf16"]
+
+
+# The int8-KV serving path: (a) the default dispatch at the main path's
+# traffic; (b) the tiered switch on, B 8 × prompt 128 × 1024 new tokens: the
+# cache rounds to 1536 slots and decode positions run 128-1150, of which
+# those with 100·p < 19·1536 (128-291) take K4's int8 mode.
+KV_TIERED = dict(prompt=128, new_tokens=1024)
+KV_TIERED_STEPS = 16  # steps held against the default dispatch
+
+
+def kv_int8_model(torch, model, tiered: bool):
+    """``model``'s weights (bf16) in a model with an int8 KV cache."""
+    m = model.clone(kv_cache_dtype=torch.int8, int8_tiered_dispatch=tiered)
+    m.load_state_dict(model.state_dict())
+    return m.to(torch.bfloat16).eval()
+
+
+def peak_gb(torch, fn) -> float:
+    """Peak device memory (GB) allocated while ``fn()`` runs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def kv_expected_kernel_launches(prompt: int, new_tokens: int) -> int:
+    """K4-int8 launches of one tiered generate: one per layer for each decode
+    position p (prompt .. prompt + new_tokens - 2) with 100·p < S·19, S the
+    cache allocation (prompt + new_tokens rounded up to 512)."""
+    from distributed_machine_learning_tpu_torch.models.transformer import (
+        INT8_TIER_BREAK_EVEN_PCT,
+    )
+
+    S = -(-(prompt + new_tokens) // 512) * 512
+    steps = [p for p in range(prompt, prompt + new_tokens - 1)
+             if p * 100 < S * INT8_TIER_BREAK_EVEN_PCT]
+    return MODEL["n_layers"] * len(steps)
+
+
+def teacher_forced_logits(torch, model, prompt, tokens, slots: int, steps: int) -> list:
+    """Logits of prefill and ``steps`` decode steps fed ``tokens`` (so two
+    models are compared along one token stream)."""
+    Lp = prompt.shape[1]
+    with torch.inference_mode():
+        cache = model.init_cache(prompt.shape[0], slots)
+        out = [model(prompt, cache=cache, start=0, last_only=True)[:, -1]]
+        for i in range(steps):
+            out.append(model(tokens[:, Lp + i, None], cache=cache, start=Lp + i)[:, -1])
+    return out
+
+
+def serve_kv_int8(torch, build, models, prompt, rows: dict, bf16_out) -> None:
+    """The int8 KV cache through ``make_generate_fn`` at full width: (a) the
+    default dispatch (every decode step on the scale-folding einsum, K4's
+    int8 mode never), (b) the tiered switch on (K4's int8 mode exactly
+    where the rule says), launch counts zeroed just before and read just
+    after each; then (c) the real command."""
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+
+    kv = kv_int8_model(torch, models["bf16"], tiered=False)
+    fn = make_generate_fn(kv, NEW_TOKENS)
+    make_generate_fn(kv, 2)(prompt[:, :512])  # first launches
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    out = fn(prompt)
+    torch.cuda.synchronize()
+    launches_a = dict(build.launches)
+    log(f"int8-KV path (a), default dispatch, launches: {launches_a}")
+    want = {"flash_fwd": MODEL["n_layers"], "decode_attention_int8": 0, "decode_attention": 0}
+    for name, n in want.items():
+        if launches_a[name] != n:
+            raise AssertionError(f"int8-KV (a): {name} launched {launches_a[name]} times, "
+                                 f"want {n}")
+    if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not torch.equal(out[:, :PROMPT], prompt):
+        raise AssertionError(f"int8-KV (a): output {tuple(out.shape)} malformed")
+    check_logits(torch, "int8-KV (a)", kv, prompt, out)
+    gen, ref = out[:, PROMPT:], bf16_out[:, PROMPT:]
+    firsts = [next((i for i in range(NEW_TOKENS) if gen[b, i] != ref[b, i]), None)
+              for b in range(BATCH)]
+    bf16_fn = make_generate_fn(models["bf16"], NEW_TOKENS)
+    peaks = {"bf16-KV": peak_gb(torch, lambda: bf16_fn(prompt)),
+             "int8-KV": peak_gb(torch, lambda: fn(prompt))}
+    S = cache_slots()
+    per_layer = {"bf16-KV": 2 * BATCH * MODEL["n_kv_heads"] * S * 128 * 2,
+                 "int8-KV": 2 * BATCH * MODEL["n_kv_heads"] * S * (128 + 4)}
+    log(f"int8-KV (a) vs bf16-KV generate: greedy tokens equal "
+        f"{int((gen == ref).sum())}/{gen.numel()}, first differing step per row {firsts}; "
+        f"peak memory GB {peaks}; cache bytes (all layers) "
+        f"{ {k: v * MODEL['n_layers'] for k, v in per_layer.items()} }")
+    time_serving(torch, "int8-KV (a)", kv, fn, prompt)
+    profile_decode(torch, kv, prompt, label="int8-KV (a) decode")
+
+    tiered = kv_int8_model(torch, models["bf16"], tiered=True)
+    del kv
+    Lp, n_new = KV_TIERED["prompt"], KV_TIERED["new_tokens"]
+    short = prompt[:, :Lp].contiguous()
+    fn_t = make_generate_fn(tiered, n_new)
+    make_generate_fn(tiered, 2)(short)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_t = fn_t(short)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches_b = dict(build.launches)
+    log(f"int8-KV path (b), tiered switch on, B={BATCH} prompt={Lp} new={n_new} "
+        f"({seconds:.2f} s, {BATCH * n_new / seconds:.0f} tok/s host clock), launches: "
+        f"{launches_b}")
+    want_k = kv_expected_kernel_launches(Lp, n_new)
+    if launches_b["decode_attention_int8"] != want_k or launches_b["decode_attention"] != 0:
+        raise AssertionError(f"int8-KV (b): decode_attention_int8 launched "
+                             f"{launches_b['decode_attention_int8']} times (want {want_k}), "
+                             f"decode_attention {launches_b['decode_attention']} (want 0)")
+    if out_t.shape != (BATCH, Lp + n_new) or not torch.equal(out_t[:, :Lp], short) \
+            or int(out_t.min()) < 0 or int(out_t.max()) >= MODEL["vocab_size"]:
+        raise AssertionError(f"int8-KV (b): output {tuple(out_t.shape)} malformed")
+    # The tiered run's first steps against the default dispatch, both fed the
+    # tiered run's tokens in a cache of the same allocation.
+    slots = -(-(Lp + n_new) // 512) * 512
+    default = kv_int8_model(torch, models["bf16"], tiered=False)
+    got = teacher_forced_logits(torch, tiered, short, out_t, slots, KV_TIERED_STEPS)
+    want = teacher_forced_logits(torch, default, short, out_t, slots, KV_TIERED_STEPS)
+    del default, tiered
+    diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    agree = [torch.equal(g.argmax(-1), w.argmax(-1)) for g, w in zip(got, want)]
+    same = all(torch.equal(g.argmax(-1), out_t[:, Lp + i]) for i, g in enumerate(got))
+    first = next((i for i, a in enumerate(agree) if not a), None)
+    log(f"int8-KV (b) vs the default dispatch over the first {KV_TIERED_STEPS} steps: "
+        f"tokens equal at every step: {first is None}"
+        + ("" if first is None else f" (first disagreement at step {first}, logit gap "
+           f"{diffs[first]:.4f})")
+        + f"; max |logit diff| {max(diffs):.4f} (tol {LOGIT_TOL}); generate's tokens = the "
+        f"tiered path's argmax: {same}")
+    if max(diffs) > LOGIT_TOL or not same:
+        raise AssertionError("int8-KV (b): the tiered dispatch disagrees with the default")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["kv_int8_launches"] = launches_a[name] + launches_b[name]
+        if name == "decode_attention_int8":
+            row["launches"] = launches_b[name]
+    run_generate_cli(torch)
+
+
+def run_generate_cli(torch) -> None:
+    """(c) The real command at full width with an int8 KV cache; it must
+    exit 0 and print the prompt and its continuation."""
+    import os
+
+    cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.generate",
+           "--random-init", "--kv-cache-dtype", "int8", "--d-model", str(MODEL["d_model"]),
+           "--n-layers", str(MODEL["n_layers"]), "--n-heads", str(MODEL["n_heads"]),
+           "--n-kv-heads", str(MODEL["n_kv_heads"]), "--vocab", str(MODEL["vocab_size"]),
+           "--max-new-tokens", "32", "--temperature", "0"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+    text = next((ln for ln in res.stdout.splitlines() if ln.startswith("The ")), None)
+    log(f"cli.generate --kv-cache-dtype int8 ({time.perf_counter() - t0:.1f} s): exit code "
+        f"{res.returncode}; output: {text and text[:200]!r}")
+    if res.returncode != 0 or text is None:
+        raise AssertionError(f"cli.generate: exit code {res.returncode}; output tail "
+                             f"{(res.stdout + res.stderr)[-2000:]}")
 
 
 def engine_traffic(torch):
@@ -2175,6 +2481,7 @@ def perturb(torch, pkg, name: str) -> int:
     else:
         checks = [lambda: check_flash(torch, fa, {}, timing=False),
                   lambda: check_decode(torch, da, {}, timing=False),
+                  lambda: check_decode_int8(torch, da, {}, timing=False),
                   lambda: check_int8(torch, qm, {}, timing=False),
                   lambda: check_paged(torch, da, {})]
     for check in checks:
@@ -2208,15 +2515,15 @@ def perturb(torch, pkg, name: str) -> int:
     return 0 if any(c.startswith("kernel") for c in caught) else 1
 
 
-def profile_decode(torch, model, prompt, steps: int = 4) -> None:
-    """The profiler view of a few bf16 generate decode steps."""
+def profile_decode(torch, model, prompt, steps: int = 4, label: str = "bf16 decode") -> None:
+    """The profiler view of a few generate decode steps."""
     with torch.inference_mode():
         cache = model.init_cache(BATCH, cache_slots())
         logits = model(prompt, cache=cache, start=0, last_only=True)
         tok = logits[:, -1].argmax(-1)[:, None]
         model(tok, cache=cache, start=PROMPT)  # warm
         torch.cuda.synchronize()
-        profile_steps(torch, "bf16 decode",
+        profile_steps(torch, label,
                       lambda i: model(tok, cache=cache, start=PROMPT + 1 + i), steps)
 
 
@@ -2312,6 +2619,7 @@ def main(argv=None) -> int:
     log("kernel vs plain on the card:")
     check_flash(torch, fa, rows, timing)
     check_decode(torch, da, rows, timing)
+    check_decode_int8(torch, da, rows, timing)
     check_int8(torch, qm, rows, timing)
     check_paged(torch, da, rows)
     check_flash_bwd(torch, fa, rows, timing)
@@ -2322,8 +2630,13 @@ def main(argv=None) -> int:
         log("check-only: kernels build and agree with their plain versions")
         return 0
 
+    crossover(torch, da)
     models, prompt = make_models(torch, pkg)
-    serve(torch, build, models, prompt, rows)
+    bf16_out = serve(torch, build, models, prompt, rows)
+    t0 = time.perf_counter()
+    serve_kv_int8(torch, build, models, prompt, rows, bf16_out)
+    log(f"int8-KV phases: {time.perf_counter() - t0:.1f} s")
+    del bf16_out
     t0 = time.perf_counter()
     serve_engine(torch, build, da, models["bf16"], rows)
     log(f"engine phases: {time.perf_counter() - t0:.1f} s")
@@ -2348,6 +2661,7 @@ def main(argv=None) -> int:
         "flash_bwd_dq": ("flash_bwd", pallas + "flash_attention.py:408"),
         "flash_bwd_dkv": ("flash_bwd", pallas + "flash_attention.py:439"),
         "decode_attention": ("decode_attention", pallas + "decode_attention.py:99"),
+        "decode_attention_int8": ("decode_attention", pallas + "decode_attention.py:99"),
         "quant_matmul": ("quant_matmul", pallas + "quant_matmul.py:60"),
         "paged_attention": ("paged_attention", pallas + "decode_attention.py:294"),
         "fused_adamw": ("fused_adamw", pallas + "fused_adamw.py:85"),
@@ -2368,6 +2682,7 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "context_ms": row.get("context_ms"), "kv_int8_launches": row["kv_int8_launches"],
             "engine_launches": row["engine_launches"],
             "train_launches": row["train_launches"], "vgg_launches": row["vgg_launches"],
             "ring_launches": row["ring_launches"], "shape": row["shape"]})

@@ -2,7 +2,8 @@
 
 Counterpart of ``distributed_machine_learning_tpu/cli/generate.py`` for
 randomly initialized weights: the byte-level prompt encoding, the
-sampling flags, ``--compute-dtype`` and ``--quant int8``.  Runs on the GPU
+sampling flags, ``--compute-dtype``, ``--kv-cache-dtype`` (``int8``: int8
+rows plus f32 scales per slot) and ``--quant int8``.  Runs on the GPU
 unless ``--device cpu`` is given.
 
 Usage::
@@ -63,6 +64,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="default: byte-level 257")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--kv-cache-dtype", dest="kv_cache_dtype", default=None,
+                   choices=["int8", "bfloat16", "float32"],
+                   help="decode cache storage dtype (default: compute dtype)")
     p.add_argument("--quant", default=None, choices=["int8"],
                    help="weight-only int8 serving through the W8A16 kernel")
     p.add_argument("--device", default=None,
@@ -75,16 +79,17 @@ def main(argv=None) -> None:
     if args.ckpt_dir:
         raise NotImplementedError(
             "--ckpt-dir: restoring a cli.lm checkpoint is not ported yet "
-            "(ROADMAP A1 '--ckpt-dir'); use --random-init")
+            "(ROADMAP A3 '--ckpt-dir'); use --random-init")
     if not args.random_init:
         raise ValueError("pass --random-init (checkpoints are not ported yet)")
     device = resolve_device(args.device)
     vocab = args.vocab or VOCAB_SIZE
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    kv_dtype = getattr(torch, args.kv_cache_dtype) if args.kv_cache_dtype else None
     model = TransformerLM(vocab_size=vocab, d_model=args.d_model,
                           n_layers=args.n_layers, n_heads=args.n_heads,
                           n_kv_heads=args.n_kv_heads, compute_dtype=dtype,
-                          device=device)
+                          kv_cache_dtype=kv_dtype, device=device)
     init_params(model, seed=args.seed)
     print("WARNING: --random-init weights (untrained output)")
     # Serving configuration: quantize from the f32 weights, or store the

@@ -134,6 +134,9 @@ class ContinuousEngine:
         if model.weight_quant is not None:
             raise ValueError("the engine takes the float model; the throughput "
                              "lever builds its int8 twin")
+        if model.kv_cache_dtype is not None:
+            raise ValueError("paged pools hold compute-dtype KV; int8 caches are the "
+                             "batch-static path's lever (kv_cache_dtype must be None)")
         self._by = name
         self._scheduler = scheduler
         self._hint: str | None = None

@@ -8,8 +8,9 @@ eager Python loop over the model, whose decode position is a host int, so
 a step syncs with the device only where the EOS early exit must read the
 tokens.  Sampling is f32 and draws from an explicit ``torch.Generator``
 (its bits differ from ``jax.random``'s: greedy decoding is the
-cross-framework contract).  Speculative and tensor-parallel generation
-are not ported yet.
+cross-framework contract).  The cache takes the model's
+``kv_cache_dtype`` (``init_cache``): an int8 cache serves through the same
+loop.  Speculative and tensor-parallel generation are not ported yet.
 """
 
 from __future__ import annotations

@@ -10,10 +10,19 @@ the module (:class:`KVCache`, from :meth:`TransformerLM.init_cache`); the
 decode position is a host int.  Attention dispatch matches the
 reference's decode path:
 
-- prefill (L > 1, start 0): flash when ``flash_wins(L)``, dense below;
+- prefill (L > 1, start 0): flash when ``flash_wins(L)``, dense below,
+  over the fresh K/V (whatever the cache dtype);
 - one-token decode: ``cached_flash_attention`` when the allocation
   qualifies and holds at least 4096 slots, the grouped einsum
-  (:func:`_cached_attention`) otherwise.
+  (:func:`_cached_attention`) otherwise;
+- with an int8 cache (``kv_cache_dtype=torch.int8``: int8 rows plus one
+  f32 scale per (kv head, slot), written together by
+  :func:`quantize_kv`), one-token decode takes the scale-folding einsum
+  (:func:`_cached_attention_quant`); with ``int8_tiered_dispatch=True``
+  (the reference's ``_INT8_TIERED_DISPATCH``, default off) it takes the
+  int8 mode of ``cached_flash_attention`` while the position is below
+  :data:`INT8_TIER_BREAK_EVEN_PCT` % of the allocation, when that
+  qualifies.  The position is a host int, so the switch is a plain ``if``.
 
 Per-row (paged) decode serves the continuous-batching engine: one token
 per lane, each lane at its own position, its K/V written into a shared
@@ -37,11 +46,10 @@ resident, so the backward never re-runs attention) or the whole block
 ``models/transformer.py:614-709``).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item
-where the model has the option): ulysses attention, the int8 KV cache
-and multi-token decode continuation; nor tensor-parallel decode, MoE
-blocks, or per-row frontiers over a dense cache (the reference's
-``decode_batched_frontier`` outside the engine, used by batched
-speculative decoding).
+where the model has the option): ulysses attention and multi-token decode
+continuation; nor tensor-parallel decode, MoE blocks, or per-row
+frontiers over a dense cache (the reference's ``decode_batched_frontier``
+outside the engine, used by batched speculative decoding).
 """
 
 from __future__ import annotations
@@ -76,6 +84,11 @@ from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
 
 LN_EPS = 1e-6  # Flax LayerNorm's epsilon (torch's default is 1e-5)
 DECODE_KERNEL_MIN_SLOTS = 4096  # the reference's decode-kernel threshold
+# The tiered int8 switch's break-even, pos/S in percent (the reference's
+# _INT8_TIER_BREAK_EVEN_PCT, measured on its TPU; kept until the card's
+# crossover decides it).
+INT8_TIER_BREAK_EVEN_PCT = 19
+KV_CACHE_DTYPES = (torch.int8, torch.bfloat16, torch.float32)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
@@ -143,6 +156,39 @@ def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Lq, H, D).to(q.dtype)
 
 
+def _cached_attention_quant(q: torch.Tensor, k_int: torch.Tensor, ks: torch.Tensor,
+                            v_int: torch.Tensor, vs: torch.Tensor,
+                            q_positions: torch.Tensor) -> torch.Tensor:
+    """:func:`_cached_attention` over an int8 cache [B, Hkv, S, D] with f32
+    scales [B, Hkv, S], the scales folded into the f32 score and
+    probability path (reference ``_cached_attention_quant``): ``s·ks`` after
+    the QK einsum, ``p·vs`` before the PV einsum.  Plain PyTorch on every
+    device, as the reference leaves it to XLA."""
+    B, Lq, H, D = q.shape
+    Hkv, S = k_int.shape[1], k_int.shape[2]
+    qg = q.float().reshape(B, Lq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhrd,bhkd->bhrqk", qg, k_int.float()) * (1.0 / math.sqrt(D))
+    s = s * ks[:, :, None, None, :]
+    mask = torch.arange(S, device=q.device)[None, :] <= q_positions[:, None]
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhrqk,bhkd->bqhrd", p * vs[:, :, None, None, :], v_int.float())
+    return out.reshape(B, Lq, H, D).to(q.dtype)
+
+
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 cache write's arithmetic (reference ``models/transformer.py``
+    ``_write``): per row of the last dim, ``amax = max |t|`` in f32, ``s =
+    amax / 127`` (1 where amax is 0), codes ``clip(round(t / s), -127,
+    127)`` with round half to even.  Returns (int8 codes, f32 scales of
+    shape ``t.shape[:-1]``)."""
+    tf = t.float()
+    amax = tf.abs().amax(-1)
+    s = torch.where(amax > 0, amax / 127.0, 1.0)
+    codes = torch.clamp(torch.round(tf / s[..., None]), -127, 127).to(torch.int8)
+    return codes, s
+
+
 class LayerNorm(nn.Module):
     """Flax ``nn.LayerNorm``'s contract: f32 statistics and affine,
     epsilon 1e-6, output in the compute dtype.  (Flax takes the variance as
@@ -177,10 +223,19 @@ def _project(layer: nn.Module, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor
 
 @dataclass
 class KVCache:
-    """Per-layer head-major decode caches, each [B, Hkv, S, D]."""
+    """Per-layer head-major decode caches, each [B, Hkv, S, D]; with an
+    int8 cache also per-layer f32 scales [B, Hkv, S] (None otherwise)."""
 
     keys: list[torch.Tensor]
     values: list[torch.Tensor]
+    key_scales: list[torch.Tensor] | None = None
+    value_scales: list[torch.Tensor] | None = None
+
+    def layer(self, i: int) -> tuple:
+        """Layer i's ``(keys, values, key_scales, value_scales)``."""
+        if self.key_scales is None:
+            return self.keys[i], self.values[i], None, None
+        return self.keys[i], self.values[i], self.key_scales[i], self.value_scales[i]
 
 
 @dataclass
@@ -201,9 +256,11 @@ class Attention(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
                  attn_impl: str, compute_dtype: torch.dtype,
-                 weight_quant: str | None, device=None, comm: Comm | None = None):
+                 weight_quant: str | None, device=None, comm: Comm | None = None,
+                 int8_tiered_dispatch: bool = False):
         super().__init__()
         self.comm = comm or Comm()
+        self.int8_tiered_dispatch = int8_tiered_dispatch
         if d_model % n_heads:
             raise ValueError("n_heads must divide d_model")
         self.n_heads = n_heads
@@ -225,11 +282,13 @@ class Attention(nn.Module):
         self.out = _linear(n_heads * hd, d_model, quant, compute_dtype, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, rope,
-                cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                cache: tuple | None = None,
                 start: int = 0, paged: tuple | None = None) -> torch.Tensor:
-        """``rope``: the :func:`rope_tables` of ``positions``.  ``paged``:
-        this layer's ``(k_pool, v_pool, tables, positions, page, slot)``,
-        where each lane's fresh K/V row goes to ``pool[page[w], :, slot[w]]``."""
+        """``rope``: the :func:`rope_tables` of ``positions``.  ``cache``: this
+        layer's ``(k_cache, v_cache, k_scale, v_scale)`` (scales None unless
+        the cache is int8).  ``paged``: this layer's ``(k_pool, v_pool,
+        tables, positions, page, slot)``, where each lane's fresh K/V row
+        goes to ``pool[page[w], :, slot[w]]``."""
         B, L, E = x.shape
         H, Hkv, hd, cd = self.n_heads, self.n_kv_heads, self.head_dim, self.compute_dtype
         if Hkv == H:
@@ -248,12 +307,26 @@ class Attention(nn.Module):
             out = paged_flash_attention(q, k_pool, v_pool, tables, lane_pos)
             return _project(self.out, out.reshape(B, L, H * hd), cd)
         if cache is not None:
-            k_cache, v_cache = cache
-            k_cache[:, :, start:start + L] = k.transpose(1, 2)
-            v_cache[:, :, start:start + L] = v.transpose(1, 2)
+            k_cache, v_cache, k_scale, v_scale = cache
+            if k_scale is None:
+                k_cache[:, :, start:start + L] = k.transpose(1, 2)
+                v_cache[:, :, start:start + L] = v.transpose(1, 2)
+            else:  # int8 rows and their scales, written together
+                for rows, scales, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+                    codes, sc = quantize_kv(t.transpose(1, 2))
+                    rows[:, :, start:start + L] = codes
+                    scales[:, :, start:start + L] = sc
             if L == 1:
                 S = k_cache.shape[2]
-                if decode_flash_qualifies(S) and S >= DECODE_KERNEL_MIN_SLOTS:
+                if k_scale is not None:
+                    if (self.int8_tiered_dispatch and decode_flash_qualifies(S)
+                            and start * 100 < S * INT8_TIER_BREAK_EVEN_PCT):
+                        out = cached_flash_attention(q, k_cache, v_cache, start,
+                                                     k_scale=k_scale, v_scale=v_scale)
+                    else:
+                        out = _cached_attention_quant(q, k_cache, k_scale, v_cache,
+                                                      v_scale, positions)
+                elif decode_flash_qualifies(S) and S >= DECODE_KERNEL_MIN_SLOTS:
                     out = cached_flash_attention(q, k_cache, v_cache, start)
                 else:
                     out = _cached_attention(q, k_cache, v_cache, positions)
@@ -262,7 +335,7 @@ class Attention(nn.Module):
                 raise NotImplementedError(
                     "multi-token decode continuation (speculative "
                     "decoding's verify pass) is not ported yet: "
-                    "ROADMAP A1 'speculative decoding'")
+                    "ROADMAP A8 'speculative decoding'")
         if self.attn_impl in ("ring", "ring_flash"):
             if cache is not None or paged is not None:
                 raise ValueError("decode runs dense cached attention; clone the model "
@@ -295,14 +368,16 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: int | None, attn_impl: str,
                  compute_dtype: torch.dtype, weight_quant: str | None,
-                 device=None, remat_mlp: bool = False, comm: Comm | None = None):
+                 device=None, remat_mlp: bool = False, comm: Comm | None = None,
+                 int8_tiered_dispatch: bool = False):
         super().__init__()
         quant = weight_quant == "int8"
         self.compute_dtype = compute_dtype
         self.remat_mlp = remat_mlp
         self.ln1 = LayerNorm(d_model, compute_dtype, device)
         self.attn = Attention(d_model, n_heads, n_kv_heads, attn_impl,
-                              compute_dtype, weight_quant, device, comm)
+                              compute_dtype, weight_quant, device, comm,
+                              int8_tiered_dispatch)
         self.ln2 = LayerNorm(d_model, compute_dtype, device)
         self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
         self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
@@ -336,7 +411,10 @@ class TransformerLM(nn.Module):
     ``forward(tokens [W, 1], paged=PagedKV(...))`` is one paged decode
     step: every lane at its own position.
     ``weight_quant="int8"`` builds :class:`QuantLinear` projections (load
-    weights from ``ops.quant.quantize_lm_params``).  ``remat`` with
+    weights from ``ops.quant.quantize_lm_params``).  ``kv_cache_dtype``
+    (None: the compute dtype; ``torch.int8``, ``torch.bfloat16`` or
+    ``torch.float32``) is the decode cache's storage; ``int8_tiered_dispatch``
+    the int8 cache's tiered switch (see the module note).  ``remat`` with
     ``remat_policy`` "mlp" or "block": activation checkpointing on the
     full causal pass (see the module note)."""
 
@@ -346,16 +424,16 @@ class TransformerLM(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  n_kv_heads: int | None = None, kv_cache_dtype=None,
                  weight_quant: str | None = None, remat: bool = False,
-                 remat_policy: str = "mlp", device=None, comm: Comm | None = None):
+                 remat_policy: str = "mlp", device=None, comm: Comm | None = None,
+                 int8_tiered_dispatch: bool = False):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A5 "
+                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A4 "
                 f"'--parallel ulysses'); use one of {_ATTN_IMPLS}")
-        if kv_cache_dtype is not None:
-            raise NotImplementedError(
-                "a KV-cache dtype other than the compute dtype (the int8 KV "
-                "cache) is not ported yet: ROADMAP A1 'K4's int8-cache mode'")
+        if kv_cache_dtype is not None and kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype must be None or one of {KV_CACHE_DTYPES}, "
+                             f"got {kv_cache_dtype!r}")
         if remat_policy not in ("mlp", "block"):
             raise ValueError(f"remat_policy must be 'mlp' or 'block', got "
                              f"{remat_policy!r}")
@@ -366,13 +444,15 @@ class TransformerLM(nn.Module):
             vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
             n_heads=n_heads, d_ff=d_ff, attn_impl=attn_impl,
             compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
-            weight_quant=weight_quant, remat=remat, remat_policy=remat_policy,
-            comm=comm)
+            kv_cache_dtype=kv_cache_dtype, weight_quant=weight_quant, remat=remat,
+            remat_policy=remat_policy, comm=comm,
+            int8_tiered_dispatch=int8_tiered_dispatch)
         self.comm = comm or Comm()
         self.vocab_size = vocab_size
         self.attn_impl = attn_impl
         self.remat_block = remat and remat_policy == "block"
         self.compute_dtype = compute_dtype
+        self.kv_cache_dtype = kv_cache_dtype
         self.weight_quant = weight_quant
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads or n_heads
@@ -382,7 +462,8 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, d_ff, n_kv_heads, attn_impl,
                   compute_dtype, weight_quant, device,
-                  remat_mlp=remat and remat_policy == "mlp", comm=comm)
+                  remat_mlp=remat and remat_policy == "mlp", comm=comm,
+                  int8_tiered_dispatch=int8_tiered_dispatch)
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, compute_dtype, device)
         self.lm_head = _linear(d_model, vocab_size, weight_quant == "int8",
@@ -401,10 +482,18 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch: int, slots: int) -> KVCache:
         """Zeroed head-major caches [batch, Hkv, slots, D] per layer, in
-        the compute dtype, on the model's device."""
+        ``kv_cache_dtype`` (default the compute dtype), on the model's
+        device; an int8 cache also gets zeroed f32 scales [batch, Hkv,
+        slots] per layer."""
         shape = (batch, self.n_kv_heads, slots, self.head_dim)
-        mk = lambda: torch.zeros(shape, dtype=self.compute_dtype, device=self.device)  # noqa: E731
-        return KVCache([mk() for _ in self.blocks], [mk() for _ in self.blocks])
+        dtype = self.kv_cache_dtype or self.compute_dtype
+
+        def mk(shape=shape, dtype=dtype):
+            return [torch.zeros(shape, dtype=dtype, device=self.device) for _ in self.blocks]
+
+        if dtype != torch.int8:
+            return KVCache(mk(), mk())
+        return KVCache(mk(), mk(), mk(shape[:3], torch.float32), mk(shape[:3], torch.float32))
 
     def forward(self, tokens: torch.Tensor, cache: KVCache | None = None,
                 start: int = 0, last_only: bool = False,
@@ -433,7 +522,7 @@ class TransformerLM(nn.Module):
         rope = rope_tables(positions, self.head_dim)
         x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)
         for i, block in enumerate(self.blocks):
-            layer_cache = None if cache is None else (cache.keys[i], cache.values[i])
+            layer_cache = None if cache is None else cache.layer(i)
             if self.remat_block and layer_cache is None and layer_paged is None:
                 x = checkpoint(block, x, positions, rope, use_reentrant=False)
                 continue

@@ -9,9 +9,9 @@ starts one ``nvcc`` per source at once, so the kernels build in
 parallel.  A failed build raises with the compiler's output.
 
 ``launches`` holds one plain int per kernel (``KERNELS``; one source may
-hold several, as ``flash_bwd.cu`` holds dQ and dK/dV, ``ring_codec.cu``
-the three codec kernels and ``ring_flash.cu`` the three ring chunk
-steps).  A wrapper adds one where it launches its kernel and nowhere
+hold several, as ``decode_attention.cu`` holds K4's bf16/f32 and int8
+modes, ``flash_bwd.cu`` dQ and dK/dV, ``ring_codec.cu`` the three codec
+kernels and ``ring_flash.cu`` the three ring chunk steps).  A wrapper adds one where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels
 (``reset_launch_counts`` zeroes them).
 """
@@ -32,9 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul",
            "paged_attention", "fused_adamw", "ring_codec", "ring_flash")
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
-           "quant_matmul", "paged_attention", "fused_adamw", "ring_encode_int8",
-           "ring_decode_add_int8", "ring_decode_int8", "ring_flash_fwd", "ring_flash_dq",
-           "ring_flash_dkv")
+           "decode_attention_int8", "quant_matmul", "paged_attention", "fused_adamw",
+           "ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8", "ring_flash_fwd",
+           "ring_flash_dq", "ring_flash_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

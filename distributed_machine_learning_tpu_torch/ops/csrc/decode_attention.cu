@@ -1,16 +1,22 @@
-// Single-token decode attention against a head-major KV cache.
+// Single-token decode attention against a head-major KV cache (K4), in
+// both of the TPU kernel's modes.
 //
 // Replaces: distributed_machine_learning_tpu/ops/pallas/decode_attention.py,
-//   cached_flash_attention (_decode_kernel), in its bf16/f32-cache mode:
-//   the decode-step attention of the serving path for caches of 4096 slots
-//   and more.
+//   cached_flash_attention (_decode_kernel):
+//   - bf16/f32 caches (entry point decode_attention): the decode-step
+//     attention of the serving path for caches of 4096 slots and more;
+//   - int8 caches with one f32 scale per (kv head, slot) (entry point
+//     decode_attention_int8; the TPU kernel's quant=True): the int8-KV
+//     serving path's decode step while the cache is filled below the
+//     tiered switch's break-even.
 //
 // What bounds it on the H100: bytes.  Each call reads the K and V cache of
 //   every (batch row, kv head) up to the current position, 2 * B * Hkv *
-//   (pos + 1) * D * sizeof(T) bytes, and does about two multiply-adds per
-//   byte: far below the card's operations-per-byte balance.  The time is
-//   those bytes at the memory rate, so reads must stop at the frontier and
-//   be wide.
+//   (pos + 1) * D * sizeof(T) bytes for bf16/f32, 2 * B * Hkv * (pos + 1) *
+//   (D + 4) for int8 (one byte a value and a 4-byte scale a slot: about
+//   half the bf16 mode's), and does about two multiply-adds per value: far
+//   below the card's operations-per-byte balance.  The time is those bytes
+//   at the memory rate, so reads must stop at the frontier and be wide.
 //
 // Design: one block of 8 warps per (batch row, kv head); the block serves
 //   the kv head's whole group of query heads, so each K/V byte is read
@@ -18,17 +24,23 @@
 //   only up to pos (the frontier clamp of the TPU kernel: O(pos) reads, not
 //   O(allocated cache)); nothing past pos is loaded, so no mask is needed.
 //   One slot's D values are read by a group of lanes with 16-byte vector
-//   loads (D=128: 16 lanes for bf16, 32 for f32), the dot with each query
-//   head is reduced across the group by warp shuffles, and each lane
-//   carries an online-softmax state (m, l, acc) in f32, in base 2.  Each
-//   warp keeps 8 slots per lane group in flight per step; their scores are
-//   computed side by side and the running max moves once per step.  q is cast to the
-//   cache dtype before the dot, as the TPU kernel does; p is rounded to the
-//   cache dtype before it weights V, as the TPU kernel's P V dot does.  At
-//   the end the per-group and per-warp states are merged (through shared
-//   memory across warps) and out = acc / max(l, 1e-30) is written in the
-//   cache dtype.  No split of the slots across blocks yet: at B = 8 and
-//   Hkv = 4 only 32 blocks run, on a card of 132 SMs.
+//   loads (D=128: 16 lanes for bf16, 32 for f32, 8 for int8), the dot with
+//   each query head is reduced across the group by warp shuffles, and each
+//   lane carries an online-softmax state (m, l, acc) in f32, in base 2.
+//   Each warp keeps UNROLL slots per lane group in flight per step (8; 4
+//   for int8, whose lanes hold twice the values); their scores are
+//   computed side by side and the running max moves once per step.
+//   bf16/f32: q is cast to the cache dtype before the dot (by the wrapper),
+//   as the TPU kernel does; p is rounded to the cache dtype before it
+//   weights V, as the TPU kernel's P V dot does.  int8: every lane loads
+//   its slot's f32 K and V scales and dequantizes each value in f32
+//   (value * scale) before the dot, as the TPU kernel does, so the mode
+//   adds no rounding beyond the int8 storage; q is widened to f32 and p
+//   stays f32 (the TPU kernel's dequantized V is f32).  At the end the
+//   per-group and per-warp states are merged (through shared memory across
+//   warps) and out = acc / max(l, 1e-30) is written in the output dtype.
+//   No split of the slots across blocks yet: at B = 8 and Hkv = 4 only 32
+//   blocks run, on a card of 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,18 +50,29 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NWARPS = 8;
-constexpr int UNROLL = 8;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
-struct Vec;  // 16 raw bytes of T per lane, widened to float when used
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// 16 raw bytes of cache per lane (N values), widened to f32 when used.
+template <typename T>
+struct Cache;
 
 template <>
-struct Vec<__nv_bfloat16> {
+struct Cache<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static uint4 load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ static void widen(const uint4& raw, float* out) {
+  static constexpr int UNROLL = 8;
+  static constexpr bool QUANT = false;
+  __device__ __forceinline__ static void widen(const uint4& raw, float, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -58,33 +81,54 @@ struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
+  // p in the cache dtype before it weights V.
   __device__ __forceinline__ static float round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
-  __device__ __forceinline__ static __nv_bfloat16 cast(float x) { return __float2bfloat16_rn(x); }
 };
 
 template <>
-struct Vec<float> {
+struct Cache<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static uint4 load(const float* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ static void widen(const uint4& raw, float* out) {
+  static constexpr int UNROLL = 8;
+  static constexpr bool QUANT = false;
+  __device__ __forceinline__ static void widen(const uint4& raw, float, float* out) {
     const float* f = reinterpret_cast<const float*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) out[i] = f[i];
   }
   __device__ __forceinline__ static float round(float x) { return x; }
-  __device__ __forceinline__ static float cast(float x) { return x; }
 };
 
-template <typename T, int D, int REP>
+template <>
+struct Cache<int8_t> {
+  static constexpr int N = 16;
+  static constexpr int UNROLL = 4;
+  static constexpr bool QUANT = true;
+  // Dequantize in f32: value * the slot's scale (both exact in f32).
+  __device__ __forceinline__ static void widen(const uint4& raw, float scale, float* out) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(c[i]) * scale;
+  }
+  __device__ __forceinline__ static float round(float x) { return x; }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// TC: cache element; TQ: query element (TC itself for bf16/f32 caches: the
+// wrapper casts q; bf16 or f32 for int8 caches); TO: output element.
+// ks/vs: the int8 mode's [B, Hkv, S] f32 scales (unused otherwise).
+template <typename TC, typename TQ, typename TO, int D, int REP>
 __global__ void __launch_bounds__(NWARPS * 32)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-                  T* __restrict__ out, int H, int Hkv, int S, int pos, float scale_log2) {
-  using V = Vec<T>;
-  constexpr int VEC = V::N;
+    decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
+                  const float* __restrict__ ks, const float* __restrict__ vs,
+                  TO* __restrict__ out, int H, int Hkv, int S, int pos, float scale_log2) {
+  using C = Cache<TC>;
+  constexpr int VEC = C::N;
+  constexpr int UNROLL = C::UNROLL;
   constexpr int LPS = D / VEC;   // lanes per slot
   constexpr int SPW = 32 / LPS;  // slots per warp per load
   static_assert(D % VEC == 0 && LPS <= 32 && 32 % LPS == 0, "head dim");
@@ -96,14 +140,19 @@ __global__ void __launch_bounds__(NWARPS * 32)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int li = lane % LPS, sub = lane / LPS;
   const int hk = blockIdx.x, b = blockIdx.y;
-  const size_t cache_off = (static_cast<size_t>(b) * Hkv + hk) * S * D;
-  const T* kb = kc + cache_off + li * VEC;
-  const T* vb = vc + cache_off + li * VEC;
+  const size_t row_off = (static_cast<size_t>(b) * Hkv + hk) * S;
+  const TC* kb = kc + row_off * D + li * VEC;
+  const TC* vb = vc + row_off * D + li * VEC;
+  const float* ksb = C::QUANT ? ks + row_off : nullptr;
+  const float* vsb = C::QUANT ? vs + row_off : nullptr;
 
   float qv[REP][VEC];
 #pragma unroll
-  for (int r = 0; r < REP; ++r)
-    V::widen(V::load(q + (static_cast<size_t>(b) * H + hk * REP + r) * D + li * VEC), qv[r]);
+  for (int r = 0; r < REP; ++r) {
+    const TQ* qr = q + (static_cast<size_t>(b) * H + hk * REP + r) * D + li * VEC;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) qv[r][i] = to_float(qr[i]);
+  }
 
   float m[REP], l[REP], acc[REP][VEC];
 #pragma unroll
@@ -119,14 +168,18 @@ __global__ void __launch_bounds__(NWARPS * 32)
   // shuffles below); a lane group whose slot is past pos skips its update.
   for (int base = warp * SPW; base <= pos; base += STEP) {
     uint4 kraw[UNROLL], vraw[UNROLL];  // all loads of the step issued before any use
+    float ksc[UNROLL], vsc[UNROLL];    // the slots' scales (int8 mode; else unused)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int slot = base + sub + u * NWARPS * SPW;
       if (slot <= pos) {
-        kraw[u] = V::load(kb + static_cast<size_t>(slot) * D);
-        vraw[u] = V::load(vb + static_cast<size_t>(slot) * D);
+        kraw[u] = load16(kb + static_cast<size_t>(slot) * D);
+        vraw[u] = load16(vb + static_cast<size_t>(slot) * D);
+        ksc[u] = C::QUANT ? __ldg(ksb + slot) : 1.f;
+        vsc[u] = C::QUANT ? __ldg(vsb + slot) : 1.f;
       } else {
         kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
+        ksc[u] = vsc[u] = 0.f;
       }
     }
     // Scores of the step's UNROLL slots for every query head: independent
@@ -136,7 +189,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       float kf[VEC];
-      V::widen(kraw[u], kf);
+      C::widen(kraw[u], ksc[u], kf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         float part = 0.f;
@@ -172,12 +225,12 @@ __global__ void __launch_bounds__(NWARPS * 32)
     for (int u = 0; u < UNROLL; ++u) {
       if (base + sub + u * NWARPS * SPW > pos) continue;
       float vf[VEC];
-      V::widen(vraw[u], vf);
+      C::widen(vraw[u], vsc[u], vf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float p = exp2f(sc[u][r] - m[r]);
         l[r] += p;
-        const float pr = V::round(p);
+        const float pr = C::round(p);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(pr, vf[i], acc[r][i]);
       }
@@ -227,55 +280,73 @@ __global__ void __launch_bounds__(NWARPS * 32)
       lsum += sm_l[w][r] * a;
       asum += sm_acc[w][r][d] * a;
     }
-    out[(static_cast<size_t>(b) * H + hk * REP + r) * D + d] = V::cast(asum / fmaxf(lsum, 1e-30f));
+    out[(static_cast<size_t>(b) * H + hk * REP + r) * D + d] =
+        from_float<TO>(asum / fmaxf(lsum, 1e-30f));
   }
 }
 
-template <typename T, int D>
-int launch_rep(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-               int S, int pos, float scale_log2, cudaStream_t stream) {
-  dim3 grid(Hkv, B);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  switch (H / Hkv) {
-    case 1:
-      decode_kernel<T, D, 1><<<grid, NWARPS * 32, 0, stream>>>(qp, kp, vp, op, H, Hkv, S, pos, scale_log2);
-      break;
-    case 2:
-      decode_kernel<T, D, 2><<<grid, NWARPS * 32, 0, stream>>>(qp, kp, vp, op, H, Hkv, S, pos, scale_log2);
-      break;
-    case 4:
-      decode_kernel<T, D, 4><<<grid, NWARPS * 32, 0, stream>>>(qp, kp, vp, op, H, Hkv, S, pos, scale_log2);
-      break;
-    case 8:
-      decode_kernel<T, D, 8><<<grid, NWARPS * 32, 0, stream>>>(qp, kp, vp, op, H, Hkv, S, pos, scale_log2);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+struct Args {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  void* out;
+  int B, H, Hkv, S, D, pos;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+template <typename TC, typename TQ, typename TO, int D, int REP>
+void launch(const Args& a) {
+  decode_kernel<TC, TQ, TO, D, REP><<<dim3(a.Hkv, a.B), NWARPS * 32, 0, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k), static_cast<const TC*>(a.v),
+      a.ks, a.vs, static_cast<TO*>(a.out), a.H, a.Hkv, a.S, a.pos, a.scale_log2);
+}
+
+template <typename TC, typename TQ, typename TO, int D>
+int launch_rep(const Args& a) {
+  switch (a.H / a.Hkv) {
+    case 1: launch<TC, TQ, TO, D, 1>(a); break;
+    case 2: launch<TC, TQ, TO, D, 2>(a); break;
+    case 4: launch<TC, TQ, TO, D, 4>(a); break;
+    case 8: launch<TC, TQ, TO, D, 8>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TC, typename TQ, typename TO>
+int launch_d(const Args& a) {
+  if (a.D == 32) return launch_rep<TC, TQ, TO, 32>(a);
+  if (a.D == 64) return launch_rep<TC, TQ, TO, 64>(a);
+  if (a.D == 128) return launch_rep<TC, TQ, TO, 128>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// q [B, 1, H, D], caches [B, Hkv, S, D], out [B, 1, H, D], all contiguous
-// and of one dtype (is_bf16 ? bf16 : f32); attends slots 0..pos.
-// Returns the cudaError_t of the launch; cudaErrorInvalidValue for an
-// unsupported head dim or group size.
+// bf16/f32 mode.  q [B, 1, H, D] in the cache dtype, caches [B, Hkv, S, D],
+// out [B, 1, H, D], all contiguous; the caches bf16 if is_bf16 else f32;
+// out f32 if out_f32 (or the cache is f32), else bf16.  Attends slots
+// 0..pos.  Returns the cudaError_t of the launch; cudaErrorInvalidValue for
+// an unsupported head dim or group size.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, void* out, int B,
                                 int H, int Hkv, int S, int D, int pos, int is_bf16,
-                                float scale_log2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 32) return launch_rep<__nv_bfloat16, 32>(q, k, v, out, B, H, Hkv, S, pos, scale_log2, s);
-    if (D == 64) return launch_rep<__nv_bfloat16, 64>(q, k, v, out, B, H, Hkv, S, pos, scale_log2, s);
-    if (D == 128) return launch_rep<__nv_bfloat16, 128>(q, k, v, out, B, H, Hkv, S, pos, scale_log2, s);
-  } else {
-    if (D == 32) return launch_rep<float, 32>(q, k, v, out, B, H, Hkv, S, pos, scale_log2, s);
-    if (D == 64) return launch_rep<float, 64>(q, k, v, out, B, H, Hkv, S, pos, scale_log2, s);
-    if (D == 128) return launch_rep<float, 128>(q, k, v, out, B, H, Hkv, S, pos, scale_log2, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                                int out_f32, float scale_log2, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, out, B, H, Hkv, S, D, pos, scale_log2,
+               static_cast<cudaStream_t>(stream)};
+  if (!is_bf16) return launch_d<float, float, float>(a);
+  if (out_f32) return launch_d<__nv_bfloat16, __nv_bfloat16, float>(a);
+  return launch_d<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a);
+}
+
+// int8 mode.  q [B, 1, H, D] bf16 if q_bf16 else f32, int8 caches
+// [B, Hkv, S, D], f32 scales k_scale/v_scale [B, Hkv, S], out [B, 1, H, D]
+// in q's dtype, all contiguous.  Attends slots 0..pos.
+extern "C" int decode_attention_int8(const void* q, const void* k, const void* v,
+                                     const float* k_scale, const float* v_scale, void* out,
+                                     int B, int H, int Hkv, int S, int D, int pos, int q_bf16,
+                                     float scale_log2, void* stream) {
+  const Args a{q, k, v, k_scale, v_scale, out, B, H, Hkv, S, D, pos, scale_log2,
+               static_cast<cudaStream_t>(stream)};
+  if (q_bf16) return launch_d<int8_t, __nv_bfloat16, __nv_bfloat16>(a);
+  return launch_d<int8_t, float, float>(a);
 }

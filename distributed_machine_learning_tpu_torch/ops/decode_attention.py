@@ -1,13 +1,14 @@
 """Flash decode: one query token against a head-major KV cache (K4), or
 against a shared paged pool through per-lane block tables (K5).
 
-Counterparts of ``cached_flash_attention`` (in its bf16/f32-cache mode;
-the int8-cache mode waits: the reference model never routes int8 caches
-to it by default) and ``paged_flash_attention`` in
+Counterparts of ``cached_flash_attention`` (both modes: bf16/f32
+caches, and int8 caches with one f32 scale per (kv head, slot),
+dequantized in f32) and ``paged_flash_attention`` in
 ``distributed_machine_learning_tpu/ops/pallas/decode_attention.py``.
 CUDA tensors go through the hand-written kernels
-``csrc/decode_attention.cu`` and ``csrc/paged_attention.cu``; CPU tensors
-through :func:`cached_attention_reference` and
+``csrc/decode_attention.cu`` (the entry points ``decode_attention`` and
+``decode_attention_int8``, counted apart) and ``csrc/paged_attention.cu``;
+CPU tensors through :func:`cached_attention_reference` and
 :func:`paged_attention_reference`, the kernels' blockwise recurrence in
 PyTorch.
 
@@ -30,8 +31,16 @@ from distributed_machine_learning_tpu_torch.ops import build
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 KERNEL = "decode_attention"
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
+INT8_KERNEL = "decode_attention_int8"
+_INT8_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_void_p])
+# S-block targets of the reference (decode_attention.py:214): int8 caches
+# stream bigger blocks; the plain version walks the same blocks, so it sums
+# in the reference's order.
+BLOCK_TARGET = 512
+INT8_BLOCK_TARGET = 2048
 PAGED_KERNEL = "paged_attention"
 _PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
@@ -40,13 +49,13 @@ _PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
 PAGED_MIN_CHUNK = 128
 
 
-def pick_block_s(S: int) -> int | None:
-    """Largest divisor of S that is <= 512 and a multiple of 128 (or S
-    itself when S <= 128); None when there is none."""
+def pick_block_s(S: int, target: int = BLOCK_TARGET) -> int | None:
+    """Largest divisor of S that is <= ``target`` and a multiple of 128 (or
+    S itself when S <= 128); None when there is none."""
     if S <= 128:
         return S
     best = None
-    for b in range(128, min(S, 512) + 1, 128):
+    for b in range(128, min(S, target) + 1, 128):
         if S % b == 0:
             best = b
     return best
@@ -61,26 +70,37 @@ def decode_flash_qualifies(S: int) -> bool:
 
 
 def cached_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
-                               v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                               v_cache: torch.Tensor, pos: int,
+                               k_scale: torch.Tensor | None = None,
+                               v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel.
 
     q [B, 1, H, D] at position ``pos``; caches [B, Hkv, S, D] with slot j
     holding position j.  Walks S blocks up to the one holding ``pos``
-    (slots past ``pos`` are masked, never read beyond that block), with
-    q cast to the cache dtype, f32 scores in log2 space, P rounded to the
-    cache dtype before P·V.  Returns [B, 1, H, D] in q's dtype."""
+    (slots past ``pos`` are masked, never read beyond that block), f32
+    scores in log2 space, online softmax with f32 state.  bf16/f32 caches:
+    q cast to the cache dtype, P rounded to the cache dtype before P·V.
+    int8 caches (with ``k_scale``/``v_scale`` [B, Hkv, S] f32): each block
+    dequantized in f32 (``k_int · k_scale``), q cast to f32, P kept in f32,
+    in 2048-slot blocks.  Returns [B, 1, H, D] in q's dtype."""
     B, _, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
-    bs = pick_block_s(S)
+    quant = k_cache.dtype == torch.int8
+    bs = pick_block_s(S, INT8_BLOCK_TARGET if quant else BLOCK_TARGET)
     scale = (1.0 / math.sqrt(D)) * LOG2E
-    qg = q.to(k_cache.dtype).float().reshape(B, Hkv, rep, D)
+    work = torch.float32 if quant else k_cache.dtype
+    qg = q.to(work).float().reshape(B, Hkv, rep, D)
     m = torch.full((B, Hkv, rep), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qg)
     for s0 in range(0, (pos // bs + 1) * bs, bs):
         kb = k_cache[:, :, s0:s0 + bs].float()
+        vb = v_cache[:, :, s0:s0 + bs].float()
+        if quant:
+            kb = kb * k_scale[:, :, s0:s0 + bs, None]
+            vb = vb * v_scale[:, :, s0:s0 + bs, None]
         s = torch.einsum("bhrd,bhsd->bhrs", qg, kb) * scale
         slot = s0 + torch.arange(kb.shape[2], device=q.device)
         s = torch.where(slot <= pos, s, NEG_INF)
@@ -89,48 +109,85 @@ def cached_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
         p = torch.exp2(s - m_new[..., None])
         p = torch.where(s > 0.5 * NEG_INF, p, 0.0)
         l = l * alpha + p.sum(-1)
-        pv = torch.einsum("bhrs,bhsd->bhrd", p.to(v_cache.dtype).float(),
-                          v_cache[:, :, s0:s0 + bs].float())
+        pv = torch.einsum("bhrs,bhsd->bhrd", p.to(work).float(), vb)
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
-def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            pos: int) -> torch.Tensor:
-    B, _, H, D = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    dtype = k_cache.dtype
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"decode kernel takes bf16 or f32 caches, got {dtype}")
-    if q.dtype != dtype or v_cache.dtype != dtype:
-        raise ValueError(f"decode kernel needs q and both caches in one dtype; "
-                         f"got q {q.dtype}, k {dtype}, v {v_cache.dtype}")
+def _check_launch(q: torch.Tensor, H: int, Hkv: int, D: int, tensors: tuple) -> None:
     if D not in (32, 64, 128) or H // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"decode kernel supports head dim 32/64/128 and group "
                          f"size 1/2/4/8; got D={D}, H/Hkv={H // Hkv}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"decode kernel takes a bf16 or f32 query, got {q.dtype}")
+    for name, t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode kernel needs contiguous 16-byte aligned {name}")
-    out = torch.empty_like(q)
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            pos: int) -> torch.Tensor:
+    """The bf16/f32 mode: q cast to the cache dtype, as the reference's
+    kernel does; the output written in q's dtype (f32 straight from the
+    f32 state when q is f32 and the cache bf16)."""
+    B, _, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    dtype = k_cache.dtype
+    if dtype not in (torch.bfloat16, torch.float32) or v_cache.dtype != dtype:
+        raise ValueError(f"decode kernel takes bf16 or f32 caches of one dtype, "
+                         f"got k {dtype}, v {v_cache.dtype}")
+    qc = q.to(dtype).contiguous()
+    _check_launch(q, H, Hkv, D, (("q", qc), ("k_cache", k_cache), ("v_cache", v_cache)))
+    out_f32 = q.dtype == torch.float32
+    out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else dtype,
+                      device=q.device)
     fn = build.function(KERNEL, "decode_attention", _ARGTYPES)
-    status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    status = fn(qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 out.data_ptr(), B, H, Hkv, S, D, pos,
-                int(dtype == torch.bfloat16), (1.0 / math.sqrt(D)) * LOG2E,
+                int(dtype == torch.bfloat16), int(out_f32), (1.0 / math.sqrt(D)) * LOG2E,
                 build.stream_handle(q.device))
     build.check(status, KERNEL)
     build.count_launch(KERNEL)
+    return out.to(q.dtype)
+
+
+def _launch_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: int, k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 mode: int8 rows and f32 scales, dequantized in f32 in
+    registers; q read in its own dtype (bf16 or f32), the output written in
+    it."""
+    B, _, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    if v_cache.dtype != torch.int8:
+        raise ValueError(f"int8 decode kernel needs an int8 v_cache, got {v_cache.dtype}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise ValueError(f"int8 decode kernel needs f32 scales, got {k_scale.dtype}, "
+                         f"{v_scale.dtype}")
+    _check_launch(q, H, Hkv, D, (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                                 ("k_scale", k_scale), ("v_scale", v_scale)))
+    out = torch.empty_like(q)
+    fn = build.function(KERNEL, "decode_attention_int8", _INT8_ARGTYPES)
+    status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+                B, H, Hkv, S, D, pos, int(q.dtype == torch.bfloat16),
+                (1.0 / math.sqrt(D)) * LOG2E, build.stream_handle(q.device))
+    build.check(status, INT8_KERNEL)
+    build.count_launch(INT8_KERNEL)
     return out
 
 
 def cached_flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                           v_cache: torch.Tensor, pos: int,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step of attention: q [B, 1, H, D] at position ``pos``
     (a host int) against caches [B, Hkv, S, D] → [B, 1, H, D] in q's dtype.
+    int8 caches need their f32 scales ``k_scale``/``v_scale`` [B, Hkv, S].
 
-    On CUDA tensors: the decode kernel (reads slots 0..pos only); on CPU
-    tensors: the plain version."""
+    On CUDA tensors: the decode kernel's mode for the cache dtype (reads
+    slots 0..pos only); on CPU tensors: the plain version."""
     B, Lq, H, D = q.shape
     if Lq != 1:
         raise ValueError(f"decode attention is single-token (got Lq={Lq})")
@@ -141,17 +198,30 @@ def cached_flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != B or k_cache.shape[3] != D or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match cache "
                          f"{tuple(k_cache.shape)}")
+    quant = k_cache.dtype == torch.int8
+    if quant:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 caches need k_scale/v_scale")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != (B, Hkv, S):
+                raise ValueError(f"{name} must be [B, Hkv, S] = {(B, Hkv, S)}, "
+                                 f"got {tuple(t.shape)}")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(f"k_scale/v_scale go with int8 caches, not {k_cache.dtype}")
     pos = int(pos)
     if not 0 <= pos < S:
         raise ValueError(f"pos={pos} outside the cache of {S} slots")
     if pick_block_s(S) is None:
         raise ValueError(f"cache length {S} does not tile; check "
                          "decode_flash_qualifies")
-    if not (q.device == k_cache.device == v_cache.device):
-        raise ValueError("q and the caches must lie on one device")
+    tensors = (q, k_cache, v_cache) + ((k_scale, v_scale) if quant else ())
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, the caches and the scales must lie on one device")
     if q.is_cuda:
+        if quant:
+            return _launch_int8(q, k_cache, v_cache, pos, k_scale, v_scale)
         return _launch(q, k_cache, v_cache, pos)
-    return cached_attention_reference(q, k_cache, v_cache, pos)
+    return cached_attention_reference(q, k_cache, v_cache, pos, k_scale, v_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,20 @@ reference's shape: one process per rank, through ``torch.distributed``.
 ``num_nodes == 1`` initializes nothing, as the reference's part1 never
 calls ``init_process_group``.
 
-Rank ``r`` runs on ``cuda:{r % device_count}`` (or on the CPU under
-``--device cpu``).  The backend follows where the ranks live:
+The ranks rendezvous first (``torch.distributed.rendezvous``: a store,
+for ``tcp://`` and ``file://`` alike) and publish their placement there:
+the host name and the UUIDs of the cards the process sees (none under
+``--device cpu``).  Every rank reads all of them and computes the same
+plan (:func:`plan_placement`): its local rank is its index among the
+ranks of its host, its device ``cuda:{local_rank % visible}``, and the
+backend follows where the ranks really are:
 
-- ``nccl`` when every rank has a card of its own;
-- ``gloo`` when ranks share a card (world > the host's card count) or run
-  on the CPU: NCCL refuses two ranks on one device.
+- ``nccl`` when every rank is on a card and no two ranks share one (the
+  (host, card UUID) pairs are pairwise distinct): one host with a card
+  per rank, many hosts with a card each, or a launcher that gives each
+  process one visible card;
+- ``gloo`` when ranks share a card or run on the CPU: NCCL refuses two
+  ranks on one device.
 
 gloo's ``send``/``recv``/``all_gather`` take CPU tensors only, so under
 gloo with CUDA tensors :class:`Comm` stages every payload through host
@@ -28,6 +36,8 @@ card, and a failure under the chosen backend raises.
 from __future__ import annotations
 
 import datetime
+import json
+import socket
 from dataclasses import dataclass
 
 import torch
@@ -42,21 +52,53 @@ DEFAULT_MASTER_IP = "127.0.1.1:8000"
 TIMEOUT_S = 300.0
 
 
-def rank_device(rank: int, device=None) -> torch.device:
-    """The device rank ``rank`` runs on: ``cuda:{rank % device_count}`` by
-    default (raises without a card), the CPU when ``device`` says so."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
-    return dev
+# A rank's placement as it publishes it: (host name, UUIDs of the cards
+# the process sees, or None on the CPU).
+Placement = tuple[str, tuple[str, ...] | None]
 
 
-def choose_backend(world: int, device: torch.device) -> str:
-    """``nccl`` when each of ``world`` ranks has a card of its own, else
-    ``gloo`` (ranks sharing a card, or on the CPU)."""
-    if device.type == "cuda" and world <= torch.cuda.device_count():
-        return "nccl"
-    return "gloo"
+def plan_placement(peers: list, rank: int) -> tuple[str, int, int | None]:
+    """``(backend, local_rank, device_index)`` of ``rank`` from every rank's
+    :data:`Placement` (``peers[r]`` is rank r's).  Pure, so every rank
+    computes the same plan from the same exchanged placements.
+
+    The local rank is the rank's index among the ranks of its host (in rank
+    order); its device is ``local_rank % visible`` (None on the CPU).  The
+    backend is ``nccl`` iff every rank is on CUDA and the (host, card UUID)
+    pairs of all ranks are pairwise distinct, else ``gloo``."""
+    cards = []
+    for r, (host, uuids) in enumerate(peers):
+        if not uuids:
+            cards.append(None)
+            continue
+        local = sum(1 for h, _ in peers[:r] if h == host)
+        cards.append((host, uuids[local % len(uuids)]))
+    host, uuids = peers[rank]
+    local_rank = sum(1 for h, _ in peers[:rank] if h == host)
+    device_index = local_rank % len(uuids) if uuids else None
+    own_card = None not in cards and len(set(cards)) == len(cards)
+    return ("nccl" if own_card else "gloo"), local_rank, device_index
+
+
+def local_placement(device: torch.device) -> Placement:
+    """This process's :data:`Placement`: its host name and the UUIDs of the
+    cards it sees (None when it runs on the CPU)."""
+    if device.type != "cuda":
+        return socket.gethostname(), None
+    return socket.gethostname(), tuple(
+        str(torch.cuda.get_device_properties(i).uuid)
+        for i in range(torch.cuda.device_count()))
+
+
+def exchange_placements(store, rank: int, world: int, mine: Placement) -> list:
+    """Publish ``mine`` in ``store`` and read every rank's, in rank order
+    (each read waits for its rank, up to the store's timeout)."""
+    store.set(f"placement/{rank}", json.dumps(mine))
+    peers = []
+    for r in range(world):
+        host, uuids = json.loads(store.get(f"placement/{r}"))
+        peers.append((host, None if uuids is None else tuple(uuids)))
+    return peers
 
 
 class Comm:
@@ -164,6 +206,8 @@ class DistributedContext:
     initialized: bool
     device: torch.device
     backend: str | None = None
+    local_rank: int = 0
+    placements: list | None = None  # every rank's Placement, as exchanged
 
     @property
     def comm(self) -> Comm:
@@ -180,17 +224,27 @@ def initialize_from_flags(master_ip: str = DEFAULT_MASTER_IP, rank: int = 0,
                           timeout_s: float = TIMEOUT_S) -> DistributedContext:
     """Join the ``num_nodes``-process group as ``rank`` (tcp rendezvous at
     ``master_ip`` unless ``init_method`` names another, e.g. ``file://``);
-    nothing at ``num_nodes == 1``."""
+    nothing at ``num_nodes == 1``.  The ranks exchange their placements
+    through the rendezvous store before the group exists, and the backend
+    and this rank's card come from :func:`plan_placement`."""
     if num_nodes < 1 or not 0 <= rank < num_nodes:
         raise ValueError(f"rank {rank} out of range for --num-nodes {num_nodes}")
-    dev = rank_device(rank, device)
+    dev = resolve_device(device)
     if num_nodes == 1:
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
         return DistributedContext(1, 0, master_ip, False, dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store, _, _ = next(dist.rendezvous(init_method or f"tcp://{master_ip}", rank,
+                                       num_nodes, timeout=timeout))
+    store.set_timeout(timeout)
+    peers = exchange_placements(store, rank, num_nodes, local_placement(dev))
+    backend, local_rank, index = plan_placement(peers, rank)
     if dev.type == "cuda":
+        dev = torch.device("cuda", index)
         torch.cuda.set_device(dev)
-    backend = choose_backend(num_nodes, dev)
     kwargs = {"device_id": dev} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=init_method or f"tcp://{master_ip}",
-                            world_size=num_nodes, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
-    return DistributedContext(num_nodes, rank, master_ip, True, dev, backend)
+    dist.init_process_group(backend, store=store, world_size=num_nodes, rank=rank,
+                            timeout=timeout, **kwargs)
+    return DistributedContext(num_nodes, rank, master_ip, True, dev, backend,
+                              local_rank, peers)

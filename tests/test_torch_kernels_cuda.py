@@ -280,6 +280,94 @@ def test_decode_kernel_matches_plain(cuda, dtype, pos, D):
            BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+def _int8_cache(gen, B, Hkv, S, D):
+    """An int8 cache and its scales, from random bf16 K/V through the
+    model's quantized write."""
+    k = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+    return (*transformer.quantize_kv(k), *transformer.quantize_kv(v))
+
+
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [0, 1, 200, 2047, 2048, 4095])
+def test_decode_int8_kernel_matches_plain(cuda, dtype, pos, D, rep):
+    """K4's int8 mode: q in its own dtype, int8 rows dequantized in f32 by
+    the slot's scale; bf16 q rounds only the output (BF16_TOL), f32 q is
+    summation order only (F32_TOL)."""
+    kq, ks, vq, vs = _int8_cache(cuda, 3, 2, 4096, D)
+    q = torch.randn(3, 1, 2 * rep, D, device="cuda", generator=cuda).to(dtype)
+    before = dict(build.launches)
+    got = da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert build.launches["decode_attention_int8"] == before["decode_attention_int8"] + 1
+    assert build.launches["decode_attention"] == before["decode_attention"]
+    assert got.dtype == dtype
+    _close(got, da.cached_attention_reference(q, kq, vq, pos, ks, vs),
+           BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype", [(torch.float32, torch.bfloat16),
+                                                 (torch.bfloat16, torch.float32)])
+def test_decode_kernel_with_a_cache_dtype_other_than_q(cuda, q_dtype, cache_dtype):
+    q = torch.randn(2, 1, 8, 128, device="cuda", generator=cuda).to(q_dtype)
+    kc = torch.randn(2, 2, 4096, 128, device="cuda", generator=cuda).to(cache_dtype)
+    vc = torch.randn(2, 2, 4096, 128, device="cuda", generator=cuda).to(cache_dtype)
+    got = da.cached_flash_attention(q, kc, vc, 3000)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype
+    _close(got, da.cached_attention_reference(q, kc, vc, 3000), BF16_TOL)
+
+
+def test_decode_int8_kernel_refuses_what_it_does_not_take(cuda):
+    kq, ks, vq, vs = _int8_cache(cuda, 1, 2, 512, 48)
+    q = torch.randn(1, 1, 4, 48, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        da.cached_flash_attention(q, kq, vq, 3, k_scale=ks, v_scale=vs)
+    kq, ks, vq, vs = _int8_cache(cuda, 1, 2, 512, 64)
+    q = torch.randn(1, 1, 4, 64, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="f32 scales"):
+        da.cached_flash_attention(q, kq, vq, 3, k_scale=ks.double(), v_scale=vs)
+    with pytest.raises(ValueError, match="query"):
+        da.cached_flash_attention(q.half(), kq, vq, 3, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="k_scale"):
+        da.cached_flash_attention(q, kq, vq, 3)
+
+
+def test_int8_kv_model_on_the_card_matches_plain_path(cuda):
+    """An f32 model with an int8 cache and the tiered switch on: a 60-token
+    prompt in a 512-slot cache, decode positions 60-62 below the break-even
+    (100·p < 19·512), so every decode step launches K4's int8 mode; its
+    logits held against the plain path of the same model.  f32, but the
+    cache is int8: a last-bit difference in one layer's attention output
+    can flip one int8 code of the next layer's K/V at a rounding tie (one
+    quantization step, amax/127), which moves the logits by ~1e-4 (read
+    1.7e-4 on an H100): atol 1e-3."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+
+    model = transformer.TransformerLM(vocab_size=257, d_model=128, n_layers=2, n_heads=4,
+                                      n_kv_heads=2, kv_cache_dtype=torch.int8,
+                                      int8_tiered_dispatch=True, device="cuda")
+    init_params(model, seed=0)
+    tokens = torch.randint(0, 257, (2, 63), device="cuda", generator=cuda)
+
+    def run():
+        cache = model.init_cache(2, 512)
+        steps = [model(tokens[:, :60], cache=cache, start=0, last_only=True)]
+        steps += [model(tokens[:, i:i + 1], cache=cache, start=i) for i in range(60, 63)]
+        return torch.cat(steps, 1)
+
+    with torch.no_grad():
+        build.reset_launch_counts()
+        got = run()
+        assert build.launches["decode_attention_int8"] == 2 * 3
+        with plain_kernels():
+            want = run()
+    assert build.launches["decode_attention_int8"] == 2 * 3  # the plain path launched nothing
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
 @pytest.mark.parametrize("bs", [4, 16, 128])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])

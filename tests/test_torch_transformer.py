@@ -125,10 +125,15 @@ def test_cached_decode_matches_full_forward(n_kv_heads):
 
 
 def test_out_of_slice_features_raise():
-    for kwargs in ({"attn_impl": "ulysses"}, {"kv_cache_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1,
-                          n_heads=4, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1, n_heads=4,
+                      device="cpu", attn_impl="ulysses")
+    # The int8 KV cache is ported (tests/test_torch_kv_int8.py); a cache
+    # dtype outside the reference's set is refused.
+    for dtype in ("int8", torch.float16):
+        with pytest.raises(ValueError, match="kv_cache_dtype"):
+            TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1, n_heads=4,
+                          device="cpu", kv_cache_dtype=dtype)
     port = TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1, n_heads=4,
                          device="cpu")
     init_params(port, seed=0)
