@@ -17,7 +17,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (8 ulp); the ring flash chunk kernels K11 (forward carry), K12 (dQ) and
    K13 (dK/dV) at the ring path's chunk (B 1, Lc 4096, H 16 / Hkv 4, D 128,
    bf16; the diagonal step and a full step with a carry and accumulators
-   in) and in f32 at Lc 32, D 32, timed at a full step.
+   in), in f32 at Lc 32, D 32, and in bf16 at Lc 100 and 2100 (chunks that
+   end inside a 128-row tile), timed at a full step; K1 and K11 log their
+   TFLOP/s, share of the bound and factor over SDPA, and the ptxas lines
+   (entries, registers, spills, warnings) of their sources are printed.
 3. Serves the d2048 / 8-layer / 16-head / 4-KV-head / 32k-vocab LM
    (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
    and 32 new tokens through ``make_generate_fn``: once in bf16, once with
@@ -184,17 +187,27 @@ GRAD_ROW_FLOOR = 1e-3
 # result (455 measured between XLA's chain and the port's on the CPU).
 ADAMW_ULP_TOL = 8
 
-# Faults for ``--perturb``: (kernel, source text, replacement), each a
-# plausible bug the checks must catch.
+# Faults for ``--perturb``: (kernel, source text, replacement[, file]),
+# each a plausible bug the checks must catch; the file under ops/csrc
+# holding the text defaults to the kernel's ``<kernel>.cu``.
 PERTURBATIONS = {
-    # Every query tile past the first loses key tile 0 (64 keys).
+    # Every query tile past the first loses key tile 0 (128 keys).  The
+    # forward mainloop lives in the header K1 and K11 share; the fault is
+    # K1's alone.
     "flash-drop-first-tile": (
-        "flash_fwd", "float val = s[ni][e] * scale_log2;",
-        "float val = (j == 0 && qt > 0) ? NEG_INF : s[ni][e] * scale_log2;"),
+        "flash_fwd",
+        "const bool edge = (CAUSAL && j == qt) || ((j + 1) * BKV > L);\n      if (edge) {\n"
+        "#pragma unroll\n        for (int i = 0; i < BKV / 2; ++i) {\n"
+        "          float val = s[i] * scale_log2;",
+        "const bool edge = (CAUSAL && j == qt) || ((j + 1) * BKV > L) || (KIND == FLASH && j == 0"
+        " && qt > 0);\n      if (edge) {\n#pragma unroll\n        for (int i = 0; i < BKV / 2; ++i)"
+        " {\n          float val = (KIND == FLASH && j == 0 && qt > 0) ? NEG_INF : s[i] * scale_log2;",
+        "flash_fwd_sm90.cuh"),
     # Every query past the first tile loses its own key (the diagonal).
     "flash-drop-diagonal": (
-        "flash_fwd", "if (key > row || key >= L) val = NEG_INF;",
-        "if (key > row - (row >= 64) || key >= L) val = NEG_INF;"),
+        "flash_fwd", "if ((CAUSAL && key > row) || key >= L) val = NEG_INF;",
+        "if ((CAUSAL && key > row - (KIND == FLASH && row >= BQ)) || key >= L) val = NEG_INF;",
+        "flash_fwd_sm90.cuh"),
     # The decode step leaves out the slot at the frontier (pos itself).
     "decode-drop-frontier-slot": (
         "decode_attention",
@@ -236,8 +249,8 @@ PERTURBATIONS = {
         "ring_codec", "acc[j] = acc[j] + static_cast<float>(q[j]) * s;", "(void)j;"),
     # K11 ignores the carry in: every step starts from an empty (m, l, acc).
     "ring-fwd-ignore-carry": (
-        "ring_flash", "const bool has_carry = row < Lc;  // padded rows start empty",
-        "const bool has_carry = false;"),
+        "ring_flash", "const bool has_carry = row < L;  // padded rows start empty",
+        "const bool has_carry = false;", "flash_fwd_sm90.cuh"),
     # K12 skips the last key tile of its walk.
     "ring-dq-skip-last-tile": (
         "ring_flash",
@@ -421,8 +434,17 @@ def check_flash(torch, fa, rows: dict, timing: bool) -> None:
             library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
             **bound(flops, BF16_FLOPS, nbytes),
             shape=f"B={B} L={L} H={H} Hkv={Hkv} D={D} bf16, one call per layer")
-        log(f"  flash_fwd tensor-core rate: {flops / rows['flash_fwd']['ms'] / 1e9:.1f} TFLOP/s")
+        log_rate("flash_fwd", rows["flash_fwd"], flops, "SDPA causal")
     raise_failed(failed)
+
+
+def log_rate(name: str, row: dict, flops: float, library: str) -> None:
+    """A timed kernel's achieved rate, its share of the bound and its factor
+    over the library call."""
+    log(f"  {name}: {row['ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{row['bound_ms'] / row['ms']:.1%} of its {row['bound_ms']:.4f} ms bound "
+        f"({row['bound_by']}), {row['ms'] / row['library_ms']:.2f}x {library} "
+        f"({row['library_ms']:.4f} ms)")
 
 
 def bound(ops: float, peak: float, nbytes: float) -> dict:
@@ -2001,8 +2023,19 @@ def run_vgg_cli(torch) -> None:
 # a two-chunk ring, B 1, Lc 4096, H 16 / Hkv 4, D 128, bf16 (the diagonal
 # step from the empty carry, then the full step with the diagonal's carry
 # in, and K12/K13 adding into the diagonal step's dq and traveling dK/dV),
-# and f32 at Lc 32, D 32.  m within LSE_TOL, l within LSE_TOL relative.
-RING_CHECKS = [(4096, 16, 4, 128, "bfloat16"), (32, 4, 2, 32, "float32")]
+# f32 at Lc 32, D 32, and bf16 at chunk lengths that end inside a 128-row
+# tile (Lc 100: one partial tile; 2100: 16 full tiles and a tail of 52
+# rows).  m within LSE_TOL, l within LSE_TOL relative.
+RING_CHECKS = [(4096, 16, 4, 128, "bfloat16"), (32, 4, 2, 32, "float32"),
+               (100, 16, 4, 128, "bfloat16"), (2100, 16, 4, 128, "bfloat16")]
+
+
+def ring_block(Lc: int) -> int:
+    """The plain versions' tile in the ring checks: the reference's (the
+    largest power of two <= 512 dividing Lc) where that is 512 or Lc, else
+    512 with a short last tile (Lc 2100's own would be 4: 275,625 tiles a
+    full step).  The tile orders the plain sums and nothing else."""
+    return min(Lc, 512)
 
 
 def ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen):
@@ -2014,8 +2047,9 @@ def ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen):
                   for _ in "ab"] for _ in "ab")
     m = torch.full((1, H, Lc), -1e30, device="cuda")
     empty = (m, torch.zeros_like(m), torch.zeros(1, Lc, H, D, device="cuda"))
+    blk = ring_block(Lc)
     m1, l1, acc1 = rf.chunk_fwd_reference(q, *prev, *rf.chunk_fwd_reference(
-        q, *own, *empty, True), False)
+        q, *own, *empty, True, blk), False, blk)
     out = (acc1 / l1.transpose(1, 2)[..., None]).to(dt)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, do, own, prev, empty, m1 + torch.log2(l1), delta
@@ -2039,7 +2073,8 @@ def check_ring_flash(torch, rf, rows: dict, timing: bool) -> None:
             rf._launch_dq(q, k, v, do, lse, delta, gdq, causal)
             rf._launch_dkv(q, k, v, do, lse, delta, gdk, gdv, causal)
             torch.cuda.synchronize()
-            want = rf.chunk_fwd_reference(q, k, v, *carry, causal)
+            blk = ring_block(Lc)
+            want = rf.chunk_fwd_reference(q, k, v, *carry, causal, blk)
             m_err = float((got[0] - want[0]).abs().max())
             l_err = float(((got[1] - want[1]) / want[1]).abs().max())
             log(f"  ring_flash_fwd {label}: m max_abs_err={m_err:.3e}, l max_rel_err="
@@ -2049,10 +2084,10 @@ def check_ring_flash(torch, rf, rows: dict, timing: bool) -> None:
                 failed.append(f"ring_flash_fwd m/l {label}")
             errs["ring_flash_fwd"].append(compare(f"ring_flash_fwd acc {label}", got[2],
                                                   want[2], failed))
-            want_dq = rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal)
+            want_dq = rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal, blk)
             errs["ring_flash_dq"].append(compare(f"ring_flash_dq {label}", gdq, want_dq,
                                                  failed, GRAD_ROW_FLOOR))
-            want_kv = rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv, causal)
+            want_kv = rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv, causal, blk)
             for name, g, w in (("dk", gdk, want_kv[0]), ("dv", gdv, want_kv[1])):
                 errs["ring_flash_dkv"].append(compare(f"ring_flash_dkv {name} {label}", g, w,
                                                       failed, GRAD_ROW_FLOOR))
@@ -2111,10 +2146,8 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
             **bound(flops, BF16_FLOPS, nbytes),
             shape=f"full ring step, B=1 Lc={Lc} H={H} Hkv={Hkv} D={D} bf16 "
                   f"(diagonal step {diag_ms:.4f} ms); library: {library}")
-        r = rows[name]
-        log(f"  {name}: full step {full_ms:.4f} ms ({flops / full_ms / 1e9:.1f} TFLOP/s), "
-            f"diagonal {diag_ms:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.2f}, {library} {library_ms:.4f}")
+        log(f"  {name}: diagonal step {diag_ms:.4f} ms, plain (full) {rows[name]['plain_ms']:.2f}")
+        log_rate(f"{name} full step", rows[name], flops, library)
 
 
 # The context-parallel trainer (step 8): cli.lm --parallel ring at the
@@ -2453,15 +2486,16 @@ def perturb(torch, pkg, name: str) -> int:
     from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
     from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
 
-    kernel, old, new = PERTURBATIONS[name]
-    text = (build.CSRC / f"{kernel}.cu").read_text()
+    kernel, old, new, *where = PERTURBATIONS[name]
+    fname = where[0] if where else f"{kernel}.cu"
+    text = (build.CSRC / fname).read_text()
     if text.count(old) != 1:
-        raise RuntimeError(f"{name}: the text to perturb is not in {kernel}.cu once")
+        raise RuntimeError(f"{name}: the text to perturb is not in {fname} once")
     copy = build.BUILD_DIR.parent / "perturbed" / name
     copy.mkdir(parents=True, exist_ok=True)
-    for src in build.CSRC.glob("*.cu"):
+    for src in [*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")]:
         (copy / src.name).write_text(src.read_text())
-    (copy / f"{kernel}.cu").write_text(text.replace(old, new))
+    (copy / fname).write_text(text.replace(old, new))
     build.CSRC = copy  # every kernel builds from the copy; one of them differs
     build.build_all()
     caught = []
@@ -2610,8 +2644,12 @@ def main(argv=None) -> int:
     for name in build.SOURCES:
         log_file = build.BUILD_DIR / f"{name}.log"
         if log_file.exists():
+            # The forward mainloop's kernels (K1, K11) also name their entry
+            # and any ptxas warning (a serialized wgmma, an ignored setmaxnreg).
+            keys = ("registers", "spill") + (("Compiling entry", "warning", "Performance")
+                                             if name in ("flash_fwd", "ring_flash") else ())
             for line in log_file.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(k in line for k in keys):
                     log(f"  ptxas {name}: {line.strip()}")
 
     rows: dict = {}

@@ -3,8 +3,9 @@
 Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled on
 its own by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo
 root (git-ignored) the first time a wrapper needs it, then loaded with
-``ctypes``.  The library name carries a hash of the source and flags, so
-an edited source is never served by a stale build.  ``build_all``
+``ctypes``.  The library name carries a hash of the source, of every
+shared header (``csrc/*.cuh``) and of the flags, so an edited source or
+header is never served by a stale build.  ``build_all``
 starts one ``nvcc`` per source at once, so the kernels build in
 parallel.  A failed build raises with the compiler's output.
 
@@ -69,8 +70,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

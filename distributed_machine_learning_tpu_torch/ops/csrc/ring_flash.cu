@@ -15,33 +15,34 @@
 //   TFLOP/s, against O(Lc * D) bytes (q, k, v, dO, the f32 carry or
 //   accumulators).  A diagonal step does half the pairs.
 //
-// Design: the tiles of K1 (flash_fwd.cu), K2 and K3 (flash_bwd.cu) with a
-//   carry.  K11 owns a 64-row query tile of one (b, h) (4 warps, 16 rows a
-//   warp) and walks 64-key tiles of the visiting chunk, double-buffered in
-//   shared memory by cp.async, S and P V on mma.sync m16n8k16 bf16 with f32
-//   accumulators; it loads its rows' (m, l, acc) from the f32 carry before
-//   the first tile and writes them back after the last, without
-//   normalizing (acc / l and the lse happen once, after the ring's last
-//   step).  K12 owns a 64-row query tile, reads its dq rows from the f32
-//   accumulator, adds this pair's dS K and writes them back.  K13 owns a
-//   64-key tile of one (b, kv head), loops over the group's H/Hkv query
-//   heads and their 32-query tiles, sums dK and dV of the whole group in f32
-//   registers and adds them into the NARROW traveling f32 dK/dV: no
-//   per-query-head buffers and no group-sum pass (the TPU path sums the
-//   group in f32 too).  Each block owns the rows it writes: no atomics, and
-//   the result is deterministic.  CAUSAL (the diagonal step: both chunks at
-//   one global offset) walks tiles up to the diagonal with local indices
-//   and masks the diagonal tile; a full step (an earlier chunk) walks every
-//   tile with no mask but the chunk's end.  Query (key, for K13) tiles are
-//   issued heaviest first.  Scores run in base 2 (scale * log2(e), exp2);
-//   masked scores are -1e30 and their probability is forced to 0; P is
-//   rounded to bf16 before P V (the row sum uses the f32 P), dS before dS K
-//   and dS^T Q, P before P^T dO, where the TPU kernels cast to the input
-//   dtype.  The KV head of query head h is h / (H / Hkv), read in place.
-//   Inputs are read through their strides; the carry, lse, delta and the
-//   f32 accumulators are contiguous.  Any chunk length works: rows and keys
-//   past Lc are masked (the 64-row tile also covers chunks of 32).  No
-//   wgmma/TMA yet.
+// Design: K11 (bf16) is the Hopper forward mainloop of flash_fwd_sm90.cuh
+//   (kinds RING_DIAGONAL and RING_FULL): 128-row query tiles of one
+//   (b, h), a TMA-fed producer warpgroup and two ping-ponging consumer
+//   warpgroups on wgmma.  It loads its rows' (m, l, acc) from the f32 carry
+//   into the accumulator layout before the first key tile and writes them
+//   back after the last, without normalizing (acc / l and the lse happen
+//   once, after the ring's last step).  K12 and K13 keep the tiles of K2
+//   and K3 (flash_bwd.cu) on mma.sync with a carry: K12 owns a 64-row query
+//   tile (4 warps, 16 rows a warp), walks 64-key tiles of the visiting
+//   chunk, double-buffered in shared memory by cp.async, reads its dq rows
+//   from the f32 accumulator, adds this pair's dS K and writes them back.
+//   K13 owns a 64-key tile of one (b, kv head), loops over the group's
+//   H/Hkv query heads and their 32-query tiles, sums dK and dV of the whole
+//   group in f32 registers and adds them into the NARROW traveling f32
+//   dK/dV: no per-query-head buffers and no group-sum pass (the TPU path
+//   sums the group in f32 too).  Each block owns the rows it writes: no
+//   atomics, and the result is deterministic.  CAUSAL (the diagonal step:
+//   both chunks at one global offset) walks tiles up to the diagonal with
+//   local indices and masks the diagonal tile; a full step (an earlier
+//   chunk) walks every tile with no mask but the chunk's end.  Query (key,
+//   for K13) tiles are issued heaviest first.  Scores run in base 2
+//   (scale * log2(e), exp2); masked scores are -1e30 and their probability
+//   is forced to 0; P is rounded to bf16 before P V (the row sum uses the
+//   f32 P), dS before dS K and dS^T Q, P before P^T dO, where the TPU
+//   kernels cast to the input dtype.  The KV head of query head h is
+//   h / (H / Hkv), read in place.  Inputs are read through their strides;
+//   the carry, lse, delta and the f32 accumulators are contiguous.  Any
+//   chunk length works: rows and keys past Lc are masked.
 //
 // f32 inputs take CUDA-core kernels (no TF32), as K1-K3's f32 modes: 64
 //   rows a block (query rows for K11/K12, key rows for K13), 4 threads a
@@ -53,12 +54,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_sm90.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NWARPS = 4;
-constexpr int BQ = 64;   // K11/K12: query rows per block (16 per warp)
-constexpr int BKV = 64;  // K11/K12: keys per tile; K13: keys per block (16 per warp)
+constexpr int BQ = 64;   // K12: query rows per block (16 per warp)
+constexpr int BKV = 64;  // K12: keys per tile; K13: keys per block (16 per warp)
 constexpr int BQ3 = 32;  // K13: queries per tile
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -128,181 +131,6 @@ struct Strides {  // element strides of a [B, Lc, heads, D] view (last dim conti
 // Offset of element (b, row, head, 0) of a contiguous f32 [B, Lc, heads, D].
 __device__ __forceinline__ long long acc_off(int b, int row, int head, int Lc, int heads, int D) {
   return ((static_cast<long long>(b) * Lc + row) * heads + head) * D;
-}
-
-// --------------------------------------------------------------- K11, bf16
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NWARPS * 32)
-    ring_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, float* __restrict__ m_c,
-                    float* __restrict__ l_c, float* __restrict__ acc, Strides qs, Strides ks,
-                    Strides vs, int Lc, int H, int Hkv, float scale_log2) {
-  constexpr int P = D + 8;  // smem row pitch (bf16): conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
-  __nv_bfloat16* Ks = Qs + BQ * P;                                  // [2][BKV][P]
-  __nv_bfloat16* Vs = Ks + 2 * BKV * P;                             // [2][BKV][P]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (latest) query tiles first
-  const int q0 = qt * BQ;
-  // The diagonal walks key tiles 0..qt (BQ == BKV); a full step all of them.
-  const int n_tiles = CAUSAL ? qt + 1 : (Lc + BKV - 1) / BKV;
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < BQ * CPR; c += NWARPS * 32) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    const bool ok = q0 + r < Lc;
-    cp_async16(Qs + r * P + cc, ok ? qb + (q0 + r) * qs.l + cc : qb, ok);
-  }
-  auto load_kv = [&](int buf, int j) {
-    const int k0 = j * BKV;
-    for (int c = tid; c < BKV * CPR; c += NWARPS * 32) {
-      const int r = c / CPR, cc = (c % CPR) * 8;
-      const bool ok = k0 + r < Lc;
-      cp_async16(Ks + (buf * BKV + r) * P + cc, ok ? kb + (k0 + r) * ks.l + cc : kb, ok);
-      cp_async16(Vs + (buf * BKV + r) * P + cc, ok ? vb + (k0 + r) * vs.l + cc : vb, ok);
-    }
-  };
-  load_kv(0, 0);
-  cp_async_commit();  // group 0: Q and the first K/V tile
-
-  // The carry in: rows g (half 0) and g + 8 (half 1) of this warp's 16; the
-  // accumulator fragment o[nd][2 half + i] is column nd * 8 + 2t + i.
-  const int wr = warp * 16;  // this warp's first row inside the tile
-  float m_run[2], l_run[2];
-  float o[D / 8][4];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wr + g + half * 8;
-    const bool has_carry = row < Lc;  // padded rows start empty
-    m_run[half] = has_carry ? m_c[static_cast<long long>(bh) * Lc + row] : NEG_INF;
-    l_run[half] = has_carry ? l_c[static_cast<long long>(bh) * Lc + row] : 0.f;
-    const float* ar = acc + acc_off(b, has_carry ? row : 0, h, Lc, H, D);
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const float2 a = has_carry ? *reinterpret_cast<const float2*>(ar + nd * 8 + 2 * t)
-                                 : make_float2(0.f, 0.f);
-      o[nd][2 * half] = a.x;
-      o[nd][2 * half + 1] = a.y;
-    }
-  }
-  uint32_t qf[D / 16][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv(buf ^ 1, j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, P, wr, kk * 16, g, t);
-    }
-    const __nv_bfloat16* Kt = Ks + buf * BKV * P;
-    const __nv_bfloat16* Vt = Vs + buf * BKV * P;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = Kt + (ni * 8 + g) * P + kk * 16 + 2 * t;
-        mma_bf16_16816(s[ni], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-    // Scale into log2 space; mask above the diagonal (causal) and past Lc.
-    const bool edge = (CAUSAL && j == qt) || ((j + 1) * BKV > Lc);
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = s[ni][e] * scale_log2;
-        if (edge) {
-          const int key = j * BKV + ni * 8 + 2 * t + (e & 1);
-          const int row = q0 + wr + g + (e >> 1) * 8;
-          if ((CAUSAL && key > row) || key >= Lc) val = NEG_INF;
-        }
-        s[ni][e] = val;
-      }
-    // Online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3).
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni)
-        mx = fmaxf(mx, fmaxf(s[ni][2 * half], s[ni][2 * half + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[half], mx);
-      const float alpha = exp2f(m_run[half] - m_new);
-      float rowsum = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-        for (int e = 2 * half; e < 2 * half + 2; ++e) {
-          const float sv = s[ni][e];
-          const float p = sv > 0.5f * NEG_INF ? exp2f(sv - m_new) : 0.f;
-          s[ni][e] = p;
-          rowsum += p;
-        }
-      rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-      rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 2);
-      l_run[half] = l_run[half] * alpha + rowsum;
-      m_run[half] = m_new;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        o[nd][2 * half] *= alpha;
-        o[nd][2 * half + 1] *= alpha;
-      }
-    }
-    // O += bf16(P) V.  The S accumulator layout is the A-fragment layout.
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bfrag[4];
-        ldmatrix_x4_trans(bfrag, Vt + vrow * P + nd * 16 + (lane >> 4) * 8);
-        mma_bf16_16816(o[2 * nd], a, bfrag[0], bfrag[1]);
-        mma_bf16_16816(o[2 * nd + 1], a, bfrag[2], bfrag[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-
-  // The carry out: m, l (the quad holds one value) and the unnormalized acc.
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wr + g + half * 8;
-    if (row >= Lc) continue;
-    if (t == 0) {
-      m_c[static_cast<long long>(bh) * Lc + row] = m_run[half];
-      l_c[static_cast<long long>(bh) * Lc + row] = l_run[half];
-    }
-    float* ar = acc + acc_off(b, row, h, Lc, H, D);
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<float2*>(ar + nd * 8 + 2 * t) =
-          make_float2(o[nd][2 * half], o[nd][2 * half + 1]);
-  }
 }
 
 // --------------------------------------------------------------- K12, bf16
@@ -894,14 +722,17 @@ int launch_fwd(const Args& a, bool bf16, cudaStream_t stream) {
         a.scale_log2);
     return static_cast<int>(cudaGetLastError());
   }
-  constexpr int smem = (BQ + 4 * BKV) * (D + 8) * 2;
-  static bool configured = false;
-  if (int err = set_smem(ring_fwd_kernel<D, CAUSAL>, smem, configured)) return err;
-  dim3 grid((a.Lc + BQ - 1) / BQ, a.B * a.H);
-  ring_fwd_kernel<D, CAUSAL><<<grid, NWARPS * 32, smem, stream>>>(
-      bf(a.q), bf(a.k), bf(a.v), a.o1, a.o2, a.o3, a.qs, a.ks, a.vs, a.Lc, a.H, a.Hkv,
-      a.scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[9] = {a.qs.b, a.qs.l, a.qs.h, a.ks.b, a.ks.l, a.ks.h, a.vs.b, a.vs.l, a.vs.h};
+  sm90::FwdParams p{};
+  p.L = a.Lc;
+  p.H = a.H;
+  p.Hkv = a.Hkv;
+  p.scale_log2 = a.scale_log2;
+  p.m = a.o1;
+  p.l = a.o2;
+  p.acc = a.o3;
+  return sm90::launch_fwd<D, CAUSAL ? sm90::RING_DIAGONAL : sm90::RING_FULL>(a.q, a.k, a.v, st,
+                                                                            a.B, p, stream);
 }
 
 template <int D, bool CAUSAL>

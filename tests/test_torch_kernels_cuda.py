@@ -120,6 +120,36 @@ def test_flash_kernel_reads_strided_slices(cuda):
            fa.flash_attention_reference(q, k, v), BF16_TOL)
 
 
+# K1 (bf16) walks 128-row query tiles split between two warpgroups of 64
+# rows, over 128-key tiles: lengths at and around one tile, and tails that
+# end inside the first (100, 170) or the second (200) warpgroup's rows.
+# The kernel runs on the rows as they are (``_launch``: no pad path).
+@pytest.mark.parametrize("L", [100, 127, 128, 129, 170, 200])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (4, 2, 32)])
+def test_flash_kernel_tile_edges(cuda, L, H, Hkv, D):
+    q = torch.randn(2, L, H, D, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(2, L, Hkv, D, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(2, L, Hkv, D, device="cuda", generator=cuda).bfloat16()
+    out, lse = fa._launch(q, k, v)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    _close(out, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_reads_gqa_slices(cuda, D):
+    """q, k, v as head slices of one fused GQA projection [B, L, H + 2 Hkv, D]."""
+    H, Hkv = 8, 2
+    x = torch.randn(2, 300, H + 2 * Hkv, D, device="cuda", generator=cuda).bfloat16()
+    q, k, v = x[:, :, :H], x[:, :, H:H + Hkv], x[:, :, H + Hkv:]
+    out, lse = fa._launch(q, k, v)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    _close(out, want, BF16_TOL)
+
+
 @pytest.mark.parametrize("L", [100, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_lse_matches_plain(cuda, dtype, L):
@@ -632,6 +662,46 @@ def test_ring_flash_kernels_match_plain(cuda, Lc, H, Hkv, D, dtype):
                                                            causal)):
             _close(g, w, gtol, GRAD_ROW_FLOOR[dtype])
     assert [build.launches[n] - b for n, b in zip(names, before)] == [2, 2, 2]
+
+
+def _ring_fwd_check(gen, q, k, v, causal):
+    """K11 from a random carry (m, l, acc) vs its plain version."""
+    from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+
+    _, Lc, H, D = q.shape
+    m = torch.randn(1, H, Lc, device="cuda", generator=gen)
+    l = torch.rand(1, H, Lc, device="cuda", generator=gen) + 0.5
+    acc = torch.randn(1, Lc, H, D, device="cuda", generator=gen)
+    got = [m.clone(), l.clone(), acc.clone()]
+    before = build.launches["ring_flash_fwd"]
+    rf._launch_fwd(q, k, v, *got, causal)
+    torch.cuda.synchronize()
+    assert build.launches["ring_flash_fwd"] == before + 1
+    want = rf.chunk_fwd_reference(q, k, v, m, l, acc, causal)
+    assert float((got[0] - want[0]).abs().max()) <= LSE_TOL
+    assert float(((got[1] - want[1]) / want[1]).abs().max()) <= LSE_TOL
+    _close(got[2], want[2], BF16_TOL)
+
+
+# K11 (bf16) at chunk lengths below, at and past one 128-row tile, both step
+# kinds; the carry in is random, so padded rows and masked keys show.
+@pytest.mark.parametrize("Lc", [32, 100, 129, 200])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (4, 2, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_forward_tile_edges(cuda, Lc, H, Hkv, D, causal):
+    q = torch.randn(1, Lc, H, D, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(1, Lc, Hkv, D, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(1, Lc, Hkv, D, device="cuda", generator=cuda).bfloat16()
+    _ring_fwd_check(cuda, q, k, v, causal)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_forward_reads_gqa_slices(cuda, D, causal):
+    """K11 with q, k, v as head slices of one fused GQA projection."""
+    H, Hkv = 8, 2
+    x = torch.randn(1, 300, H + 2 * Hkv, D, device="cuda", generator=cuda).bfloat16()
+    _ring_fwd_check(cuda, x[:, :, :H], x[:, :, H:H + Hkv], x[:, :, H + Hkv:], causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
