@@ -18,9 +18,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    K13 (dK/dV) at the ring path's chunk (B 1, Lc 4096, H 16 / Hkv 4, D 128,
    bf16; the diagonal step and a full step with a carry and accumulators
    in), in f32 at Lc 32, D 32, and in bf16 at Lc 100 and 2100 (chunks that
-   end inside a 128-row tile), timed at a full step; K1 and K11 log their
-   TFLOP/s, share of the bound and factor over SDPA, and the ptxas lines
-   (entries, registers, spills, warnings) of their sources are printed.
+   end inside a 128-row tile), timed at a full step; K1 and K11-K13 log
+   their TFLOP/s, share of the bound and factor over SDPA (K12/K13 also
+   their diagonal step's time), and the ptxas lines (entries, registers,
+   spills, warnings) of their sources are printed.  SDPA's backward, the
+   yardstick of K2/K3 (causal) and K12/K13 (non-causal), is timed under
+   each fused backend pinned (``sdpa_backward_ms``); the fastest counts.
 3. Serves the d2048 / 8-layer / 16-head / 4-KV-head / 32k-vocab LM
    (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
    and 32 new tokens through ``make_generate_fn``: once in bf16, once with
@@ -68,8 +71,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with ``--remat --remat-policy mlp`` (same step-0 loss); gates one step
    kernel path vs plain path (loss, every leaf's gradient, the parameters
    after the update).  K2, K3 and K7 are timed beside their bounds, plain
-   versions and one library call each (SDPA's backward; torch's fused
-   AdamW over the same 117 tensors).
+   versions and one library call each (SDPA's backward, the fastest
+   pinned backend; torch's fused AdamW over the same 117 tensors).
 
 7. Trains the reference-parity VGG-11 parts through ``cli.common.run_part``,
    as their ``main`` runs it, each rank a process sharing the card (gloo
@@ -251,15 +254,21 @@ PERTURBATIONS = {
     "ring-fwd-ignore-carry": (
         "ring_flash", "const bool has_carry = row < L;  // padded rows start empty",
         "const bool has_carry = false;", "flash_fwd_sm90.cuh"),
-    # K12 skips the last key tile of its walk.
+    # K12 skips the last key tile of its walk.  K12 and K13's mainloops
+    # live in the backward header.
     "ring-dq-skip-last-tile": (
         "ring_flash",
-        "const int n_key_tiles = CAUSAL ? qt + 1 : (Lc + BKV - 1) / BKV;  // dQ's key-tile walk",
-        "const int n_key_tiles = (CAUSAL ? qt + 1 : (Lc + BKV - 1) / BKV) - 1;"),
+        "const int n_tiles = (min(CAUSAL ? q0 + BQ : L, L) + BKV - 1) / BKV;  // dQ's key-tile walk",
+        "const int n_tiles = (min(CAUSAL ? q0 + BQ : L, L) + BKV - 1) / BKV - 1;",
+        "flash_bwd_sm90.cuh"),
     # K13 adds only the first query head of each KV group.
     "ring-dkv-first-head-only": (
         "ring_flash", "const int n_iters = rep * nq;  // (query head of the group, query tile)",
-        "const int n_iters = nq;"),
+        "const int n_iters = nq;", "flash_bwd_sm90.cuh"),
+    # The diagonal step's mask drops each row's own key, in K12 and K13.
+    "ring-bwd-drop-diagonal": (
+        "ring_flash", "return (CAUSAL && key > row) || key >= L || row >= L;",
+        "return (CAUSAL && key >= row) || key >= L || row >= L;", "flash_bwd_sm90.cuh"),
 }
 
 
@@ -515,18 +524,12 @@ def check_flash_bwd(torch, fa, rows: dict, timing: bool) -> None:
     kv = 2 * B * L * Hkv * D
     plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(*args), iters=2,
                        warmup=1)
-    # The yardstick: SDPA's backward (one call gives dq, dk and dv) with
-    # K/V repeated to H heads, eager between CUDA events.
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v, do = args[:4]
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
-                  (q, k.repeat_interleave(H // Hkv, 2), v.repeat_interleave(H // Hkv, 2)))
-    out = sdpa(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2).contiguous()
-    library_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                             retain_graph=True), iters=5)
+    # The yardstick: SDPA's backward (one call gives dq, dk and dv), the
+    # fastest fused backend.
+    library_ms, backend = sdpa_backward_ms(torch, *args[:4], True, "causal")
     shape = (f"B={B} L={L} H={H} Hkv={Hkv} D={D} bf16, one call per layer per step; "
-             "plain and library ms are of the whole backward (dq, dk, dv)")
+             "plain and library ms are of the whole backward (dq, dk, dv); library: SDPA "
+             f"backward, causal, {backend}")
     rows["flash_bwd_dq"].update(
         ms=time_ms(lambda: fa._launch_dq(*args)), plain_ms=plain_ms, library_ms=library_ms,
         **bound(6.0 * D * pairs, BF16_FLOPS, 3 * qo + 2 * kv + row_bytes), shape=shape)
@@ -538,7 +541,7 @@ def check_flash_bwd(torch, fa, rows: dict, timing: bool) -> None:
         flops = (6.0 if name == "flash_bwd_dq" else 8.0) * D * pairs
         log(f"  {name}: {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), bound "
             f"{r['bound_ms']:.3f}, plain backward {plain_ms:.2f}, SDPA backward "
-            f"{library_ms:.3f}")
+            f"{library_ms:.3f} ({backend})")
 
 
 def ulp_err(got, want, *terms) -> float:
@@ -999,6 +1002,52 @@ def eager_ms(torch, fn, iters: int = 3) -> float:
     sync with the host and cannot be captured in a CUDA graph)."""
     fn()
     return event_ms(torch, lambda: [fn() for _ in range(iters)]) / iters
+
+
+# SDPA's fused backends, each pinned in turn for the backward yardsticks.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_backward_ms(torch, q, k, v, do, causal: bool, label: str, iters: int = 20,
+                     warmup: int = 3):
+    """The yardstick of an attention backward: one SDPA backward (dq, dk
+    and dv in one call) on q, dO [B, L, H, D] and k, v [B, L, Hkv, D] (K/V
+    repeated to H heads), under each fused backend pinned with
+    ``sdpa_kernel`` in turn, eager between CUDA events over ``iters`` calls
+    after ``warmup``; a backend that refuses the shape is logged and
+    skipped.  The unpinned default is timed and logged beside them.
+    Returns (fastest ms, its backend's name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+                  (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+    dot = do.transpose(1, 2).contiguous()
+
+    def timed(ctx):
+        with ctx:
+            out = sdpa(qt, kt, vt, is_causal=causal)
+            run = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
+                                              retain_graph=True)
+            for _ in range(warmup):
+                run()
+            return event_ms(torch, lambda: [run() for _ in range(iters)]) / iters
+
+    times = {}
+    for name in SDPA_BACKENDS:
+        try:
+            times[name] = timed(sdpa_kernel(getattr(SDPBackend, name)))
+        except RuntimeError as exc:  # the backend does not take this shape
+            log(f"  SDPA backward ({label}) {name}: refused ({str(exc).splitlines()[0][:120]})")
+            continue
+        log(f"  SDPA backward ({label}) {name}: {times[name]:.4f} ms")
+    log(f"  SDPA backward ({label}) unpinned default: "
+        f"{timed(contextlib.nullcontext()):.4f} ms")
+    if not times:
+        raise RuntimeError(f"SDPA backward ({label}): no fused backend takes the shape")
+    best = min(times, key=times.get)
+    return times[best], best
 
 
 def time_paged(torch, da, rows: dict, step) -> None:
@@ -2104,8 +2153,8 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
     """K11-K13 at the ring path's full step (an earlier chunk, every pair,
     B 1, Lc 4096, H 16 / Hkv 4, D 128, bf16) beside their bounds, plain
     versions and one library call: SDPA (non-causal, K/V repeated) for K11,
-    SDPA's backward (one call: dq, dk, dv) for K12 and K13; the diagonal
-    step's times are logged beside them."""
+    SDPA's backward (one call: dq, dk, dv; the fastest pinned backend) for
+    K12 and K13; the diagonal step's times are logged beside them."""
     Lc, H, Hkv, D, dtype = RING_CHECKS[0]
     q, do, own, prev, empty, lse, delta = ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen)
     carry = [t.clone() for t in rf.chunk_fwd_reference(q, *own, *empty, True)]
@@ -2116,27 +2165,24 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
     qo, kv, rowb = 2 * Lc * H * D, 2 * Lc * Hkv * D, 4 * H * Lc  # bf16 q/dO, k/v; f32 row
     acc_q, acc_kv = 4 * Lc * H * D, 4 * Lc * Hkv * D  # f32 accumulators
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
                   (q, k.repeat_interleave(H // Hkv, 2), v.repeat_interleave(H // Hkv, 2)))
-    out = sdpa(qt, kt, vt)
-    dot = do.transpose(1, 2).contiguous()
-    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                         retain_graph=True), iters=5)
+    bwd_ms, backend = sdpa_backward_ms(torch, q, k, v, do, False, "non-causal")
     cases = {
         "ring_flash_fwd": (lambda c: rf._launch_fwd(q, k, v, *carry, c),
                            lambda: rf.chunk_fwd_reference(q, k, v, *carry, False),
                            4.0 * D * pairs, qo + 2 * kv + 4 * rowb + 2 * acc_q,
-                           time_ms(lambda: sdpa(qt.detach(), kt.detach(), vt.detach())),
+                           time_ms(lambda: sdpa(qt, kt, vt)),
                            "SDPA, non-causal, K/V repeated"),
         "ring_flash_dq": (lambda c: rf._launch_dq(q, k, v, do, lse, delta, dq, c),
                           lambda: rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, False),
                           6.0 * D * pairs, 2 * qo + 2 * kv + 2 * rowb + 2 * acc_q, bwd_ms,
-                          "SDPA backward, non-causal: dq, dk and dv"),
+                          f"SDPA backward, non-causal, {backend}: dq, dk and dv"),
         "ring_flash_dkv": (lambda c: rf._launch_dkv(q, k, v, do, lse, delta, dk, dv, c),
                            lambda: rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv,
                                                           False),
                            8.0 * D * pairs, 2 * qo + 2 * kv + 2 * rowb + 4 * acc_kv, bwd_ms,
-                           "SDPA backward, non-causal: dq, dk and dv"),
+                           f"SDPA backward, non-causal, {backend}: dq, dk and dv"),
     }
     for name, (kernel, plain, flops, nbytes, library_ms, library) in cases.items():
         full_ms = time_ms(lambda: kernel(False))
@@ -2146,7 +2192,8 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
             **bound(flops, BF16_FLOPS, nbytes),
             shape=f"full ring step, B=1 Lc={Lc} H={H} Hkv={Hkv} D={D} bf16 "
                   f"(diagonal step {diag_ms:.4f} ms); library: {library}")
-        log(f"  {name}: diagonal step {diag_ms:.4f} ms, plain (full) {rows[name]['plain_ms']:.2f}")
+        log(f"  {name}: diagonal step {diag_ms:.4f} ms ({diag_ms / full_ms:.2f}x the full "
+            f"step), plain (full) {rows[name]['plain_ms']:.2f}")
         log_rate(f"{name} full step", rows[name], flops, library)
 
 

@@ -704,6 +704,59 @@ def test_ring_flash_forward_reads_gqa_slices(cuda, D, causal):
     _ring_fwd_check(cuda, x[:, :, :H], x[:, :, H:H + Hkv], x[:, :, H + Hkv:], causal)
 
 
+def _ring_bwd_check(gen, q, k, v, do, causal):
+    """K12 and K13 (bf16) vs their plain versions, with small non-zero
+    accumulators in (so the step's own contribution dominates each row) and
+    the lse and delta of q's rows over a diagonal and a full step of k/v."""
+    from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+
+    _, Lc, H, D = q.shape
+    Hkv = k.shape[2]
+    m = torch.full((1, H, Lc), -1e30, device="cuda")
+    carry = rf.chunk_fwd_reference(q, k, v, m, torch.zeros_like(m),
+                                   torch.zeros(1, Lc, H, D, device="cuda"), True)
+    m1, l1, acc1 = rf.chunk_fwd_reference(q, k, v, *carry, False)
+    lse = m1 + torch.log2(l1)
+    out = (acc1 / l1.transpose(1, 2)[..., None]).to(q.dtype)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = 1e-2 * torch.randn(1, Lc, H, D, device="cuda", generator=gen)
+    dk, dv = (1e-2 * torch.randn(1, Lc, Hkv, D, device="cuda", generator=gen) for _ in "ab")
+    got = [dq.clone(), dk.clone(), dv.clone()]
+    names = ("ring_flash_dq", "ring_flash_dkv")
+    before = [build.launches[n] for n in names]
+    rf._launch_dq(q, k, v, do, lse, delta, got[0], causal)
+    rf._launch_dkv(q, k, v, do, lse, delta, got[1], got[2], causal)
+    torch.cuda.synchronize()
+    assert [build.launches[n] - b for n, b in zip(names, before)] == [1, 1]
+    floor = GRAD_ROW_FLOOR[torch.bfloat16]
+    _close(got[0], rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal), BF16_TOL, floor)
+    for g, w in zip(got[1:], rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv, causal)):
+        _close(g, w, BF16_TOL, floor)
+
+
+# K12 and K13 (bf16) at chunk lengths that end inside and at the edge of
+# their 64- and 128-row tiles, both step kinds.
+@pytest.mark.parametrize("Lc", [100, 127, 128, 129, 200])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (4, 2, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_backward_tile_edges(cuda, Lc, H, Hkv, D, causal):
+    q, do = (torch.randn(1, Lc, H, D, device="cuda", generator=cuda).bfloat16() for _ in "ab")
+    k, v = (torch.randn(1, Lc, Hkv, D, device="cuda", generator=cuda).bfloat16() for _ in "ab")
+    _ring_bwd_check(cuda, q, k, v, do, causal)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_backward_reads_gqa_slices(cuda, D, causal):
+    """K12 and K13 with q, k, v as head slices of one fused GQA projection
+    and dO a head slice of a wider tensor."""
+    H, Hkv = 8, 2
+    x = torch.randn(1, 300, H + 2 * Hkv, D, device="cuda", generator=cuda).bfloat16()
+    y = torch.randn(1, 300, 2 * H, D, device="cuda", generator=cuda).bfloat16()
+    _ring_bwd_check(cuda, x[:, :, :H], x[:, :, H:H + Hkv], x[:, :, H + Hkv:], y[:, :, H:],
+                    causal)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_ring_flash_world1_is_causal_flash(cuda, dtype):
     """A one-rank ring is one diagonal step forward and backward: kernel path

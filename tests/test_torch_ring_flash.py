@@ -3,7 +3,8 @@ vs the JAX package.
 
 Chunk steps: the plain versions of K11-K13 against JAX's ``_chunk_fwd`` /
 ``_chunk_dq`` / ``_chunk_dkv`` in Pallas interpret mode on the same numpy
-inputs (f32, a non-trivial carry and accumulators in).  Both run the same
+inputs (f32, a non-trivial carry and accumulators in), at chunk lengths on
+and off the kernels' 128-row grid (96: both sides tile it in 32-row blocks).  Both run the same
 tile arithmetic on the same blocks, so they agree to summation order:
 within 1e-5 of each tensor's largest magnitude (at least 1; the
 accumulators reach ~20, and a sum of 128 such terms moves by ~1e-5 in
@@ -41,7 +42,7 @@ def _unfold(x, B):
     return np.asarray(x).reshape(B, BH // B, L, d).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("Lc", [32, 128])
+@pytest.mark.parametrize("Lc", [32, 96, 128])
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
 @pytest.mark.parametrize("causal", [True, False], ids=["diagonal", "full"])
 def test_chunk_steps_match_pallas(causal, H, Hkv, Lc):
