@@ -12,13 +12,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    in both modes (bf16, and int8 rows with f32 scales from the model's
    quantized write, q bf16 at the serving shape and q f32 at a small one),
    K6, K5, the flash backward pair K2 (dQ) and K3 (dK/dV) at the trainer's
-   heads, in f32, at head dim 32 and through the autograd Function at a
-   padded length, and the fused AdamW K7 on f32, bf16 and ragged leaves
-   (8 ulp); the ring flash chunk kernels K11 (forward carry), K12 (dQ) and
-   K13 (dK/dV) at the ring path's chunk (B 1, Lc 4096, H 16 / Hkv 4, D 128,
-   bf16; the diagonal step and a full step with a carry and accumulators
-   in), in f32 at Lc 32, D 32, and in bf16 at Lc 100 and 2100 (chunks that
-   end inside a 128-row tile), timed at a full step; K1 and K11-K13 log
+   heads, in f32, at head dim 32, at a length ending inside their tiles
+   and through the autograd Function at a padded length, and the fused
+   AdamW K7 on f32, bf16 and ragged leaves (8 ulp); the ring flash chunk
+   kernels K11 (forward carry), K12 (dQ) and K13 (dK/dV) at the ring
+   path's chunk (B 1, Lc 4096, H 16 / Hkv 4, D 128, bf16; the diagonal
+   step and a full step with a carry and accumulators in), in f32 at Lc
+   32, D 32, and in bf16 at Lc 100 and 2100 (chunks that end inside a
+   128-row tile), timed at a full step; K1-K3 and K11-K13 log
    their TFLOP/s, share of the bound and factor over SDPA (K12/K13 also
    their diagonal step's time), and the ptxas lines (entries, registers,
    spills, warnings) of their sources are printed.  SDPA's backward, the
@@ -231,14 +232,19 @@ PERTURBATIONS = {
     "paged-drop-frontier-slot": (
         "paged_attention", "const int hi = min(pos, lo + chunk - 1);",
         "const int hi = min(pos - 1, lo + chunk - 1);"),
-    # dQ leaves out the diagonal key tile of every query tile.
+    # K2 leaves out each query row's diagonal key tile (the 64 keys that
+    # hold its own).  K2 and K3 run on the backward header's FLASH kind,
+    # beside the ring's K12 and K13; these two faults are K2's and K3's
+    # alone.
     "dq-drop-diagonal-tile": (
-        "flash_bwd", "const int n_tiles = qt + 1;  // causal: key tiles 0..qt (BQ == BKV)",
-        "const int n_tiles = qt;"),
-    # dK/dV leave out the last query tile of every query head.
+        "flash_bwd", "s[i] = masked<CAUSAL>(row, key, L) ? 0.f",
+        "s[i] = masked<CAUSAL>(row, key, L) || (KIND == FLASH && key >= (row & ~(BKV - 1))) ? 0.f",
+        "flash_bwd_sm90.cuh"),
+    # K3 leaves out the last query tile of every query head.
     "dkv-drop-last-qtile": (
-        "flash_bwd", "const int nq = (L + BQ3 - 1) / BQ3 - first_qt;",
-        "const int nq = (L + BQ3 - 1) / BQ3 - first_qt - 1;"),
+        "flash_bwd", "const int nq = (L + BQT - 1) / BQT - first_qt;",
+        "const int nq = (L + BQT - 1) / BQT - first_qt - (KIND == FLASH);",
+        "flash_bwd_sm90.cuh"),
     # The fused AdamW update drops the bias correction.
     "adamw-drop-bias-correction": (
         "fused_adamw", "(m / h.bc1) / (sqrtf(v / h.bc2) + h.eps)",
@@ -463,10 +469,11 @@ def bound(ops: float, peak: float, nbytes: float) -> dict:
 
 
 # K2/K3 check cases (B, L, H, Hkv, D, dtype): the trainer's heads at B 1,
-# an f32 case and a head-dim-32 case at small L; the padded length runs
-# through the autograd Function in check_flash_bwd.
+# an f32 case, a head-dim-32 case at small L and a length that ends inside
+# K2's 128-row and K3's 64-row tiles; the padded length runs through the
+# autograd Function in check_flash_bwd.
 BWD_CASES = [(1, 4096, 16, 4, 128, "bfloat16"), (1, 1024, 4, 2, 64, "float32"),
-             (2, 512, 4, 2, 32, "bfloat16")]
+             (2, 512, 4, 2, 32, "bfloat16"), (2, 200, 8, 2, 128, "bfloat16")]
 BWD_PAD_CASE = (1, 2100, 16, 4, 128, "bfloat16")  # pads to 2560
 
 
@@ -539,9 +546,11 @@ def check_flash_bwd(torch, fa, rows: dict, timing: bool) -> None:
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         r = rows[name]
         flops = (6.0 if name == "flash_bwd_dq" else 8.0) * D * pairs
-        log(f"  {name}: {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), bound "
-            f"{r['bound_ms']:.3f}, plain backward {plain_ms:.2f}, SDPA backward "
-            f"{library_ms:.3f} ({backend})")
+        log(f"  {name}: {r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.1%} of its {r['bound_ms']:.4f} ms bound), plain "
+            f"backward {plain_ms:.2f}, SDPA backward {library_ms:.4f} ({backend})")
+    pair = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    log(f"  K2 + K3: {pair:.4f} ms, {pair / library_ms:.2f}x SDPA's backward ({backend})")
 
 
 def ulp_err(got, want, *terms) -> float:
@@ -2691,10 +2700,12 @@ def main(argv=None) -> int:
     for name in build.SOURCES:
         log_file = build.BUILD_DIR / f"{name}.log"
         if log_file.exists():
-            # The forward mainloop's kernels (K1, K11) also name their entry
-            # and any ptxas warning (a serialized wgmma, an ignored setmaxnreg).
+            # The Hopper mainloops' kernels (K1-K3, K11-K13) also name their
+            # entry and any ptxas warning (a serialized wgmma, an ignored
+            # setmaxnreg).
             keys = ("registers", "spill") + (("Compiling entry", "warning", "Performance")
-                                             if name in ("flash_fwd", "ring_flash") else ())
+                                             if name in ("flash_fwd", "flash_bwd", "ring_flash")
+                                             else ())
             for line in log_file.read_text().splitlines():
                 if any(k in line for k in keys):
                     log(f"  ptxas {name}: {line.strip()}")

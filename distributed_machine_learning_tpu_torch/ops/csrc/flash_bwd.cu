@@ -13,414 +13,48 @@
 //   L 4096, H 16, D 128 that is ~412 GFLOP (K2) and ~550 GFLOP (K3): 0.417
 //   and 0.556 ms at 989 TFLOP/s.  The L x L matrices never reach memory.
 //
-// Design: two kernels, as the TPU splits them, so each owns its
-//   accumulator: no atomics, and the result is deterministic.  Both
-//   recompute P from the forward's lse in log2 space,
-//   p = exp2(s * scale * log2(e) - lse), masked scores -1e30 with p forced
-//   to 0, and dS = P (dP - delta) * scale with delta = rowsum(dO o O)
-//   computed outside (f32).  dS is rounded to bf16 before dS K and dS^T Q,
-//   and P before P^T dO, where the TPU kernels cast them to the input dtype.
-//   A block loop takes the place of the TPU's sequential third grid axis.
-//   - K2: a block of 4 warps owns a 64-row query tile of one (b, h) (16 rows
-//     a warp) and walks the 64-key tiles up to the diagonal, K/V tiles
-//     double-buffered in shared memory by cp.async (K1's pieces); S and dP
-//     on mma.sync m16n8k16 bf16 with f32 accumulators, Q and dO fragments
-//     read from shared memory; the accumulator layout of dS is the A
-//     fragment of dS K, and K is read through ldmatrix.trans.  Query tiles
-//     are issued longest first.
-//   - K3: a block of 4 warps owns a 64-key tile of one (b, kv head) (16 keys
-//     a warp) and loops over the H/Hkv query heads of the group and, for
-//     each, over 32-query tiles from the diagonal to L (Q, dO, lse and
-//     delta double-buffered).  It computes S^T = K Q^T and dP^T = V dO^T, so
-//     the accumulators of P^T and dS^T are the A fragments of P^T dO and
-//     dS^T Q.  dK and dV of the whole KV group sum in f32 registers and are
-//     written once per KV head: no [B, L, H, D] temporary and no group-sum
-//     pass (one bf16 rounding fewer than the TPU path, which writes per
-//     query head and sums in the input dtype).  At D 128 the dK and dV
-//     accumulators take 128 registers a thread; the 32-query tile keeps the
-//     S^T / dP^T tiles at 32 more, below the 255 limit (ptxas' report is in
-//     build/kernels/flash_bwd.log).  Key tile 0 (the most work) goes first.
-//   Inputs are read through their strides (q, k, v can be slices of a fused
-//   projection).  No wgmma/TMA yet.
+// Design, bf16: the Hopper backward mainloops of flash_bwd_sm90.cuh (kind
+//   FLASH), the ones the ring's K12/K13 run on, with the causal diagonal's
+//   walk and mask over the whole sequence.  Two kernels, as the TPU splits
+//   them, so each owns its accumulator: no atomics, and the result is
+//   deterministic.  K2: 128 query rows of one (b, h) a block, a TMA
+//   producer warpgroup streaming 64-key K/V tiles up to the diagonal to two
+//   wgmma consumer warpgroups of 64 rows; dq starts from zero in registers
+//   and is stored once in bf16.  K3: 64 keys of one (b, kv head) a block,
+//   walking the 64-query tiles from the diagonal to L of every query head
+//   of the group, alternate tiles to the two consumers; dK and dV of the
+//   whole KV group sum in f32 registers and are stored once per KV head in
+//   bf16: no [B, L, H, D] temporary and no group-sum pass (one bf16
+//   rounding fewer than the TPU path, which writes per query head and sums
+//   in the input dtype).  Both recompute P from the forward's lse in log2
+//   space, p = exp2(s * scale * log2(e) - lse), masked probabilities 0,
+//   and dS = P (dP - delta) * scale with delta = rowsum(dO o O) computed
+//   outside (f32); P is rounded to bf16 before P^T dO and dS before dS K
+//   and dS^T Q, where the TPU kernels cast them to the input dtype.  Inputs
+//   are read through their strides by TMA (q, k, v can be slices of a
+//   fused projection; 16-byte aligned, strides multiples of 8 elements);
+//   outputs are written through theirs.  Any length works: rows and keys
+//   at or past L are masked and never stored.
 //
 // f32 inputs take CUDA-core kernels (no TF32), as K1's f32 mode: 64 rows a
 //   block (query rows for K2, key rows for K3), 4 threads a row, each thread
 //   owning every 4th of the row's D dims, dot products as 4-lane shuffle
 //   sums; 32-row tiles of the other side in shared memory.  Same masking,
-//   log2-space P and tile walk as the bf16 kernels.
+//   log2-space P and causal walk as the bf16 kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bwd_sm90.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NWARPS = 4;
-constexpr int BQ = 64;    // K2: query rows per block (16 per warp)
-constexpr int BKV = 64;   // K2: keys per tile; K3: keys per block (16 per warp)
-constexpr int BQ3 = 32;   // K3: queries per tile
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int nbytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(nbytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment (m16n8k16, row-major) of rows r0..r0+15, columns
-// c0..c0+15 of a [rows][P] bf16 tile in shared memory.
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* tile, int P, int r0,
-                                       int c0, int g, int t) {
-  const __nv_bfloat16* p0 = tile + (r0 + g) * P + c0 + 2 * t;
-  const __nv_bfloat16* p8 = p0 + 8 * P;
-  a[0] = ld32(p0);
-  a[1] = ld32(p8);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p8 + 8);
-}
-
-// The A fragment of a 16 x 16 slice held in m16n8 accumulators c0 (columns
-// 0-7) and c1 (8-15), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack_bf16x2(c0[0], c0[1]);
-  a[1] = pack_bf16x2(c0[2], c0[3]);
-  a[2] = pack_bf16x2(c1[0], c1[1]);
-  a[3] = pack_bf16x2(c1[2], c1[3]);
-}
 
 struct Strides {  // element strides of a [B, L, heads, D] view (last dim contiguous)
   long long b, l, h;
 };
-
-// ---------------------------------------------------------------- K2, bf16
-template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
-                        Strides dos, Strides dqs, int L, int H, int Hkv, float scale_log2,
-                        float scale) {
-  constexpr int P = D + 8;  // smem row pitch (bf16): conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
-  __nv_bfloat16* dOs = Qs + BQ * P;                                 // [BQ][P]
-  __nv_bfloat16* Ks = dOs + BQ * P;                                 // [2][BKV][P]
-  __nv_bfloat16* Vs = Ks + 2 * BKV * P;                             // [2][BKV][P]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (latest) query tiles first
-  const int q0 = qt * BQ;
-  const int n_tiles = qt + 1;  // causal: key tiles 0..qt (BQ == BKV)
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* ob = dout + b * dos.b + h * dos.h;
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < BQ * CPR; c += NWARPS * 32) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    const bool ok = q0 + r < L;
-    cp_async16(Qs + r * P + cc, ok ? qb + (q0 + r) * qs.l + cc : qb, ok);
-    cp_async16(dOs + r * P + cc, ok ? ob + (q0 + r) * dos.l + cc : ob, ok);
-  }
-  auto load_kv = [&](int buf, int j) {
-    const int k0 = j * BKV;
-    for (int c = tid; c < BKV * CPR; c += NWARPS * 32) {
-      const int r = c / CPR, cc = (c % CPR) * 8;
-      const bool ok = k0 + r < L;
-      cp_async16(Ks + (buf * BKV + r) * P + cc, ok ? kb + (k0 + r) * ks.l + cc : kb, ok);
-      cp_async16(Vs + (buf * BKV + r) * P + cc, ok ? vb + (k0 + r) * vs.l + cc : vb, ok);
-    }
-  };
-  load_kv(0, 0);
-  cp_async_commit();  // group 0: Q, dO and the first K/V tile
-
-  const int wr = warp * 16;  // this warp's first row inside the tile
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wr + g + half * 8;
-    lse_r[half] = row < L ? lse[static_cast<long long>(bh) * L + row] : 0.f;
-    dl_r[half] = row < L ? delta[static_cast<long long>(bh) * L + row] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv(buf ^ 1, j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + buf * BKV * P;
-    const __nv_bfloat16* Vt = Vs + buf * BKV * P;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys.
-    float s[BKV / 8][4], dp[BKV / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, Qs, P, wr, kk * 16, g, t);
-      load_a(da, dOs, P, wr, kk * 16, g, t);
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-        const __nv_bfloat16* kr = Kt + (ni * 8 + g) * P + kk * 16 + 2 * t;
-        const __nv_bfloat16* vr = Vt + (ni * 8 + g) * P + kk * 16 + 2 * t;
-        mma_bf16_16816(s[ni], qa, ld32(kr), ld32(kr + 8));
-        mma_bf16_16816(dp[ni], da, ld32(vr), ld32(vr + 8));
-      }
-    }
-    // dS = P (dP - delta) * scale, P from the lse; masked above the
-    // diagonal and past L.
-    const bool edge = (j == qt) || ((j + 1) * BKV > L);
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sv = s[ni][e] * scale_log2;
-        if (edge) {
-          const int key = j * BKV + ni * 8 + 2 * t + (e & 1);
-          const int row = q0 + wr + g + (e >> 1) * 8;
-          if (key > row || key >= L) sv = NEG_INF;
-        }
-        const float p = sv > 0.5f * NEG_INF ? exp2f(sv - lse_r[e >> 1]) : 0.f;
-        s[ni][e] = p * (dp[ni][e] - dl_r[e >> 1]) * scale;
-      }
-    // dQ += bf16(dS) K.
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      const int krow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bfrag[4];
-        ldmatrix_x4_trans(bfrag, Kt + krow * P + nd * 16 + (lane >> 4) * 8);
-        mma_bf16_16816(acc[2 * nd], a, bfrag[0], bfrag[1]);
-        mma_bf16_16816(acc[2 * nd + 1], a, bfrag[2], bfrag[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-
-  __nv_bfloat16* dqb = dq + b * dqs.b + h * dqs.h;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wr + g + half * 8;
-    if (row >= L) continue;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row * dqs.l + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nd][2 * half], acc[nd][2 * half + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- K3, bf16
-template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, Strides qs, Strides ks, Strides vs,
-                         Strides dos, Strides dks, Strides dvs, int L, int H, int Hkv,
-                         float scale_log2, float scale) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BKV][P]
-  __nv_bfloat16* Vs = Ks + BKV * P;                                 // [BKV][P]
-  __nv_bfloat16* Qs = Vs + BKV * P;                                 // [2][BQ3][P]
-  __nv_bfloat16* dOs = Qs + 2 * BQ3 * P;                            // [2][BQ3][P]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ3 * P);       // [2][BQ3]
-  float* dl_s = lse_s + 2 * BQ3;                                    // [2][BQ3]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bhk = blockIdx.y;
-  const int b = bhk / Hkv, hk = bhk % Hkv;
-  const int rep = H / Hkv;
-  const int k0 = blockIdx.x * BKV;  // key tile 0 (the most work) first
-  const int first_qt = k0 / BQ3;   // the first query tile that sees key k0
-  const int nq = (L + BQ3 - 1) / BQ3 - first_qt;
-  const int n_iters = rep * nq;  // (query head of the group, query tile)
-
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-  constexpr int CPR = D / 8;
-  for (int c = tid; c < BKV * CPR; c += NWARPS * 32) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    const bool ok = k0 + r < L;
-    cp_async16(Ks + r * P + cc, ok ? kb + (k0 + r) * ks.l + cc : kb, ok);
-    cp_async16(Vs + r * P + cc, ok ? vb + (k0 + r) * vs.l + cc : vb, ok);
-  }
-  auto load_q = [&](int buf, int i) {
-    const int h = hk * rep + i / nq;
-    const int q0 = (first_qt + i % nq) * BQ3;
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* ob = dout + b * dos.b + h * dos.h;
-    for (int c = tid; c < BQ3 * CPR; c += NWARPS * 32) {
-      const int r = c / CPR, cc = (c % CPR) * 8;
-      const bool ok = q0 + r < L;
-      cp_async16(Qs + (buf * BQ3 + r) * P + cc, ok ? qb + (q0 + r) * qs.l + cc : qb, ok);
-      cp_async16(dOs + (buf * BQ3 + r) * P + cc, ok ? ob + (q0 + r) * dos.l + cc : ob, ok);
-    }
-    if (tid < BQ3) {
-      const int row = q0 + tid;
-      const long long off = (static_cast<long long>(b) * H + h) * L + row;
-      lse_s[buf * BQ3 + tid] = row < L ? lse[off] : 0.f;
-      dl_s[buf * BQ3 + tid] = row < L ? delta[off] : 0.f;
-    }
-  };
-  load_q(0, 0);
-  cp_async_commit();  // group 0: K, V and the first Q/dO tile
-
-  const int wk = warp * 16;  // this warp's first key inside the tile
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  for (int i = 0; i < n_iters; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < n_iters) {
-      load_q(buf ^ 1, i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = (first_qt + i % nq) * BQ3;
-    const __nv_bfloat16* Qt = Qs + buf * BQ3 * P;
-    const __nv_bfloat16* Ot = dOs + buf * BQ3 * P;
-    const float* lse_t = lse_s + buf * BQ3;
-    const float* dl_t = dl_s + buf * BQ3;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries.
-    float s[BQ3 / 8][4], dp[BQ3 / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BQ3 / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, P, wk, kk * 16, g, t);
-      load_a(va, Vs, P, wk, kk * 16, g, t);
-#pragma unroll
-      for (int ni = 0; ni < BQ3 / 8; ++ni) {
-        const __nv_bfloat16* qr = Qt + (ni * 8 + g) * P + kk * 16 + 2 * t;
-        const __nv_bfloat16* orow = Ot + (ni * 8 + g) * P + kk * 16 + 2 * t;
-        mma_bf16_16816(s[ni], ka, ld32(qr), ld32(qr + 8));
-        mma_bf16_16816(dp[ni], va, ld32(orow), ld32(orow + 8));
-      }
-    }
-    // P^T and dS^T; element (key, query): key = k0 + wk + g (+8), query =
-    // q0 + ni * 8 + 2t (+1).  s becomes P^T, dp becomes dS^T.
-    const bool edge = q0 < k0 + BKV || q0 + BQ3 > L || k0 + BKV > L;
-#pragma unroll
-    for (int ni = 0; ni < BQ3 / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = ni * 8 + 2 * t + (e & 1);
-        float sv = s[ni][e] * scale_log2;
-        if (edge) {
-          const int key = k0 + wk + g + (e >> 1) * 8;
-          const int qrow = q0 + col;
-          if (key > qrow || qrow >= L || key >= L) sv = NEG_INF;
-        }
-        const float p = sv > 0.5f * NEG_INF ? exp2f(sv - lse_t[col]) : 0.f;
-        s[ni][e] = p;
-        dp[ni][e] = p * (dp[ni][e] - dl_t[col]) * scale;
-      }
-    // dV += bf16(P^T) dO and dK += bf16(dS^T) Q.
-#pragma unroll
-    for (int kk = 0; kk < BQ3 / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
-      const int qrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bfrag[4];
-        ldmatrix_x4_trans(bfrag, Ot + qrow * P + nd * 16 + (lane >> 4) * 8);
-        mma_bf16_16816(dv_acc[2 * nd], pa, bfrag[0], bfrag[1]);
-        mma_bf16_16816(dv_acc[2 * nd + 1], pa, bfrag[2], bfrag[3]);
-        ldmatrix_x4_trans(bfrag, Qt + qrow * P + nd * 16 + (lane >> 4) * 8);
-        mma_bf16_16816(dk_acc[2 * nd], sa, bfrag[0], bfrag[1]);
-        mma_bf16_16816(dk_acc[2 * nd + 1], sa, bfrag[2], bfrag[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-
-  __nv_bfloat16* dkb = dk + b * dks.b + hk * dks.h;
-  __nv_bfloat16* dvb = dv + b * dvs.b + hk * dvs.h;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = k0 + wk + g + half * 8;
-    if (key >= L) continue;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key * dks.l + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[nd][2 * half], dk_acc[nd][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key * dvs.l + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[nd][2 * half], dv_acc[nd][2 * half + 1]);
-    }
-  }
-}
 
 // ------------------------------------------------------ f32 (CUDA cores)
 constexpr int F32_ROWS = 64, F32_TILE = 32, F32_TPR = 4;  // rows, tile, threads a row
@@ -585,19 +219,21 @@ struct Args {
   const float *lse, *delta;
   void *o1, *o2;  // dq; or dk, dv
   Strides qs, ks, vs, dos, s1, s2;
+  const long long* st;  // the strides in order: q, k, v, dout (the maps), then the outputs
   int B, L, H, Hkv;
   float scale_log2, scale;
 };
 
-template <typename Kernel>
-int set_smem(Kernel kernel, int smem, bool& configured) {
-  if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  return 0;
+sm90::bwd::BwdParams bwd_params(const Args& a) {
+  sm90::bwd::BwdParams p{};
+  p.L = a.L;
+  p.H = a.H;
+  p.Hkv = a.Hkv;
+  p.scale_log2 = a.scale_log2;
+  p.scale = a.scale;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  return p;
 }
 
 template <int D>
@@ -611,16 +247,12 @@ int launch_dq(const Args& a, bool bf16, cudaStream_t stream) {
         a.scale);
     return static_cast<int>(cudaGetLastError());
   }
-  constexpr int smem = (2 * BQ + 4 * BKV) * (D + 8) * 2;
-  static bool configured = false;
-  if (int err = set_smem(flash_bwd_dq_kernel<D>, smem, configured)) return err;
-  dim3 grid((a.L + BQ - 1) / BQ, a.B * a.H);
-  flash_bwd_dq_kernel<D><<<grid, NWARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout), a.lse,
-      a.delta, static_cast<__nv_bfloat16*>(a.o1), a.qs, a.ks, a.vs, a.dos, a.s1, a.L, a.H, a.Hkv,
-      a.scale_log2, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  sm90::bwd::BwdParams p = bwd_params(a);
+  p.dq_out = static_cast<__nv_bfloat16*>(a.o1);
+  p.dq_sb = a.s1.b;
+  p.dq_sl = a.s1.l;
+  p.dq_sh = a.s1.h;
+  return sm90::bwd::launch_dq<D, sm90::FLASH>(a.q, a.k, a.v, a.dout, a.st, a.B, p, stream);
 }
 
 template <int D>
@@ -634,16 +266,16 @@ int launch_dkv(const Args& a, bool bf16, cudaStream_t stream) {
         a.s2, a.L, a.H, a.Hkv, a.scale_log2, a.scale);
     return static_cast<int>(cudaGetLastError());
   }
-  constexpr int smem = (2 * BKV + 4 * BQ3) * (D + 8) * 2 + 4 * BQ3 * 4;
-  static bool configured = false;
-  if (int err = set_smem(flash_bwd_dkv_kernel<D>, smem, configured)) return err;
-  dim3 grid((a.L + BKV - 1) / BKV, a.B * a.Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, NWARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout), a.lse,
-      a.delta, static_cast<__nv_bfloat16*>(a.o1), static_cast<__nv_bfloat16*>(a.o2), a.qs, a.ks,
-      a.vs, a.dos, a.s1, a.s2, a.L, a.H, a.Hkv, a.scale_log2, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  sm90::bwd::BwdParams p = bwd_params(a);
+  p.dk_out = static_cast<__nv_bfloat16*>(a.o1);
+  p.dk_sb = a.s1.b;
+  p.dk_sl = a.s1.l;
+  p.dk_sh = a.s1.h;
+  p.dv_out = static_cast<__nv_bfloat16*>(a.o2);
+  p.dv_sb = a.s2.b;
+  p.dv_sl = a.s2.l;
+  p.dv_sh = a.s2.h;
+  return sm90::bwd::launch_dkv<D, sm90::FLASH>(a.q, a.k, a.v, a.dout, a.st, a.B, p, stream);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -662,6 +294,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
   for (int i = 0; i < (o2 ? 6 : 5); ++i)
     *all[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   if (!o2) a.s2 = Strides{0, 0, 0};
+  a.st = st;
   a.B = B;
   a.L = L;
   a.H = H;

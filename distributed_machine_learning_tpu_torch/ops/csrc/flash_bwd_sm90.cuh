@@ -1,23 +1,27 @@
-// The Hopper flash-attention backward mainloops: K12 (ring_flash.cu: dQ of
-// one ring chunk step, a query-tile walk over the visiting chunk's keys)
-// and K13 (ring_flash.cu: the traveling dK and dV of one ring chunk step, a
-// key-tile walk over the query tiles of the KV head's query group).  bf16
+// The Hopper flash-attention backward mainloops.  dq_kernel: K2
+// (flash_bwd.cu: dQ of causal attention over the whole sequence) and K12
+// (ring_flash.cu: dQ of one ring chunk step), a query-tile walk over the
+// keys.  dkv_kernel: K3 (flash_bwd.cu: dK and dV over the whole sequence)
+// and K13 (ring_flash.cu: the traveling dK and dV of one ring chunk step),
+// a key-tile walk over the query tiles of the KV head's query group.  bf16
 // inputs only; the f32 modes keep their CUDA-core kernels.  The kind
-// (sm90_common.cuh's Kind) sets the walk and the mask: RING_DIAGONAL is
-// causal on local indices, RING_FULL masks only past the chunk's end;
-// FLASH (K2/K3's causal backward over the whole sequence) takes the
-// diagonal's walk and mask and is not launched yet.
+// (sm90_common.cuh's Kind) sets the walk, the mask and the ends: FLASH
+// (K2/K3) and RING_DIAGONAL are causal (the same walk and mask; for the
+// ring on local indices), RING_FULL masks only past the chunk's end.  The
+// ring kinds read and write f32 accumulators (contiguous); FLASH starts
+// from zero and stores bf16 dq, dk and dv through the caller's strides,
+// each rounded once.
 //
-// What bounds them on the H100: operations.  Per query-key pair K12 does 3
-// products of depth D (S = Q K^T, dP = dO V^T, dQ += dS K) and K13 4
+// What bounds them on the H100: operations.  Per query-key pair dQ does 3
+// products of depth D (S = Q K^T, dP = dO V^T, dQ += dS K) and dK/dV 4
 // (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q), against
-// O(Lc * D) bytes; neither score matrix reaches device memory.
+// O(L * D) bytes; neither score matrix reaches device memory.
 //
 // Design (after FlashAttention-3's backward, split in two kernels as the
 //   TPU kernels are): blocks of 3 warpgroups.  Warpgroup 0 is the producer:
 //   it drops to 24 registers (setmaxnreg) and issues TMA loads
 //   (cp.async.bulk.tensor through sm90_common.cuh's 4-D maps over the
-//   strided [B, Lc, heads, D] views) into rings of shared-memory stages
+//   strided [B, L, heads, D] views) into rings of shared-memory stages
 //   with transaction-counted full barriers and empty barriers the
 //   consumers release.  Warpgroups 1 and 2 are the consumers (240
 //   registers); every product is a wgmma with the f32 sum in registers.
@@ -25,19 +29,20 @@
 //   one shared tile serves as a K-major operand of one product and an
 //   MN-major one (the transpose bit) of another.
 //
-//   K12: a block owns 128 query rows of one (b, query head), 64 a
+//   dQ: a block owns 128 query rows of one (b, query head), 64 a
 //   consumer.  The producer loads the Q and dO tiles once, then 64-key K
-//   and V tiles of the visiting chunk into a 3-stage ring, K and V with
-//   their own barriers.  Each consumer keeps its rows' lse and delta in
-//   registers and its rows of the f32 dq accumulator in the accumulator
-//   layout (loaded before the first key tile, stored after the last).  Per
+//   and V tiles (K12: of the visiting chunk) into a 3-stage ring, K and V
+//   with their own barriers.  Each consumer keeps its rows' lse and delta
+//   in registers and its rows of the f32 dq accumulator in the accumulator
+//   layout (K12 loads them before the first key tile, K2 starts from zero;
+//   stored after the last, K2's rounded to bf16).  Per
 //   key tile j it issues S_j and dP_j (SS, m64n64, K-major) and dQ_{j-1}
 //   += dS_{j-1} K_{j-1} (RS: dS from registers, K MN-major); P_j's exps
 //   overlap dP_j and dQ_{j-1}; V_j is released once dP_j is in, K_{j-1}
 //   once dQ_{j-1} is.  Query tiles are issued heaviest first (the grid's
 //   slow axis walks them from the last).
 //
-//   K13: a block owns 64 keys of one (b, KV head) and every query head of
+//   dK/dV: a block owns 64 keys of one (b, KV head) and every query head of
 //   its group.  The producer loads the block's K and V once; its warps 0
 //   and 1 feed one consumer each, with the (group head, 64-query tile)
 //   iterations split between the consumers by parity: per iteration the Q
@@ -47,21 +52,24 @@
 //   S^T and dP^T (SS, m64n64: K or V as A, Q or dO K-major as B), forms
 //   P^T while dP^T runs, then dS^T, and issues dV += P^T dO and dK +=
 //   dS^T Q together (RS, dO and Q MN-major); the other consumer's products
-//   cover its elementwise work.  Consumer 0 starts from the
-//   traveling dK/dV rows, consumer 1 from zero; at the end consumer 1
-//   hands its sums through its own (drained) stages in shared memory and
-//   consumer 0 adds them and stores the rows once.  Each block owns the
-//   rows it writes: no atomics, deterministic.  Key blocks are issued
-//   heaviest first (key block 0 sees every query tile on the diagonal).
+//   cover its elementwise work.  Consumer 0 starts from the traveling
+//   dK/dV rows (K3: from zero), consumer 1 from zero; at the end consumer
+//   1 hands its sums through its own (drained) stages in shared memory and
+//   consumer 0 adds them and stores the rows once (K3's rounded to bf16).
+//   Each block owns the rows it writes: no atomics, deterministic.  Key
+//   blocks are issued heaviest first (key block 0 sees every query tile on
+//   the diagonal).
 //
 // Numerics, as the plain versions: scores in base 2 (scale * log2(e),
 //   exp2, the lse in log2 space); a masked score's probability is 0 (the
-//   -1e30 of the plain versions); keys and queries at or past Lc are
+//   -1e30 of the plain versions); keys and queries at or past L are
 //   masked (TMA's zero fill is no mask); P is rounded to bf16 before
 //   P^T dO, dS = P (dP - delta) * scale to bf16 before dS K and dS^T Q;
-//   the KV head of query head h is h / (H / Hkv), read in place; K13 sums
-//   a group's query heads in f32 into the narrow dK/dV; rows at or past Lc
-//   are never stored.
+//   the KV head of query head h is h / (H / Hkv), read in place; dK/dV
+//   sum a group's query heads in f32 into the narrow dK/dV (FLASH rounds
+//   the sum to bf16 once); rows at or past L are never stored.  The lse
+//   is m + log2(l) in the scaled log2 space, as K1 writes it (with l
+//   clamped at 1e-30) and the ring's forward forms it.
 
 #pragma once
 
@@ -71,23 +79,27 @@ namespace sm90 {
 namespace bwd {
 
 constexpr int THREADS = 384;
-constexpr int BQ = 128;         // K12: query rows per block (64 per consumer)
-constexpr int BKV = 64;         // K12: keys per tile
-constexpr int DQ_STAGES = 3;    // K12: K/V stages
-constexpr int BK = 64;          // K13: keys per block
-constexpr int BQT = 64;         // K13: queries per tile
-constexpr int DKV_STAGES = 2;   // K13: Q/dO stages per consumer
+constexpr int BQ = 128;         // dQ: query rows per block (64 per consumer)
+constexpr int BKV = 64;         // dQ: keys per tile
+constexpr int DQ_STAGES = 3;    // dQ: K/V stages
+constexpr int BK = 64;          // dK/dV: keys per block
+constexpr int BQT = 64;         // dK/dV: queries per tile
+constexpr int DKV_STAGES = 2;   // dK/dV: Q/dO stages per consumer
 
 struct BwdParams {
-  int L, H, Hkv;  // L: the chunk length Lc
+  int L, H, Hkv;  // L: K2/K3's sequence length or K12/K13's chunk length Lc
   float scale_log2, scale;
   const float *lse, *delta;  // [B, H, L], contiguous
   float* dq;                 // K12: [B, L, H, D], contiguous
   float *dk, *dv;            // K13: [B, L, Hkv, D], contiguous
+  // K2: dq [B, L, H, D]; K3: dk, dv [B, L, Hkv, D]; bf16 through their
+  // (b, l, h) element strides.
+  __nv_bfloat16 *dq_out, *dk_out, *dv_out;
+  long long dq_sb, dq_sl, dq_sh, dk_sb, dk_sl, dk_sh, dv_sb, dv_sl, dv_sh;
 };
 
 // Whether the score of (query row, key) is masked: above the diagonal
-// (causal, local indices) or past the chunk's end.
+// (causal; for the ring, local indices) or past the end.
 template <bool CAUSAL>
 __device__ __forceinline__ bool masked(int row, int key, int L) {
   return (CAUSAL && key > row) || key >= L || row >= L;
@@ -105,7 +117,7 @@ struct DqSmem {
 template <int D>
 struct DkvSmem {
   using TT = TileGeom<D, 64>;
-  static_assert(BK == 64 && BQT == 64, "K13's tiles are 64 rows");
+  static_assert(BK == 64 && BQT == 64, "dK/dV's tiles are 64 rows");
   static constexpr int ROWS = 2 * BQT * 4;  // a stage's lse and delta
   // K and V, two consumers' Q/dO stages, their lse/delta, the barriers,
   // and room to align to 1024.
@@ -115,7 +127,7 @@ struct DkvSmem {
   static_assert(DKV_STAGES * 2 * TT::BYTES == 128 * D * 4, "the hand-over buffer");
 };
 
-// ------------------------------------------------------------------ K12
+// ------------------------------------------------------- dQ: K2, K12
 template <int D, int KIND>
 __global__ void __launch_bounds__(THREADS, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -197,8 +209,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     const long long r = static_cast<long long>(bh) * L + row;
     lse_r[half] = live ? p.lse[r] : 0.f;
     dl_r[half] = live ? p.delta[r] : 0.f;
-    const long long off = ((static_cast<long long>(b) * L + row) * H + h) * D;
-    acc_load_row<D>(dq, half, live ? p.dq + off : nullptr, t);
+    if constexpr (KIND == FLASH) {
+      acc_load_row<D>(dq, half, nullptr, t);  // K2 has no f32 dq to read
+    } else {
+      const long long off = ((static_cast<long long>(b) * L + row) * H + h) * D;
+      acc_load_row<D>(dq, half, live ? p.dq + off : nullptr, t);
+    }
   }
 
   const uint64_t q_desc = smem_desc(sQ + c * 64 * TQ::ROW_BYTES, 16, TQ::GROUP, TQ::SWIZZLE);
@@ -221,7 +237,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs<D>(dq, dsf[kk], db + TK::mnstep(kk));
   };
   // S of key tile j becomes P = exp2(S * scale_log2 - lse) in place; only a
-  // tile on the diagonal (causal) or reaching past Lc takes the masked path.
+  // tile on the diagonal (causal) or reaching past L takes the masked path.
   auto probs = [&](int j) {
     const bool edge = (CAUSAL && (j + 1) * BKV > q0 + c * 64) || (j + 1) * BKV > L;
     if (edge) {
@@ -298,12 +314,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + wr + g + half * 8;
-    if (row < L)
-      acc_store_row<D>(dq, half, p.dq + ((static_cast<long long>(b) * L + row) * H + h) * D, t);
+    if (row < L) {
+      if constexpr (KIND == FLASH)
+        acc_store_row_bf16<D>(dq, half, p.dq_out + b * p.dq_sb + h * p.dq_sh + row * p.dq_sl, t);
+      else
+        acc_store_row<D>(dq, half, p.dq + ((static_cast<long long>(b) * L + row) * H + h) * D, t);
+    }
   }
 }
 
-// ------------------------------------------------------------------ K13
+// ---------------------------------------------------- dK/dV: K3, K13
 template <int D, int KIND>
 __global__ void __launch_bounds__(THREADS, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -395,11 +415,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint32_t pf[BQT / 16][4], dsf[BQT / 16][4];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int key = k0 + wk + g + half * 8;
-    const long long off = ((static_cast<long long>(b) * L + key) * Hkv + hk) * D;
-    const bool in = c == 0 && key < L;  // consumer 0 carries the traveling rows
-    acc_load_row<D>(dk, half, in ? p.dk + off : nullptr, t);
-    acc_load_row<D>(dv, half, in ? p.dv + off : nullptr, t);
+    if constexpr (KIND == FLASH) {  // K3 starts from zero
+      acc_load_row<D>(dk, half, nullptr, t);
+      acc_load_row<D>(dv, half, nullptr, t);
+    } else {
+      const int key = k0 + wk + g + half * 8;
+      const long long off = ((static_cast<long long>(b) * L + key) * Hkv + hk) * D;
+      const bool in = c == 0 && key < L;  // consumer 0 carries the traveling rows
+      acc_load_row<D>(dk, half, in ? p.dk + off : nullptr, t);
+      acc_load_row<D>(dv, half, in ? p.dv + off : nullptr, t);
+    }
   }
 
   const uint64_t k_desc = smem_desc(sK, 16, TT::GROUP, TT::SWIZZLE);
@@ -505,9 +530,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int half = 0; half < 2; ++half) {
     const int key = key0 + half * 8;
     if (key >= L) continue;
-    const long long off = ((static_cast<long long>(b) * L + key) * Hkv + hk) * D;
-    acc_store_row<D>(dk, half, p.dk + off, t);
-    acc_store_row<D>(dv, half, p.dv + off, t);
+    if constexpr (KIND == FLASH) {
+      acc_store_row_bf16<D>(dk, half, p.dk_out + b * p.dk_sb + hk * p.dk_sh + key * p.dk_sl, t);
+      acc_store_row_bf16<D>(dv, half, p.dv_out + b * p.dv_sb + hk * p.dv_sh + key * p.dv_sl, t);
+    } else {
+      const long long off = ((static_cast<long long>(b) * L + key) * Hkv + hk) * D;
+      acc_store_row<D>(dk, half, p.dk + off, t);
+      acc_store_row<D>(dv, half, p.dv + off, t);
+    }
   }
 }
 
@@ -524,7 +554,8 @@ bool make_maps(CUtensorMap* m, const void* q, const void* k, const void* v, cons
          make_map<D>(&m[3], dout, B, p.L, p.H, st[9], st[10], st[11], q_rows);
 }
 
-// K12 of kind KIND: p.dq += this chunk pair's dQ.
+// dQ of kind KIND: K2 (FLASH) writes p.dq_out; K12 adds this chunk pair's
+// dQ into p.dq.
 template <int D, int KIND>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const long long* st,
               int B, const BwdParams& p, cudaStream_t stream) {
@@ -539,7 +570,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// K13 of kind KIND: p.dk, p.dv += this chunk pair's contribution.
+// dK/dV of kind KIND: K3 (FLASH) writes p.dk_out, p.dv_out; K13 adds this
+// chunk pair's contribution into p.dk, p.dv.
 template <int D, int KIND>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const long long* st,
                int B, const BwdParams& p, cudaStream_t stream) {

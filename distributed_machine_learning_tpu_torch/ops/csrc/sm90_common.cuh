@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the flash mainloops: the forward
-// (flash_fwd_sm90.cuh: K1, K11) and the backward (flash_bwd_sm90.cuh: K12,
-// K13).  mbarriers, TMA loads through 4-D tensor maps over strided
+// (flash_fwd_sm90.cuh: K1, K11) and the backward (flash_bwd_sm90.cuh: K2,
+// K3, K12, K13).  mbarriers, TMA loads through 4-D tensor maps over strided
 // [B, L, heads, D] bf16 views, named barriers, wgmma instructions and their
 // shared-memory descriptors, the geometry of a tile as TMA writes it, and
-// the load and store of f32 rows in the wgmma accumulator layout.
+// the load and store of f32 rows in the wgmma accumulator layout (the
+// store also rounded to bf16).
 
 #pragma once
 
@@ -156,6 +157,16 @@ __device__ __forceinline__ void acc_store_row(const float* a, int half, float* r
   for (int nd = 0; nd < N / 8; ++nd)
     *reinterpret_cast<float2*>(row + nd * 8 + 2 * t) =
         make_float2(a[4 * nd + 2 * half], a[4 * nd + 2 * half + 1]);
+}
+
+// The same row rounded to bf16 (once) into N contiguous bf16.
+template <int N>
+__device__ __forceinline__ void acc_store_row_bf16(const float* a, int half, __nv_bfloat16* row,
+                                                   int t) {
+#pragma unroll
+  for (int nd = 0; nd < N / 8; ++nd)
+    *reinterpret_cast<__nv_bfloat162*>(row + nd * 8 + 2 * t) =
+        __floats2bfloat162_rn(a[4 * nd + 2 * half], a[4 * nd + 2 * half + 1]);
 }
 
 // ------------------------------------------------------- wgmma wrappers

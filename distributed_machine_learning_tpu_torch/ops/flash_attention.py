@@ -192,7 +192,8 @@ def _check_kernel_inputs(dtype, D: int, **tensors) -> bool:
         if t.stride(-1) != 1:
             raise ValueError(f"flash kernel needs {name} with a contiguous "
                              f"last dim, got strides {t.stride()}")
-        # The bf16 kernels copy rows in 16-byte chunks.
+        # The bf16 kernels read through TMA maps: a 16-byte aligned base
+        # and strides in multiples of 16 bytes.
         if bf16 and (any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
             raise ValueError(f"flash kernel needs 16-byte aligned rows of "
                              f"{name}, got strides {t.stride()}")

@@ -191,6 +191,43 @@ def test_flash_backward_kernels_match_plain(cuda, L, H, Hkv, D, dtype):
         _close(got, want, tol, GRAD_ROW_FLOOR[dtype])
 
 
+def _flash_bwd_check(q, k, v, do):
+    """K2 and K3 (bf16) vs their plain version, with the plain forward's
+    lse and delta of q's rows, each launched once."""
+    out, lse = fa.flash_attention_reference(q, k, v, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    before = [build.launches[n] for n in names]
+    got = (fa._launch_dq(q, k, v, do, lse, delta), *fa._launch_dkv(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    assert [build.launches[n] - b for n, b in zip(names, before)] == [1, 1]
+    want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, BF16_TOL, GRAD_ROW_FLOOR[torch.bfloat16])
+
+
+# K2 and K3 (bf16) at lengths that end inside and at the edge of K2's
+# 128-row and K3's 64-row tiles (the kernels on the rows as they are: no
+# pad path).
+@pytest.mark.parametrize("L", [100, 127, 128, 129, 200])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 64), (8, 2, 128), (4, 2, 32)])
+def test_flash_backward_tile_edges(cuda, L, H, Hkv, D):
+    q, do = (torch.randn(2, L, H, D, device="cuda", generator=cuda).bfloat16() for _ in "ab")
+    k, v = (torch.randn(2, L, Hkv, D, device="cuda", generator=cuda).bfloat16() for _ in "ab")
+    _flash_bwd_check(q, k, v, do)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_backward_reads_gqa_slices(cuda, D):
+    """K2 and K3 with q, k, v as head slices of one fused GQA projection
+    and dO a head slice of a wider tensor."""
+    H, Hkv = 8, 2
+    x = torch.randn(2, 300, H + 2 * Hkv, D, device="cuda", generator=cuda).bfloat16()
+    y = torch.randn(2, 300, 2 * H, D, device="cuda", generator=cuda).bfloat16()
+    _flash_bwd_check(x[:, :, :H], x[:, :, H:H + Hkv], x[:, :, H + Hkv:], y[:, :, H:])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_gradients_through_autograd_padded(cuda, dtype):
     """A padded length (1100 → 1536) through the autograd Function, kernel
