@@ -10,8 +10,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the serving and training paths' shapes, with a stated tolerance (f32
    matmuls in the references: TF32 is switched off): K1 with its lse, K4
    in both modes (bf16, and int8 rows with f32 scales from the model's
-   quantized write, q bf16 at the serving shape and q f32 at a small one),
-   K6, K5, the flash backward pair K2 (dQ) and K3 (dK/dV) at the trainer's
+   quantized write, q bf16 at the serving shape at B 8 and B 1, at block
+   and split edges, and q f32 at a small one), K6 on its three routes
+   (decode R, prefill R and a ragged prefill R at every projection shape,
+   f32 x), K5, the flash backward pair K2 (dQ) and K3 (dK/dV) at the trainer's
    heads, in f32, at head dim 32, at a length ending inside their tiles
    and through the autograd Function at a padded length, and the fused
    AdamW K7 on f32, bf16 and ragged leaves (8 ulp); the ring flash chunk
@@ -29,9 +31,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (random weights from a seed, bf16) at batch 8 with a 4096-token prompt
    and 32 new tokens through ``make_generate_fn``: once in bf16, once with
    int8 weights.  Launch counts are zeroed just before and read just after
-   those two runs; each kernel must have run.  The logits of the first
-   step (prefill) and of the second (one decode step) are compared with
-   the same model on the plain path.
+   those two runs; each kernel must have run, and K6's calls by route
+   must be the int8 generate's: its 40 prefill projections on the wgmma
+   mainloop, the head and the decode steps on the skinny tile.  The logits
+   of the first step (prefill) and of the second (one decode step) are
+   compared with the same model on the plain path.
 4. Times each kernel (device time: a CUDA graph of the call replayed
    between CUDA events, after warm-up) beside its bound, its plain version
    and one PyTorch library call computing the same function; per mode,
@@ -212,19 +216,28 @@ PERTURBATIONS = {
         "flash_fwd", "if ((CAUSAL && key > row) || key >= L) val = NEG_INF;",
         "if ((CAUSAL && key > row - (KIND == FLASH && row >= BQ)) || key >= L) val = NEG_INF;",
         "flash_fwd_sm90.cuh"),
-    # The decode step leaves out the slot at the frontier (pos itself).
+    # The decode step leaves out the slot at the frontier (pos itself): the
+    # last split's walk stops one slot short.
     "decode-drop-frontier-slot": (
-        "decode_attention",
-        "sc[u][r] = base + sub + u * NWARPS * SPW <= pos ?",
-        "sc[u][r] = base + sub + u * NWARPS * SPW < pos ?"),
+        "decode_attention", "const int hi = min(pos, lo + chunk - 1);",
+        "const int hi = min(pos - 1, lo + chunk - 1);"),
+    # K4's combine leaves out the last split's partial.
+    "decode-drop-last-split": (
+        "decode_attention", "for (int s = 0; s < splits; ++s) {",
+        "for (int s = 0; s < splits - 1; ++s) {"),
     # K4's int8 mode ignores the V scales (dequantizes V by 1).
     "decode-int8-ignore-v-scale": (
         "decode_attention", "vsc[u] = C::QUANT ? __ldg(vsb + slot) : 1.f;",
         "vsc[u] = 1.f;"),
-    # The last split of the contraction skips its last K tile.
+    # The wgmma mainloop skips the last k-tile of the contraction (producer
+    # and consumers alike, so nothing waits on a tile never loaded).
     "int8-drop-last-ktile": (
-        "quant_matmul", "for (int kt = 0; kt < ktiles; ++kt) {",
-        "for (int kt = 0; kt < ktiles - (blockIdx.z + 1 == gridDim.z); ++kt) {"),
+        "quant_matmul", "const int nk = (D + WG_BK - 1) / WG_BK;  // k-tiles of the contraction",
+        "const int nk = max(1, (D + WG_BK - 1) / WG_BK - 1);"),
+    # The wgmma route's widening leaves each tile's last d-row at zero.
+    "int8-widen-drop-last-row": (
+        "quant_matmul", "raw[i] = *reinterpret_cast<const uint4*>(",
+        "raw[i] = r == WG_BK - 1 ? make_uint4(0u, 0u, 0u, 0u) : *reinterpret_cast<const uint4*>("),
     # The paged step reads logical block j as physical block j.
     "paged-ignore-table": (
         "paged_attention", "__ldg(table + page)", "page"),
@@ -749,45 +762,88 @@ def check_codec(torch, rc, rows: dict, timing: bool) -> None:
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library {lib}")
 
 
+# K4's check positions at S 4608 (both modes, B 8 and B 1): the first
+# slot, 512-slot block edges, the frontier of the main path's middle decode
+# step (4111), the last slot, and the edges of K4's split chunks there
+# (decode_split: B 8 cuts pos 4095 into 8 chunks of 512; B 1 cuts pos 4111
+# into 32 chunks of 129, pos 255 into 2 of 128).
+DECODE_POSITIONS = {8: (0, 511, 512, 2047, 2048, 4095, 4111, 4607), 1: (0, 255, 256, 4111)}
+
+
+def decode_split_line(da, B: int, Hkv: int, pos: int) -> str:
+    from distributed_machine_learning_tpu_torch.ops import build
+
+    splits, chunk = da.decode_split(B, Hkv, pos, build.sm_count(0))
+    return f"{splits} split(s) of {chunk} slots, {splits * Hkv * B} blocks"
+
+
+def time_decode(da, label: str, run, plain, library, B, H, Hkv, D, pos, nbytes: float,
+                flops: float) -> dict:
+    """K4 (either mode) at one shape: kernel, plain version and library
+    call timed, the bound, one log line."""
+    row = dict(ms=time_ms(run, iters=50), plain_ms=time_ms(plain),
+               library_ms=time_ms(library, iters=50) if library else None,
+               **bound(flops, F32_FLOPS, nbytes))
+    log(f"  {label} B={B} pos={pos} ({decode_split_line(da, B, Hkv, pos)}): "
+        f"{row['ms']:.4f} ms, {nbytes / row['ms'] / 1e6:.1f} GB/s, "
+        f"{row['bound_ms'] / row['ms']:.1%} of its {row['bound_ms']:.4f} ms bound"
+        + (f", {row['ms'] / row['library_ms']:.2f}x SDPA ({row['library_ms']:.4f} ms)"
+           if library else "")
+        + f"; plain {row['plain_ms']:.4f} ms")
+    return row
+
+
 def check_decode(torch, da, rows: dict, timing: bool) -> None:
-    B, S, H, Hkv, D = 8, 4608, 16, 4, 128
+    """K4 (bf16 caches) at the serving shape (B 8, S 4608, H 16/4, D 128)
+    and at B 1, at DECODE_POSITIONS, with the row gates.  Timed at the main
+    path's middle decode position beside its bytes bound, its plain version
+    and SDPA on the frontier's K/V repeated to every query head; B 8 is the
+    row of the kernels line, B 1 is logged."""
+    S, H, Hkv, D = 4608, 16, 4, 128
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
-    kc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
-    vc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
-    errs, failed = [], []
-    for pos in (0, 511, 512, 4095, 4607):
-        got = da.cached_flash_attention(q, kc, vc, pos)
-        torch.cuda.synchronize()
-        errs.append(compare(f"decode_attention B={B} S={S} pos={pos}", got,
-                            da.cached_attention_reference(q, kc, vc, pos), failed))
+    errs, failed, cases = [], [], {}
+    for B, positions in DECODE_POSITIONS.items():
+        q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
+        kc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+        vc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).bfloat16()
+        cases[B] = q, kc, vc
+        for pos in positions:
+            got = da.cached_flash_attention(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            errs.append(compare(f"decode_attention B={B} S={S} pos={pos} "
+                                f"({decode_split_line(da, B, Hkv, pos)})", got,
+                                da.cached_attention_reference(q, kc, vc, pos), failed))
     rows["decode_attention"] = {"max_abs_err": max(errs)}
     raise_failed(failed)
     if not timing:
         return
     pos = PROMPT + NEW_TOKENS // 2 - 1  # the middle decode step of the main path
     n = pos + 1
-    nbytes = 2 * B * Hkv * n * D * 2 + 2 * B * H * D * 2
-    flops = 4.0 * B * H * n * D  # f32 FMAs on the CUDA cores
-    kr = kc[:, :, :n].repeat_interleave(H // Hkv, 1).contiguous()
-    vr = vc[:, :, :n].repeat_interleave(H // Hkv, 1).contiguous()
-    qt = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows["decode_attention"].update(
-        ms=time_ms(lambda: da.cached_flash_attention(q, kc, vc, pos), iters=50),
-        plain_ms=time_ms(lambda: da.cached_attention_reference(q, kc, vc, pos)),
-        library_ms=time_ms(lambda: sdpa(qt, kr, vr), iters=50),
-        **bound(flops, F32_FLOPS, nbytes),
-        shape=f"B={B} S_alloc={S} H={H} Hkv={Hkv} D={D} bf16 pos={pos}, "
-              "one call per layer per decode step")
-    r = rows["decode_attention"]
-    log(f"  decode_attention pos={pos}: {r['ms']:.4f} ms, {nbytes / r['ms'] / 1e6:.1f} GB/s")
+    for B in (8, 1):
+        q, kc, vc = cases[B]
+        kr = kc[:, :, :n].repeat_interleave(H // Hkv, 1).contiguous()
+        vr = vc[:, :, :n].repeat_interleave(H // Hkv, 1).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        row = time_decode(
+            da, "decode_attention", lambda: da.cached_flash_attention(q, kc, vc, pos),
+            lambda: da.cached_attention_reference(q, kc, vc, pos),
+            lambda: sdpa(qt, kr, vr), B, H, Hkv, D, pos,
+            nbytes=2 * B * Hkv * n * D * 2 + 2 * B * H * D * 2,
+            flops=4.0 * B * H * n * D)  # f32 FMAs on the CUDA cores
+        if B == 8:
+            rows["decode_attention"].update(
+                **row, shape=f"B={B} S_alloc={S} H={H} Hkv={Hkv} D={D} bf16 pos={pos}, "
+                             "one call per layer per decode step")
 
 
 # K4's int8 mode in f32 (q f32, a small shape), kernel vs plain: both
 # dequantize each value in f32 the same way and keep P in f32, so only the
 # order of the f32 sums differs; per row (worst element / max|row|, rms).
 INT8_F32_TOL = (1e-4, 1e-5)
+# K6 with f32 x, kernel vs plain: the same bf16-exact products summed in f32
+# in another order (per row: worst element / max|row|, rms).
+GEMM_F32_TOL = (1e-4, 1e-4)
 
 
 def int8_cache(torch, B, Hkv, S, D, gen):
@@ -802,7 +858,7 @@ def int8_cache(torch, B, Hkv, S, D, gen):
 
 def check_decode_int8(torch, da, rows: dict, timing: bool) -> None:
     """K4's int8 mode at the serving shape (B 8, S 4608, H 16/4, D 128, q
-    bf16) at block edges and the frontier, with the row gates; q f32 at a
+    bf16) and at B 1, at DECODE_POSITIONS, with the row gates; q f32 at a
     small shape with INT8_F32_TOL.  Timed at the main path's middle decode
     position beside its bytes bound, its plain version and the
     scale-folding einsum on the same cache (no one PyTorch call computes
@@ -811,16 +867,19 @@ def check_decode_int8(torch, da, rows: dict, timing: bool) -> None:
         _cached_attention_quant,
     )
 
-    B, S, H, Hkv, D = 8, 4608, 16, 4, 128
+    S, H, Hkv, D = 4608, 16, 4, 128
     gen = torch.Generator(device="cuda").manual_seed(6)
-    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
-    kq, ks, vq, vs = int8_cache(torch, B, Hkv, S, D, gen)
-    errs, failed = [], []
-    for pos in (0, 511, 512, 2047, 2048, 4095, 4607):
-        got = da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs)
-        torch.cuda.synchronize()
-        errs.append(compare(f"decode_attention_int8 B={B} S={S} pos={pos}", got,
-                            da.cached_attention_reference(q, kq, vq, pos, ks, vs), failed))
+    errs, failed, cases = [], [], {}
+    for B, positions in DECODE_POSITIONS.items():
+        q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
+        kq, ks, vq, vs = int8_cache(torch, B, Hkv, S, D, gen)
+        cases[B] = q, kq, ks, vq, vs
+        for pos in positions:
+            got = da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            errs.append(compare(f"decode_attention_int8 B={B} S={S} pos={pos} "
+                                f"({decode_split_line(da, B, Hkv, pos)})", got,
+                                da.cached_attention_reference(q, kq, vq, pos, ks, vs), failed))
     small = int8_cache(torch, 2, 2, 1024, 64, gen)
     qf = torch.randn(2, 1, 8, 64, device="cuda", generator=gen)
     for pos in (0, 700, 1023):
@@ -836,23 +895,25 @@ def check_decode_int8(torch, da, rows: dict, timing: bool) -> None:
         return
     pos = PROMPT + NEW_TOKENS // 2 - 1  # the middle decode step of the main path
     n = pos + 1
-    nbytes = 2 * B * Hkv * n * (D + 4) + 2 * B * H * D * 2
-    flops = 4.0 * B * H * n * D + 2.0 * B * Hkv * n * D  # dots + dequantization
     positions = torch.tensor([pos], device="cuda")
-    rows["decode_attention_int8"].update(
-        ms=time_ms(lambda: da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs),
-                   iters=50),
-        plain_ms=time_ms(lambda: da.cached_attention_reference(q, kq, vq, pos, ks, vs)),
-        library_ms=None,
-        context_ms=time_ms(lambda: _cached_attention_quant(q, kq, ks, vq, vs, positions)),
-        **bound(flops, F32_FLOPS, nbytes),
-        shape=f"B={B} S_alloc={S} H={H} Hkv={Hkv} D={D} int8 + f32 scales, q bf16 "
-              f"pos={pos}, one call per layer per decode step below the break-even")
-    r = rows["decode_attention_int8"]
-    log(f"  decode_attention_int8 pos={pos}: {r['ms']:.4f} ms, {nbytes / r['ms'] / 1e6:.1f} "
-        f"GB/s, bound {r['bound_ms']:.4f} ms; no one PyTorch call computes it; the "
-        f"scale-folding einsum on the same cache (reads all {S} slots): "
-        f"{r['context_ms']:.4f} ms")
+    for B in (8, 1):
+        q, kq, ks, vq, vs = cases[B]
+        row = time_decode(
+            da, "decode_attention_int8",
+            lambda: da.cached_flash_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs),
+            lambda: da.cached_attention_reference(q, kq, vq, pos, ks, vs), None,
+            B, H, Hkv, D, pos, nbytes=2 * B * Hkv * n * (D + 4) + 2 * B * H * D * 2,
+            flops=4.0 * B * H * n * D + 2.0 * B * Hkv * n * D)  # dots + dequantization
+        row["context_ms"] = time_ms(lambda: _cached_attention_quant(q, kq, ks, vq, vs,
+                                                                    positions))
+        log(f"  decode_attention_int8 B={B}: no one PyTorch call computes it; the "
+            f"scale-folding einsum on the same cache (reads all {S} slots): "
+            f"{row['context_ms']:.4f} ms")
+        if B == 8:
+            rows["decode_attention_int8"].update(
+                **row, shape=f"B={B} S_alloc={S} H={H} Hkv={Hkv} D={D} int8 + f32 scales, "
+                             f"q bf16 pos={pos}, one call per layer per decode step below "
+                             "the break-even")
 
 
 # The card's crossover of the tiered int8 switch: K4's int8 mode (reads
@@ -916,9 +977,14 @@ def gemm_shapes():
 
 
 def check_int8(torch, qm, rows: dict, timing: bool) -> None:
+    """K6 against its plain version at every projection shape of the LM (and
+    its head) at decode R (8, the skinny route), prefill R (8 x 4096, the
+    wgmma route) and a ragged prefill R (8 x 4095: rows past R inside the
+    last 128-row tile), with the row gates; then timed over one forward's
+    GEMMs at both R."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs, failed = [], []
-    for R in (8, 32768):
+    for R in (BATCH, BATCH * PROMPT, BATCH * (PROMPT - 1)):
         for D, K in ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
                      (2048, 32000)):
             x = torch.randn(R, D, device="cuda", generator=gen).bfloat16()
@@ -926,8 +992,19 @@ def check_int8(torch, qm, rows: dict, timing: bool) -> None:
             q, s = qm.quantize_int8(w)
             got = qm.int8_matmul(x, q, s)
             torch.cuda.synchronize()
-            errs.append(compare(f"quant_matmul R={R} D={D} K={K}", got,
+            errs.append(compare(f"quant_matmul R={R} D={D} K={K} "
+                                f"({qm.int8_route(R, D, K)} route)", got,
                                 qm.int8_matmul_reference(x, q, s), failed))
+            del x, got
+    # f32 x (an f32 output, staged as f32 boxes) on the wgmma route, ragged
+    # in R and in K's last 256-column tile, and on the byte-staged tile.
+    for R, D, K in ((300, 512, 2064), (300, 512, 257)):
+        x = torch.randn(R, D, device="cuda", generator=gen)
+        q, s = qm.quantize_int8(torch.randn(D, K, device="cuda", generator=gen) / math.sqrt(D))
+        got = qm.int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        compare(f"quant_matmul f32 x R={R} D={D} K={K} ({qm.int8_route(R, D, K)} route)", got,
+                qm.int8_matmul_reference(x, q, s), failed, tol=GEMM_F32_TOL)
     raise_failed(failed)
     if not timing:
         rows["quant_matmul:decode_step"] = {"max_abs_err": max(errs)}
@@ -1134,8 +1211,12 @@ def generate_fns(models, new_tokens: int | None = None) -> dict:
 
 def run_main_path(torch, build, fns: dict, prompt, rows: dict) -> dict:
     """One generate per mode with the launch counts zeroed just before and
-    read just after; every kernel of the path must have run."""
+    read just after; every kernel of the path must have run, and K6 on the
+    routes the int8 generate's shapes call for."""
+    from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+
     build.reset_launch_counts()
+    qm.reset_route_calls()
     outs = {mode: fns[mode](prompt) for mode in ("bf16", "int8")}
     torch.cuda.synchronize()
     launches = dict(build.launches)
@@ -1147,6 +1228,15 @@ def run_main_path(torch, build, fns: dict, prompt, rows: dict) -> dict:
             raise AssertionError(f"{name}: {launches[name]} launches, want {n}")
     if launches["quant_matmul"] == 0:
         raise AssertionError("quant_matmul never launched on the int8 path")
+    # K6's routes on the int8 generate: the prefill's 5 projections a layer
+    # at R = B x prompt on the wgmma mainloop; the head (last position only)
+    # and every decode step's 41 GEMMs at R = B on the skinny tile.
+    routes = dict(qm.route_calls)
+    want_routes = {"wgmma": 5 * MODEL["n_layers"], "tile": 0,
+                   "skinny": 1 + (5 * MODEL["n_layers"] + 1) * (NEW_TOKENS - 1)}
+    log(f"main path int8 GEMM calls by route: {routes} (want {want_routes})")
+    if routes != want_routes or sum(routes.values()) != launches["quant_matmul"]:
+        raise AssertionError(f"quant_matmul routes {routes}, want {want_routes}")
     for name, n in launches.items():
         for key, row in rows.items():
             if key.split(":")[0] == name:
@@ -2039,11 +2129,12 @@ def run_vgg(torch, rows: dict) -> None:
         raise AssertionError("vgg: " + "; ".join(failed))
 
 
-def run_vgg_cli(torch) -> None:
+def run_vgg_cli(torch, backend: str | None = None) -> None:
     """part3 int8 through the real command: two processes of
     ``python -m distributed_machine_learning_tpu_torch.cli.part3`` with
     ``--master-ip/--rank/--num-nodes``; both exit 0 and rank 0 prints the
-    reference's protocol lines."""
+    reference's protocol lines (and, if ``backend`` is given, names it in
+    its banner)."""
     import os
     import socket
 
@@ -2071,7 +2162,8 @@ def run_vgg_cli(torch) -> None:
         f"rank 0: {lines}")
     want = ("strategy=ring world_size=2", "Loss at 20th batch is ", "Total execution time is",
             "Average execution time is", "Test set: Average loss")
-    if rcs != [0, 0] or not all(any(ln.startswith(w) for ln in lines) for w in want):
+    if rcs != [0, 0] or not all(any(ln.startswith(w) for ln in lines) for w in want) \
+            or (backend and f"backend={backend}" not in lines[0]):
         raise AssertionError(f"cli.part3: exit codes {rcs}; output tails "
                              f"{[o[-2000:] for o in outs]}")
 
@@ -2487,11 +2579,12 @@ def run_ring(torch, rows: dict) -> None:
         raise AssertionError("ring: " + "; ".join(failed))
 
 
-def run_ring_cli(torch) -> None:
+def run_ring_cli(torch, backend: str | None = None) -> None:
     """The ring path through the real command: RING_CLI["world"] processes
     of ``python -m distributed_machine_learning_tpu_torch.cli.lm --parallel
     ring --master-ip --rank --num-nodes`` (full width, cut to 2 layers);
-    every process exits 0 and rank 0 prints the protocol lines."""
+    every process exits 0 and rank 0 prints the protocol lines (and, if
+    ``backend`` is given, names it in its banner)."""
     import os
     import socket
 
@@ -2528,7 +2621,8 @@ def run_ring_cli(torch) -> None:
     want = (f"lm parallel=ring devices={world}", "Total execution time is",
             "Average execution time is")
     if rcs != [0] * world or not all(any(ln.startswith(w) for ln in lines) for w in want) \
-            or "attn=ring_flash" not in lines[0]:
+            or "attn=ring_flash" not in lines[0] \
+            or (backend and f"backend={backend}" not in lines[0]):
         raise AssertionError(f"cli.lm ring: exit codes {rcs}; output tails "
                              f"{[o[-2000:] for o in outs]}")
 
@@ -2700,11 +2794,12 @@ def main(argv=None) -> int:
     for name in build.SOURCES:
         log_file = build.BUILD_DIR / f"{name}.log"
         if log_file.exists():
-            # The Hopper mainloops' kernels (K1-K3, K11-K13) also name their
-            # entry and any ptxas warning (a serialized wgmma, an ignored
-            # setmaxnreg).
+            # The Hopper mainloops' kernels (K1-K3, K6, K11-K13) also name
+            # their entry and any ptxas warning (a serialized wgmma, an
+            # ignored setmaxnreg).
             keys = ("registers", "spill") + (("Compiling entry", "warning", "Performance")
-                                             if name in ("flash_fwd", "flash_bwd", "ring_flash")
+                                             if name in ("flash_fwd", "flash_bwd", "ring_flash",
+                                                         "quant_matmul")
                                              else ())
             for line in log_file.read_text().splitlines():
                 if any(k in line for k in keys):

@@ -18,18 +18,25 @@
 //   below the card's operations-per-byte balance.  The time is those bytes
 //   at the memory rate, so reads must stop at the frontier and be wide.
 //
-// Design: one block of 8 warps per (batch row, kv head); the block serves
-//   the kv head's whole group of query heads, so each K/V byte is read
-//   once for all of them and repeated K/V never exist.  Slots are walked
-//   only up to pos (the frontier clamp of the TPU kernel: O(pos) reads, not
-//   O(allocated cache)); nothing past pos is loaded, so no mask is needed.
+// Design (flash-decoding): the TPU kernel walks the slots in a sequential
+//   grid; here the slots 0..pos of each (batch row, kv head) are cut into
+//   `splits` contiguous chunks of `chunk` slots, one block of 8 warps each:
+//   grid (split, kv head, batch row).  The wrapper sizes the split from
+//   pos + 1 (ops/decode_attention.py, decode_split): about two blocks per SM,
+//   each chunk at least 128 slots, so B = 8 x Hkv = 4 runs 256 blocks, not
+//   32, and B = 1 up to 132, not 4.  A block serves the kv head's whole
+//   group of query heads, so each K/V byte is read once for all of them and
+//   repeated K/V never exist.  Slots are walked only up to pos (the
+//   frontier clamp of the TPU kernel: O(pos) reads, not O(allocated
+//   cache)); nothing past pos is loaded, so no mask is needed.
 //   One slot's D values are read by a group of lanes with 16-byte vector
 //   loads (D=128: 16 lanes for bf16, 32 for f32, 8 for int8), the dot with
 //   each query head is reduced across the group by warp shuffles, and each
 //   lane carries an online-softmax state (m, l, acc) in f32, in base 2.
 //   Each warp keeps UNROLL slots per lane group in flight per step (8; 4
-//   for int8, whose lanes hold twice the values); their scores are
-//   computed side by side and the running max moves once per step.
+//   for int8, whose lanes hold twice the values; half that for a group of
+//   8 query heads); their scores are computed side by side and the
+//   running max moves once per step.
 //   bf16/f32: q is cast to the cache dtype before the dot (by the wrapper),
 //   as the TPU kernel does; p is rounded to the cache dtype before it
 //   weights V, as the TPU kernel's P V dot does.  int8: every lane loads
@@ -38,9 +45,11 @@
 //   adds no rounding beyond the int8 storage; q is widened to f32 and p
 //   stays f32 (the TPU kernel's dequantized V is f32).  At the end the
 //   per-group and per-warp states are merged (through shared memory across
-//   warps) and out = acc / max(l, 1e-30) is written in the output dtype.
-//   No split of the slots across blocks yet: at B = 8 and Hkv = 4 only 32
-//   blocks run, on a card of 132 SMs.
+//   warps).  With one split the block writes out = acc / max(l, 1e-30) in
+//   the output dtype; with more, it writes its f32 (m, l, unnormalised acc)
+//   to a workspace, a block whose chunk is empty writes m = -1e30, l = 0,
+//   and a small combine kernel merges the splits in split order (so the
+//   result does not depend on which block ran first) and writes out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,11 +114,19 @@ struct Cache<int8_t> {
   static constexpr int N = 16;
   static constexpr int UNROLL = 4;
   static constexpr bool QUANT = true;
-  // Dequantize in f32: value * the slot's scale (both exact in f32).
+  // Dequantize in f32: value * the slot's scale (both exact in f32).  The
+  // value is made without the quarter-rate int-to-float conversion: byte
+  // b, biased to u = b + 128, goes under the exponent of 2^23 (the f32
+  // 2^23 + u, one byte permute), and one exact subtraction of 2^23 + 128
+  // leaves b.
   __device__ __forceinline__ static void widen(const uint4& raw, float scale, float* out) {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                           raw.w ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(c[i]) * scale;
+    for (int i = 0; i < 16; ++i) {
+      const float biased = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7440 + i % 4));
+      out[i] = (biased - 8388736.f) * scale;
+    }
   }
   __device__ __forceinline__ static float round(float x) { return x; }
 };
@@ -121,14 +138,19 @@ __device__ __forceinline__ uint4 load16(const void* p) {
 // TC: cache element; TQ: query element (TC itself for bf16/f32 caches: the
 // wrapper casts q; bf16 or f32 for int8 caches); TO: output element.
 // ks/vs: the int8 mode's [B, Hkv, S] f32 scales (unused otherwise).
+// part (more than one split): acc [splits, B*H, D], then m [splits, B*H],
+// then l [splits, B*H], all f32; null: write out directly.
 template <typename TC, typename TQ, typename TO, int D, int REP>
 __global__ void __launch_bounds__(NWARPS * 32)
     decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
                   const float* __restrict__ ks, const float* __restrict__ vs,
-                  TO* __restrict__ out, int H, int Hkv, int S, int pos, float scale_log2) {
+                  TO* __restrict__ out, float* __restrict__ part, int H, int Hkv, int S, int pos,
+                  int chunk, float scale_log2) {
   using C = Cache<TC>;
   constexpr int VEC = C::N;
-  constexpr int UNROLL = C::UNROLL;
+  // A group of 8 query heads holds 8 q and 8 acc slices a lane: half the
+  // slots in flight keep the step's loads and scores in registers.
+  constexpr int UNROLL = REP == 8 ? C::UNROLL / 2 : C::UNROLL;
   constexpr int LPS = D / VEC;   // lanes per slot
   constexpr int SPW = 32 / LPS;  // slots per warp per load
   static_assert(D % VEC == 0 && LPS <= 32 && 32 % LPS == 0, "head dim");
@@ -139,7 +161,9 @@ __global__ void __launch_bounds__(NWARPS * 32)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int li = lane % LPS, sub = lane / LPS;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int lo = split * chunk;
+  const int hi = min(pos, lo + chunk - 1);  // the last slot this block reads
   const size_t row_off = (static_cast<size_t>(b) * Hkv + hk) * S;
   const TC* kb = kc + row_off * D + li * VEC;
   const TC* vb = vc + row_off * D + li * VEC;
@@ -165,14 +189,14 @@ __global__ void __launch_bounds__(NWARPS * 32)
 
   constexpr int STEP = NWARPS * SPW * UNROLL;
   // The loop bound is uniform across the warp (every lane must reach the
-  // shuffles below); a lane group whose slot is past pos skips its update.
-  for (int base = warp * SPW; base <= pos; base += STEP) {
+  // shuffles below); a lane group whose slot is past hi skips its update.
+  for (int base = lo + warp * SPW; base <= hi; base += STEP) {
     uint4 kraw[UNROLL], vraw[UNROLL];  // all loads of the step issued before any use
     float ksc[UNROLL], vsc[UNROLL];    // the slots' scales (int8 mode; else unused)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int slot = base + sub + u * NWARPS * SPW;
-      if (slot <= pos) {
+      if (slot <= hi) {
         kraw[u] = load16(kb + static_cast<size_t>(slot) * D);
         vraw[u] = load16(vb + static_cast<size_t>(slot) * D);
         ksc[u] = C::QUANT ? __ldg(ksb + slot) : 1.f;
@@ -211,7 +235,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
       float mx = NEG_INF;
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        sc[u][r] = base + sub + u * NWARPS * SPW <= pos ? sc[u][r] * scale_log2 : NEG_INF;
+        sc[u][r] = base + sub + u * NWARPS * SPW <= hi ? sc[u][r] * scale_log2 : NEG_INF;
         mx = fmaxf(mx, sc[u][r]);
       }
       const float m_new = fmaxf(m[r], mx);
@@ -223,7 +247,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      if (base + sub + u * NWARPS * SPW > pos) continue;
+      if (base + sub + u * NWARPS * SPW > hi) continue;
       float vf[VEC];
       C::widen(vraw[u], vsc[u], vf);
 #pragma unroll
@@ -268,6 +292,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
     }
   }
   __syncthreads();
+  const size_t rows = static_cast<size_t>(gridDim.z) * H;
   for (int idx = threadIdx.x; idx < REP * D; idx += NWARPS * 32) {
     const int r = idx / D, d = idx % D;
     float mx = NEG_INF;
@@ -280,25 +305,56 @@ __global__ void __launch_bounds__(NWARPS * 32)
       lsum += sm_l[w][r] * a;
       asum += sm_acc[w][r][d] * a;
     }
-    out[(static_cast<size_t>(b) * H + hk * REP + r) * D + d] =
-        from_float<TO>(asum / fmaxf(lsum, 1e-30f));
+    const size_t row = static_cast<size_t>(b) * H + hk * REP + r;
+    if (part == nullptr) {
+      out[row * D + d] = from_float<TO>(asum / fmaxf(lsum, 1e-30f));
+    } else {
+      const size_t prow = split * rows + row;
+      part[prow * D + d] = asum;
+      if (d == 0) {
+        float* part_m = part + gridDim.x * rows * D;
+        part_m[prow] = mx;
+        part_m[gridDim.x * rows + prow] = lsum;
+      }
+    }
   }
+}
+
+// One block per output row (batch row, query head): merge the splits'
+// partials in split order and write acc / max(l, 1e-30).
+template <typename TO>
+__global__ void combine_kernel(const float* __restrict__ part, TO* __restrict__ out, int rows,
+                               int splits) {
+  const int row = blockIdx.x, D = blockDim.x, d = threadIdx.x;
+  const float* part_m = part + static_cast<size_t>(splits) * rows * D;
+  const float* part_l = part_m + static_cast<size_t>(splits) * rows;
+  float mx = NEG_INF;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_m[s * rows + row]);
+  float lsum = 0.f, asum = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float a = exp2f(part_m[s * rows + row] - mx);
+    lsum += part_l[s * rows + row] * a;
+    asum += part[(static_cast<size_t>(s) * rows + row) * D + d] * a;
+  }
+  out[static_cast<size_t>(row) * D + d] = from_float<TO>(asum / fmaxf(lsum, 1e-30f));
 }
 
 struct Args {
   const void *q, *k, *v;
   const float *ks, *vs;
   void* out;
-  int B, H, Hkv, S, D, pos;
+  float* part;
+  int B, H, Hkv, S, D, pos, chunk, splits;
   float scale_log2;
   cudaStream_t stream;
 };
 
 template <typename TC, typename TQ, typename TO, int D, int REP>
 void launch(const Args& a) {
-  decode_kernel<TC, TQ, TO, D, REP><<<dim3(a.Hkv, a.B), NWARPS * 32, 0, a.stream>>>(
+  decode_kernel<TC, TQ, TO, D, REP><<<dim3(a.splits, a.Hkv, a.B), NWARPS * 32, 0, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k), static_cast<const TC*>(a.v),
-      a.ks, a.vs, static_cast<TO*>(a.out), a.H, a.Hkv, a.S, a.pos, a.scale_log2);
+      a.ks, a.vs, static_cast<TO*>(a.out), a.splits > 1 ? a.part : nullptr, a.H, a.Hkv, a.S,
+      a.pos, a.chunk, a.scale_log2);
 }
 
 template <typename TC, typename TQ, typename TO, int D>
@@ -310,11 +366,19 @@ int launch_rep(const Args& a) {
     case 8: launch<TC, TQ, TO, D, 8>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
+  combine_kernel<TO><<<a.B * a.H, D, 0, a.stream>>>(a.part, static_cast<TO*>(a.out), a.B * a.H,
+                                                     a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TC, typename TQ, typename TO>
 int launch_d(const Args& a) {
+  if (a.splits < 1 || a.chunk < 1 ||
+      static_cast<long long>(a.chunk) * a.splits < static_cast<long long>(a.pos) + 1 ||
+      (a.splits > 1 && a.part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.D == 32) return launch_rep<TC, TQ, TO, 32>(a);
   if (a.D == 64) return launch_rep<TC, TQ, TO, 64>(a);
   if (a.D == 128) return launch_rep<TC, TQ, TO, 128>(a);
@@ -326,13 +390,17 @@ int launch_d(const Args& a) {
 // bf16/f32 mode.  q [B, 1, H, D] in the cache dtype, caches [B, Hkv, S, D],
 // out [B, 1, H, D], all contiguous; the caches bf16 if is_bf16 else f32;
 // out f32 if out_f32 (or the cache is f32), else bf16.  Attends slots
-// 0..pos.  Returns the cudaError_t of the launch; cudaErrorInvalidValue for
-// an unsupported head dim or group size.
-extern "C" int decode_attention(const void* q, const void* k, const void* v, void* out, int B,
-                                int H, int Hkv, int S, int D, int pos, int is_bf16,
-                                int out_f32, float scale_log2, void* stream) {
-  const Args a{q, k, v, nullptr, nullptr, out, B, H, Hkv, S, D, pos, scale_log2,
-               static_cast<cudaStream_t>(stream)};
+// 0..pos, cut into `splits` chunks of `chunk` slots (chunk * splits > pos);
+// with splits > 1, `workspace` is f32 scratch of splits * B * H * (D + 2)
+// values.  Returns the cudaError_t of the launches; cudaErrorInvalidValue
+// for an unsupported head dim or group size, or a split that does not
+// cover the slots.
+extern "C" int decode_attention(const void* q, const void* k, const void* v, void* out,
+                                void* workspace, int B, int H, int Hkv, int S, int D, int pos,
+                                int chunk, int splits, int is_bf16, int out_f32,
+                                float scale_log2, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, out, static_cast<float*>(workspace), B, H, Hkv, S, D,
+               pos, chunk, splits, scale_log2, static_cast<cudaStream_t>(stream)};
   if (!is_bf16) return launch_d<float, float, float>(a);
   if (out_f32) return launch_d<__nv_bfloat16, __nv_bfloat16, float>(a);
   return launch_d<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a);
@@ -340,13 +408,15 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, voi
 
 // int8 mode.  q [B, 1, H, D] bf16 if q_bf16 else f32, int8 caches
 // [B, Hkv, S, D], f32 scales k_scale/v_scale [B, Hkv, S], out [B, 1, H, D]
-// in q's dtype, all contiguous.  Attends slots 0..pos.
+// in q's dtype, all contiguous.  Attends slots 0..pos, split as the
+// bf16/f32 mode's.
 extern "C" int decode_attention_int8(const void* q, const void* k, const void* v,
                                      const float* k_scale, const float* v_scale, void* out,
-                                     int B, int H, int Hkv, int S, int D, int pos, int q_bf16,
+                                     void* workspace, int B, int H, int Hkv, int S, int D,
+                                     int pos, int chunk, int splits, int q_bf16,
                                      float scale_log2, void* stream) {
-  const Args a{q, k, v, k_scale, v_scale, out, B, H, Hkv, S, D, pos, scale_log2,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, k_scale, v_scale, out, static_cast<float*>(workspace), B, H, Hkv, S, D,
+               pos, chunk, splits, scale_log2, static_cast<cudaStream_t>(stream)};
   if (q_bf16) return launch_d<int8_t, __nv_bfloat16, __nv_bfloat16>(a);
   return launch_d<int8_t, float, float>(a);
 }

@@ -9,32 +9,66 @@
 //   the point (half the bytes of bf16).  Prefill has R = batch * prompt
 //   (32k): 2*R*D*K operations at the bf16 tensor-core rate.
 //
-// Design: one templated tiled kernel, two tile shapes picked by R.  Tiles
-//   of x (bf16) and of q (int8, still int8 in shared memory: the smem and
-//   global traffic stay at one byte per weight) are staged by cp.async in
-//   a multi-stage ring.  Each warp widens its int8 B fragments to bf16 in
-//   registers (exact: every int8 is a bf16) and runs mma.sync
-//   m16n8k16 bf16 with f32 accumulators.  The per-column f32 scale is
-//   applied once in the epilogue, as in the TPU kernel.  Ragged R and K
-//   are masked in the kernel (cp.async zero-fill on loads, guarded
-//   stores), so no operand is padded in device memory.  A K that is not a
-//   multiple of 16 (a byte-level vocabulary of 257 in the LM head) leaves
-//   q's rows unaligned for 16-byte copies: that variant stages q byte by
-//   byte and stores column by column.  Decode (R <= 16)
-//   takes a skinny 16 x 64 tile and, where the columns alone give too few
-//   blocks to keep enough weight bytes in flight, also splits the
-//   contraction D across blocks: each writes an f32 partial and a second,
-//   small kernel sums the partials, scales and casts.  Prefill takes a
-//   wide 128 x 128 tile for operand reuse.  No wgmma/TMA yet.
+// Three routes, chosen by the caller (ops/quant_matmul.py, int8_route) and
+// passed in:
+//
+// - WGMMA (R > 16 and K % 16 == 0: prefill; every projection of the
+//   repo's LM).  A Hopper mainloop: one block of 3 warpgroups owns a
+//   128 x 256 output tile.  Warpgroup 0 is the producer: it drops to 24
+//   registers (setmaxnreg) and one thread issues TMA loads (2-D tensor
+//   maps) of the x tile (bf16 [128 rows][64], K-major, 128-byte swizzle)
+//   and of the q tile (int8 [64 d-rows][256 columns] as two 128-byte-wide
+//   swizzled boxes) into a 4-stage ring, one transaction-counted full
+//   barrier and one empty barrier (released by the 8 consumer warps) a
+//   stage.  TMA zero-fills rows past R, columns past K and depth past D,
+//   so no operand is padded in memory.  Warpgroups 1 and 2 are the
+//   consumers (240 registers), 64 rows each.  They also widen: tensor
+//   cores read bf16 operands only, so the int8 tile is rewritten in shared
+//   memory as bf16 (exact: every int8 is a bf16), as the MN-major B
+//   operand of wgmma (the transpose bit: [64 d-rows][64 columns] atoms of
+//   128-byte rows with the 128-byte swizzle, four atoms side by side), into
+//   one of 3 widened buffers.  The consumers widen tile j + 1 while their
+//   wgmma of tile j runs (wgmma is asynchronous), each thread four
+//   16-byte pieces a tile with two permutes, four logic ops and two bf16
+//   adds per 4 values.  Why the consumers: their 8 warps share the work,
+//   where the producer warpgroup has 3 spare warps, too few to keep pace
+//   with the tensor cores (the block cannot grow past 384 threads: an
+//   m64n256 accumulator needs 154 registers a thread when ptxas compiles
+//   the kernel).  The widening stores are made visible to the async proxy
+//   (fence.proxy.async) and a named barrier over the 256 consumer threads
+//   hands the widened tile to both warpgroups; the same barrier tells the
+//   widening of tile j + 2 that both warpgroups' wgmma of tile j - 1 are
+//   done with that buffer.  Each consumer runs wgmma m64n256k16 (bf16 ->
+//   f32) from shared memory, one commit group a tile with one in flight.
+//   What holds it back is shared memory: a k-tile moves 160 KB through it
+//   (TMA's 32 KB in, wgmma's 80 KB of operand reads, the widening's 16 KB
+//   read and 32 KB written) against 112 KB for a bf16-weight GEMM.
+//   Epilogue: the per-column f32 scale once, the cast, the tile staged in
+//   shared memory over the drained x and int8 stages and written by TMA
+//   stores, which clip rows past R and columns past K.  The grid's fast
+//   axis walks the column tiles, so the blocks in flight share x's row
+//   tiles in L2.
+// - SKINNY (R <= 16: decode).  A 16 x 64 mma.sync tile over cp.async
+//   stages of x and of q kept int8 in shared memory (one byte a weight in
+//   flight), widened to bf16 in registers; where the columns alone give
+//   too few blocks to keep enough weight bytes in flight, the contraction
+//   D is split across blocks: each writes an f32 partial and a second,
+//   small kernel sums the partials, scales and casts.
+// - TILE (R > 16 and K % 16 != 0: a byte-level vocabulary of 257 in an LM
+//   head): q's rows are not 16-byte aligned, so neither TMA nor 16-byte
+//   copies can stage them; a 128 x 128 mma.sync tile stages q byte by
+//   byte and stores column by column.
 //
 // Requires: D % 8 == 0 (16-byte x rows), 16-byte aligned base pointers,
 //   row-major contiguous operands.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
+
+using namespace sm90;
+
+// ------------------------------------------------------------ mma.sync tiles
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -227,15 +261,13 @@ __global__ void w8a16_reduce(const float* __restrict__ partial, const float* __r
   }
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int STAGES>
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool VEC_Q>
 void launch(const void* x, const void* q, const void* scale, void* out, float* partial, int R,
             int D, int K, int out_bf16, int splits, cudaStream_t stream) {
   const int ktiles = (D + BK - 1) / BK;
   const int per_split = (ktiles + splits - 1) / splits;
   dim3 grid((K + BN - 1) / BN, (R + BM - 1) / BM, (ktiles + per_split - 1) / per_split);
-  auto kernel = K % 16 == 0 ? w8a16_kernel<BM, BN, BK, WM, WN, STAGES, true>
-                            : w8a16_kernel<BM, BN, BK, WM, WN, STAGES, false>;
-  kernel<<<grid, WM * WN * 32, 0, stream>>>(
+  w8a16_kernel<BM, BN, BK, WM, WN, STAGES, VEC_Q><<<grid, WM * WN * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(scale), out, splits > 1 ? partial : nullptr, R, D, K, out_bf16,
       per_split);
@@ -246,24 +278,324 @@ void launch(const void* x, const void* q, const void* scale, void* out, float* p
   }
 }
 
+// ------------------------------------------------------------ wgmma route
+
+constexpr int WG_BM = 128;                    // output rows a block (64 a consumer)
+constexpr int WG_BN = 256;                    // output columns a block
+constexpr int WG_BK = 64;                     // depth a k-tile: one 128-byte bf16 row of x
+constexpr int WG_RAW = 4;                     // stages of (x, int8 q) tiles
+constexpr int WG_WIDE = 3;                    // widened bf16 q buffers
+constexpr int WG_THREADS = 384;              // a producer warpgroup, 2 consumers
+constexpr int X_BYTES = WG_BM * WG_BK * 2;    // [128 rows][64 bf16], 128-byte swizzle
+constexpr int Q8_BOX = WG_BK * 128;           // [64 d-rows][128 int8], 128-byte swizzle
+constexpr int Q8_BYTES = WG_BN / 128 * Q8_BOX;
+constexpr int QB_ATOM = WG_BK * 128;          // [64 d-rows][64 bf16], 128-byte swizzle
+constexpr int QB_BYTES = WG_BN / 64 * QB_ATOM;
+constexpr int OUT_BOX = WG_BM * 128;          // [128 rows][128 bytes] of output, 128-byte swizzle
+constexpr int WG_SMEM = WG_RAW * (X_BYTES + Q8_BYTES) + WG_WIDE * QB_BYTES + 16 * WG_RAW + 1024;
+static_assert(WG_SMEM <= 232448, "shared memory of one block");
+// The output tile (f32: 128 KB) is staged in the x and int8 stages.
+static_assert(WG_BN / 32 * OUT_BOX <= WG_RAW * (X_BYTES + Q8_BYTES), "output staging");
+
+// One TMA box of a 2-D map, coordinates (inner, outer), completion counted
+// on ``bar``.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// One TMA box from shared memory to a 2-D map at (inner, outer); the
+// out-of-range part of the box is not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int inner,
+                                             int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// Wait for the barrier's phase of parity ``parity``, the retry loop inside
+// the asm.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// Generic-proxy stores to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x 256] += A[64 x 16] B[16 x 256]: A K-major, B MN-major (the
+// transpose bit), both from shared memory.
+__device__ __forceinline__ void wgmma_n256_tb(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 4 int8 weights (one word) -> two bf16x2 words, exactly.  A byte b goes
+// under a 0x43 high byte (bf16 0x43bb); its low 7 bits m give the bf16
+// 128 + m, its sign bit s the bf16 -128 - 128 s, and one bf16 add gives
+// m - 128 s = b.
+__device__ __forceinline__ uint32_t biased_to_bf16x2(uint32_t t) {
+  const uint32_t mag = t & 0xFF7FFF7Fu;
+  const uint32_t off = (t & 0x00800080u) | 0xC300C300u;
+  const __nv_bfloat162 v = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = biased_to_bf16x2(__byte_perm(w, 0x43434343u, 0x4140));
+  hi = biased_to_bf16x2(__byte_perm(w, 0x43434343u, 0x4342));
+}
+
+// OUT_BF16: the output (and its map ``to``) is bf16, else f32.
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap to, const float* __restrict__ scale,
+                       int D, int K) {
+  extern __shared__ unsigned char w8_smem[];
+  const uint32_t base = (smem_u32(w8_smem) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
+  unsigned char* const gbase = w8_smem + (base - smem_u32(w8_smem));
+  const uint32_t sX = base, sQ8 = sX + WG_RAW * X_BYTES, sQB = sQ8 + WG_RAW * Q8_BYTES;
+  const uint32_t bars = sQB + WG_WIDE * QB_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (WG_RAW + s); };
+  const int row0 = blockIdx.y * WG_BM, col0 = blockIdx.x * WG_BN;
+  const int nk = (D + WG_BK - 1) / WG_BK;  // k-tiles of the contraction
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_RAW; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % WG_RAW;
+        if (j >= WG_RAW) bar_wait(empty(s), (j / WG_RAW - 1) & 1);
+        mbar_expect_tx(full(s), X_BYTES + Q8_BYTES);
+        tma_load_2d(sX + s * X_BYTES, &tx, full(s), j * WG_BK, row0);
+#pragma unroll
+        for (int b = 0; b < WG_BN / 128; ++b)
+          tma_load_2d(sQ8 + s * Q8_BYTES + b * Q8_BOX, &tq, full(s), col0 + b * 128, j * WG_BK);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1;              // this consumer's 64 rows: c * 64 .. c * 64 + 63 of the tile
+    const int ct = threadIdx.x - 128;  // 0..255 over both consumers
+    const int warp = (ct % 128) / 32, lane = ct % 32;
+
+    // Widen k-tile j's int8 q (raw stage j % WG_RAW) into the bf16 buffer
+    // j % WG_WIDE, the 256 consumer threads together.  A unit is one d-row
+    // and 16 columns: 16 bytes in, 32 out; four units a thread, loads
+    // issued together.  Lanes 0-7 of a warp take 8 consecutive d-rows of
+    // one column group, so under the 128-byte swizzle (16-byte piece p of
+    // row r at p ^ (r % 8)) their loads and stores hit 8 distinct bank
+    // groups.
+    auto widen = [&](int j) {
+      const unsigned char* src = gbase + (sQ8 - base) + (j % WG_RAW) * Q8_BYTES;
+      unsigned char* dst = gbase + (sQB - base) + (j % WG_WIDE) * QB_BYTES;
+      uint4 raw[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = ct + i * 256;
+        const int r = (u & 7) | ((u >> 7) << 3), c16 = (u >> 3) & 15;
+        raw[i] = *reinterpret_cast<const uint4*>(src + (c16 >> 3) * Q8_BOX + r * 128 +
+                                                 (((c16 & 7) ^ (r & 7)) << 4));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = ct + i * 256;
+        const int r = (u & 7) | ((u >> 7) << 3), c16 = (u >> 3) & 15;
+        uint4 lo, hi;
+        widen4(raw[i].x, lo.x, lo.y);
+        widen4(raw[i].y, lo.z, lo.w);
+        widen4(raw[i].z, hi.x, hi.y);
+        widen4(raw[i].w, hi.z, hi.w);
+        unsigned char* row = dst + (c16 >> 2) * QB_ATOM + r * 128;
+        const int p = (c16 & 3) * 2;  // the two 16-byte pieces of these 16 columns
+        *reinterpret_cast<uint4*>(row + ((p ^ (r & 7)) << 4)) = lo;
+        *reinterpret_cast<uint4*>(row + (((p + 1) ^ (r & 7)) << 4)) = hi;
+      }
+    };
+
+    // Descriptors: x K-major (a k-step of 16 adds 32 bytes inside the
+    // swizzled row), the widened q MN-major (the leading offset steps
+    // between 64-column atoms, a k-step adds 16 rows of 128 bytes); the
+    // stride offset is 8 rows of 128 bytes for both.
+    const uint64_t x_desc = smem_desc(sX + c * 64 * 128, 16, 1024, 1);
+    const uint64_t q_desc = smem_desc(sQB, QB_ATOM, 1024, 1);
+
+    float acc[WG_BN / 2];
+#pragma unroll
+    for (int i = 0; i < WG_BN / 2; ++i) acc[i] = 0.f;
+
+    bar_wait(full(0), 0);
+    widen(0);
+    fence_async_smem();
+    named_sync(1);
+    for (int j = 0; j < nk; ++j) {
+      uint64_t dx = x_desc + (((j % WG_RAW) * X_BYTES) >> 4);
+      uint64_t dq = q_desc + (((j % WG_WIDE) * QB_BYTES) >> 4);
+      fence_regs<WG_BN / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_n256_tb(acc, dx + ((kk * 32) >> 4), dq + ((kk * 16 * 128) >> 4));
+      wgmma_commit();
+      if (j + 1 < nk) {  // tile j + 1 is widened while tile j's products run
+        bar_wait(full((j + 1) % WG_RAW), ((j + 1) / WG_RAW) & 1);
+        widen(j + 1);
+        fence_async_smem();  // the stores, visible to wgmma's reads
+      }
+      wgmma_wait<1>();  // tile j - 1's products are done: release its x and int8 stage
+      fence_regs<WG_BN / 2>(acc);
+      if (j > 0 && lane == 0) mbar_arrive(empty((j - 1) % WG_RAW));
+      named_sync(1);  // tile j + 1 widened by all; both consumers done with tile j - 1
+    }
+    wgmma_wait<0>();
+    fence_regs<WG_BN / 2>(acc);
+
+    // Epilogue: the per-column scale, the cast, and the tile staged in
+    // shared memory as TMA-store boxes of [128 rows][128 bytes] in 128-byte
+    // swizzle atoms (64 bf16 or 32 f32 columns a box), over the x and int8
+    // stages: every load has landed, and after this barrier both
+    // consumers' products are done.  The accumulator layout (wgmma m64nN,
+    // f32): element i of a thread is row g + 8 * ((i >> 1) & 1) of its
+    // warp's 16 and column (i >> 2) * 8 + 2t + (i & 1); under the swizzle
+    // a warp's 8 rows hit 8 distinct bank groups.  TMA clips the rows past
+    // R and the columns past K.
+    named_sync(1);
+    const int g = lane >> 2, t = lane & 3;
+    const int r_top = c * 64 + warp * 16 + g;  // the tile row of the thread's first element
+#pragma unroll
+    for (int nd = 0; nd < WG_BN / 8; ++nd) {
+      const int n = col0 + nd * 8 + 2 * t;
+      const float2 s = n < K ? *reinterpret_cast<const float2*>(scale + n) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r_top + half * 8;
+        const float v0 = acc[4 * nd + 2 * half] * s.x;
+        const float v1 = acc[4 * nd + 2 * half + 1] * s.y;
+        if constexpr (OUT_BF16) {  // box nd / 8, 16-byte piece nd % 8, bytes 4t
+          *reinterpret_cast<__nv_bfloat162*>(gbase + (nd >> 3) * OUT_BOX + r * 128 +
+                                              (((nd & 7) ^ (r & 7)) << 4) + 4 * t) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {  // box nd / 4, piece 2 (nd % 4) + t / 2, bytes 8 (t % 2)
+          *reinterpret_cast<float2*>(gbase + (nd >> 2) * OUT_BOX + r * 128 +
+                                     (((2 * (nd & 3) + (t >> 1)) ^ (r & 7)) << 4) +
+                                     8 * (t & 1)) = make_float2(v0, v1);
+        }
+      }
+    }
+    fence_async_smem();
+    named_sync(1);
+    if (ct == 0) {
+      constexpr int COLS = OUT_BF16 ? 64 : 32;  // columns a box
+#pragma unroll
+      for (int b = 0; b < WG_BN / COLS; ++b)
+        if (col0 + b * COLS < K) tma_store_2d(&to, base + b * OUT_BOX, col0 + b * COLS, row0);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // smem read out
+    }
+  }
+}
+
+// The 2-D map of a row-major [outer, inner] matrix with ``row_bytes``
+// between rows, boxes of [box_outer][box_inner] in 128-byte swizzle atoms
+// (box_inner elements make 128 bytes); out-of-range elements read as zero
+// and are not written.
+bool make_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int inner,
+                 int outer, long long row_bytes, int box_inner, int box_outer) {
+  EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool OUT_BF16>
+int launch_wgmma(const void* x, const void* q, const void* scale, void* out, int R, int D, int K,
+                 cudaStream_t stream) {
+  CUtensorMap tx, tq, to;
+  if (!make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, D, R, 2LL * D, WG_BK, WG_BM) ||
+      !make_map_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, D, K, 128, WG_BK) ||
+      !make_map_2d(&to, out,
+                   OUT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                   K, R, (OUT_BF16 ? 2LL : 4LL) * K, OUT_BF16 ? 64 : 32, WG_BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (int err = set_smem_once(w8a16_wgmma_kernel<OUT_BF16>, WG_SMEM, configured)) return err;
+  dim3 grid((K + WG_BN - 1) / WG_BN, (R + WG_BM - 1) / WG_BM);
+  w8a16_wgmma_kernel<OUT_BF16><<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      tx, tq, to, static_cast<const float*>(scale), D, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Route { SKINNY = 0, TILE = 1, WGMMA = 2 };
+
 }  // namespace
 
 // x [R, D] bf16, q [D, K] int8, scale [K] f32 -> out [R, K] (bf16 when
-// out_bf16, else f32).  R <= 16 takes the skinny tile, and with splits > 1
-// its contraction is cut into that many slices (more blocks in flight for
-// the weight stream), each writing f32 partials to `workspace`
+// out_bf16, else f32), on the route ``route`` (0 skinny, 1 tile, 2 wgmma;
+// see the header).  On the skinny route, splits > 1 cuts the contraction
+// into that many slices, each writing f32 partials to ``workspace``
 // ([splits, R, K], allocated by the caller) that a second kernel sums,
-// scales and casts.  Larger R takes the wide tile, unsplit.  Returns the
-// cudaError_t of the launches.
+// scales and casts.  Returns the cudaError_t of the launches;
+// cudaErrorInvalidValue for an unknown route, a wgmma route with K % 16
+// != 0, or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int w8a16_matmul(const void* x, const void* q, const void* scale, void* out,
                             void* workspace, int R, int D, int K, int out_bf16, int splits,
-                            void* stream) {
+                            int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
-  if (R <= 16) {
-    launch<16, 64, 64, 1, 4, 4>(x, q, scale, out, ws, R, D, K, out_bf16, splits, s);
-  } else {
-    launch<128, 128, 32, 2, 4, 3>(x, q, scale, out, nullptr, R, D, K, out_bf16, 1, s);
+  switch (route) {
+    case SKINNY:
+      if (K % 16 == 0) {
+        launch<16, 64, 64, 1, 4, 4, true>(x, q, scale, out, ws, R, D, K, out_bf16, splits, s);
+      } else {
+        launch<16, 64, 64, 1, 4, 4, false>(x, q, scale, out, ws, R, D, K, out_bf16, splits, s);
+      }
+      break;
+    case TILE:
+      launch<128, 128, 32, 2, 4, 3, false>(x, q, scale, out, nullptr, R, D, K, out_bf16, 1, s);
+      break;
+    case WGMMA:
+      if (K % 16) return static_cast<int>(cudaErrorInvalidValue);
+      return out_bf16 ? launch_wgmma<true>(x, q, scale, out, R, D, K, s)
+                      : launch_wgmma<false>(x, q, scale, out, R, D, K, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,9 @@ CPU tensors through :func:`cached_attention_reference` and
 PyTorch.
 
 K4's position is a host int: the port tracks the decode frontier on the
-host (``start + L`` is known there), so a step needs no device sync.
+host (``start + L`` is known there), so a step needs no device sync, and
+the split of slots 0..pos across blocks (:func:`decode_split`) is chosen
+from it.
 K5's positions are a device tensor, one per lane; its split of each
 lane's slots across blocks is chosen from the table width, which the
 host knows.
@@ -31,11 +33,15 @@ from distributed_machine_learning_tpu_torch.ops import build
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 KERNEL = "decode_attention"
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 INT8_KERNEL = "decode_attention_int8"
-_INT8_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+_INT8_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_void_p])
+# Fewest slots one block of K4 walks when a row's slots are split across
+# blocks (K4's block step at head dim 128 is 128 slots; below it the
+# per-block merge and the combine cost more than they save).
+DECODE_MIN_CHUNK = 128
 # S-block targets of the reference (decode_attention.py:214): int8 caches
 # stream bigger blocks; the plain version walks the same blocks, so it sums
 # in the reference's order.
@@ -116,6 +122,33 @@ def cached_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def decode_split(B: int, Hkv: int, pos: int, n_sms: int) -> tuple[int, int]:
+    """``(splits, chunk)``: how many blocks share the slots 0..pos of one
+    (batch row, kv head) of K4 and how many contiguous slots each walks.
+    As many splits as keep every block in one wave of about two blocks per
+    SM (``2·n_sms // (B·Hkv)``, at least 1), but no chunk under
+    :data:`DECODE_MIN_CHUNK` slots (one split holds them all when there are
+    fewer); ``chunk·splits >= pos + 1``.  Reads nothing of the card but
+    its SM count."""
+    n = pos + 1
+    want = max(1, 2 * n_sms // (B * Hkv))
+    splits = max(1, min(want, n // DECODE_MIN_CHUNK))
+    return splits, -(-n // splits)
+
+
+def _split_workspace(q: torch.Tensor, Hkv: int,
+                     pos: int) -> tuple[int, int, torch.Tensor | None]:
+    """K4's ``(splits, chunk)`` for this call and its f32 scratch, allocated
+    per call (per split: the partial acc [B·H, D], then m and l [B·H]; the
+    kernel writes every value before the combine reads it); None with one
+    split."""
+    B, _, H, D = q.shape
+    splits, chunk = decode_split(B, Hkv, pos, build.sm_count(q.device))
+    workspace = (torch.empty(splits * B * H * (D + 2), dtype=torch.float32,
+                             device=q.device) if splits > 1 else None)
+    return splits, chunk, workspace
+
+
 def _check_launch(q: torch.Tensor, H: int, Hkv: int, D: int, tensors: tuple) -> None:
     if D not in (32, 64, 128) or H // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"decode kernel supports head dim 32/64/128 and group "
@@ -143,9 +176,11 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     out_f32 = q.dtype == torch.float32
     out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else dtype,
                       device=q.device)
+    splits, chunk, workspace = _split_workspace(q, Hkv, pos)
     fn = build.function(KERNEL, "decode_attention", _ARGTYPES)
     status = fn(qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                out.data_ptr(), B, H, Hkv, S, D, pos,
+                out.data_ptr(), None if workspace is None else workspace.data_ptr(),
+                B, H, Hkv, S, D, pos, chunk, splits,
                 int(dtype == torch.bfloat16), int(out_f32), (1.0 / math.sqrt(D)) * LOG2E,
                 build.stream_handle(q.device))
     build.check(status, KERNEL)
@@ -168,10 +203,12 @@ def _launch_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     _check_launch(q, H, Hkv, D, (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                                  ("k_scale", k_scale), ("v_scale", v_scale)))
     out = torch.empty_like(q)
+    splits, chunk, workspace = _split_workspace(q, Hkv, pos)
     fn = build.function(KERNEL, "decode_attention_int8", _INT8_ARGTYPES)
     status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-                B, H, Hkv, S, D, pos, int(q.dtype == torch.bfloat16),
+                None if workspace is None else workspace.data_ptr(),
+                B, H, Hkv, S, D, pos, chunk, splits, int(q.dtype == torch.bfloat16),
                 (1.0 / math.sqrt(D)) * LOG2E, build.stream_handle(q.device))
     build.check(status, INT8_KERNEL)
     build.count_launch(INT8_KERNEL)

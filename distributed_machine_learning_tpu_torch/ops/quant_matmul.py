@@ -2,8 +2,10 @@
 
 Counterpart of ``distributed_machine_learning_tpu/ops/pallas/quant_matmul.py``
 (``int8_matmul`` over ``_kernel``, and ``quantize_int8``).  CUDA tensors go
-through the hand-written kernel ``csrc/quant_matmul.cu``; CPU tensors
-through :func:`int8_matmul_reference`.  Both cast x to bf16, widen the
+through the hand-written kernel ``csrc/quant_matmul.cu``, on the route
+:func:`int8_route` names (the wgmma mainloop for prefill, an mma.sync tile
+for decode or for columns not a multiple of 16); CPU tensors through
+:func:`int8_matmul_reference`.  Both cast x to bf16, widen the
 int8 weights to bf16 exactly, accumulate in f32, scale each output column
 in f32 and return ``x.dtype``.
 
@@ -20,9 +22,32 @@ import torch
 from distributed_machine_learning_tpu_torch.ops import build
 
 KERNEL = "quant_matmul"
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # The kernel's skinny (decode) tile: rows, columns and contraction depth.
 SKINNY_R, SKINNY_N, SKINNY_D = 16, 64, 64
+# The kernel's routes, in the C entry point's numbering (csrc/quant_matmul.cu):
+# the skinny mma.sync tile (decode), the 128 x 128 mma.sync tile that stages
+# q byte by byte (columns not a multiple of 16), the wgmma/TMA mainloop.
+ROUTES = ("skinny", "tile", "wgmma")
+# Calls per route since the last reset (one per kernel call, as
+# ``build.launches["quant_matmul"]`` counts them).
+route_calls: dict[str, int] = dict.fromkeys(ROUTES, 0)
+
+
+def int8_route(R: int, D: int, K: int) -> str:
+    """The kernel route of an [R, D] x [D, K] product: ``"skinny"`` for R <=
+    16 (decode); ``"wgmma"`` when K % 16 == 0 (TMA needs 16-byte rows of q);
+    else ``"tile"`` (a byte-level LM head, vocab 257).  D takes no part: every
+    route needs D % 8 == 0, which the wrapper checks."""
+    del D
+    if R <= SKINNY_R:
+        return "skinny"
+    return "wgmma" if K % 16 == 0 else "tile"
+
+
+def reset_route_calls() -> None:
+    for name in route_calls:
+        route_calls[name] = 0
 
 
 def split_count(R: int, D: int, K: int, n_sms: int) -> int:
@@ -72,16 +97,18 @@ def _launch(x: torch.Tensor, q: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int8 kernel needs contiguous 16-byte aligned {name}")
     out = torch.empty((R, K), dtype=x.dtype, device=x.device)
+    route = int8_route(R, D, K)
     splits = split_count(R, D, K, build.sm_count(x.device))
     workspace = (torch.empty((splits, R, K), dtype=torch.float32, device=x.device)
                  if splits > 1 else None)
     fn = build.function(KERNEL, "w8a16_matmul", _ARGTYPES)
     status = fn(xb.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
                 None if workspace is None else workspace.data_ptr(),
-                R, D, K, int(x.dtype == torch.bfloat16), splits,
+                R, D, K, int(x.dtype == torch.bfloat16), splits, ROUTES.index(route),
                 build.stream_handle(x.device))
     build.check(status, KERNEL)
     build.count_launch(KERNEL)
+    route_calls[route] += 1
     return out
 
 
@@ -89,8 +116,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """[R, D] × int8 [D, K] × f32 scale [K] → [R, K] in x's dtype.
 
-    On CUDA tensors: the W8A16 kernel (ragged R and K masked inside it);
-    on CPU tensors: the plain version."""
+    On CUDA tensors: the W8A16 kernel on the route :func:`int8_route`
+    names (ragged R and K handled inside it); on CPU tensors: the plain
+    version."""
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0] \
             or scale.shape != (q.shape[1],):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, q "

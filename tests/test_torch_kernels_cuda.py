@@ -476,6 +476,54 @@ def test_int8_kernel_matches_plain(cuda, R, D, K, dtype):
            BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+# The wgmma mainloop (R > 16, K % 16 == 0): ragged R (8 x 4095, 300, 17),
+# the LM's fc_out depth (D 8192), a depth under one k-tile (D 40), a ragged
+# last column tile (K 2064) and the vocabulary head (K 32000).
+@pytest.mark.parametrize("R,D,K", [(8 * 4095, 2048, 1024), (300, 8192, 2048),
+                                   (8 * 4095, 8192, 2048), (300, 2048, 32000),
+                                   (4100, 2048, 2064), (17, 40, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_wgmma_route_matches_plain(cuda, R, D, K, dtype):
+    assert qm.int8_route(R, D, K) == "wgmma"
+    x = torch.randn(R, D, device="cuda", generator=cuda).to(dtype)
+    q, s = qm.quantize_int8(
+        torch.randn(D, K, device="cuda", generator=cuda) / math.sqrt(D))
+    before = dict(qm.route_calls)
+    got = qm.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qm.route_calls["wgmma"] == before["wgmma"] + 1
+    assert got.dtype == dtype and got.shape == (R, K)
+    _close(got, qm.int8_matmul_reference(x, q, s),
+           BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
+# K4 split across blocks (decode_split), both modes, at B 1 and 8: pos 0,
+# the first split edges (127/128: one chunk; 255/256: two), a chunk's last
+# slot at 32 chunks of 128 (4095), the main path's middle decode step
+# (4111) and, at S 32768, a long frontier and the last slot.
+@pytest.mark.parametrize("S,pos", [(4608, 0), (4608, 127), (4608, 128), (4608, 255),
+                                   (4608, 256), (4608, 4095), (4608, 4111),
+                                   (32768, 20000), (32768, 32767)])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_decode_split_kernel_matches_plain(cuda, mode, B, S, pos):
+    H, Hkv, D = 16, 4, 128
+    q = torch.randn(B, 1, H, D, device="cuda", generator=cuda).bfloat16()
+    if mode == "int8":
+        kq, ks, vq, vs = _int8_cache(cuda, B, Hkv, S, D)
+        args, name = (q, kq, vq, pos, ks, vs), "decode_attention_int8"
+    else:
+        kc = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda).bfloat16()
+        vc = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda).bfloat16()
+        args, name = (q, kc, vc, pos), "decode_attention"
+    scales = dict(k_scale=args[4], v_scale=args[5]) if mode == "int8" else {}
+    before = build.launches[name]
+    got = da.cached_flash_attention(*args[:4], **scales)
+    torch.cuda.synchronize()
+    assert build.launches[name] == before + 1  # one per call, the combine included
+    _close(got, da.cached_attention_reference(*args), BF16_TOL)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn(4, 4, 2, 48, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="head dim"):

@@ -50,3 +50,26 @@ def test_wrapper_rejects_shape_mismatch():
         port.int8_matmul(torch.zeros(3, 32), q, torch.ones(128))
     with pytest.raises(ValueError, match="shape mismatch"):
         port.int8_matmul(torch.zeros(3, 64), q, torch.ones(64))
+
+
+# K6's routes: decode R (8) on the skinny tile, prefill R (8 x 4096) and a
+# ragged prefill R (8 x 4095) on the wgmma mainloop when K % 16 == 0 (every
+# projection of the LM: 2048, and the vocabulary head 32000), and on the
+# byte-staged tile for a byte-level head (257) or K 40.
+@pytest.mark.parametrize("R", [8, 16, 17, 32768, 8 * 4095])
+@pytest.mark.parametrize("K", [2048, 1024, 2064, 32000, 257, 40])
+def test_int8_route(R, K):
+    route = port.int8_route(R, 2048, K)
+    want = "skinny" if R <= 16 else ("wgmma" if K % 16 == 0 else "tile")
+    assert route == want and route in port.ROUTES
+    assert all(port.int8_route(R, D, K) == route for D in (8, 512, 8192))  # D takes no part
+
+
+def test_route_calls_count_only_kernel_launches():
+    """The route counters move where the kernel launches, not on the CPU
+    path (the plain version)."""
+    port.reset_route_calls()
+    x = torch.zeros(32, 64)
+    q = torch.zeros(64, 32, dtype=torch.int8)
+    port.int8_matmul(x, q, torch.ones(32))
+    assert port.route_calls == dict.fromkeys(port.ROUTES, 0)
