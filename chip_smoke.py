@@ -238,13 +238,26 @@ PERTURBATIONS = {
     "int8-widen-drop-last-row": (
         "quant_matmul", "raw[i] = *reinterpret_cast<const uint4*>(",
         "raw[i] = r == WG_BK - 1 ? make_uint4(0u, 0u, 0u, 0u) : *reinterpret_cast<const uint4*>("),
-    # The paged step reads logical block j as physical block j.
+    # The decode (skinny) route drops the last stage (k16 block) of the
+    # contraction.
+    "int8-skinny-drop-last-ktile": (
+        "quant_matmul",
+        "const int nkb = (D + 15) / 16;", "const int nkb = (D + 15) / 16 - 1;"),
+    # The skinny route's cluster reduction leaves out the last block's slice.
+    "int8-skinny-drop-split": (
+        "quant_matmul", "for (int s = 0; s < splits; ++s) {",
+        "for (int s = 0; s < splits - 1; ++s) {"),
+    # The paged step stages logical block j as physical block j.
     "paged-ignore-table": (
-        "paged_attention", "__ldg(table + page)", "page"),
+        "paged_attention", "tables[static_cast<size_t>(w) * MB + p0 + i]", "p0 + i"),
     # The paged step leaves out the slot at each lane's frontier.
     "paged-drop-frontier-slot": (
-        "paged_attention", "const int hi = min(pos, lo + chunk - 1);",
-        "const int hi = min(pos - 1, lo + chunk - 1);"),
+        "paged_attention", "const int hi = min(s_n[w] - 1, lo + chunk - 1);",
+        "const int hi = min(s_n[w] - 2, lo + chunk - 1);"),
+    # The merge of a split lane leaves out its last unit.
+    "paged-drop-last-unit": (
+        "paged_attention", "const int nb = min(G::MERGE_UNITS, cw - b0);",
+        "const int nb = min(G::MERGE_UNITS, cw - b0 - 1);"),
     # K2 leaves out each query row's diagonal key tile (the 64 keys that
     # hold its own).  K2 and K3 run on the backward header's FLASH kind,
     # beside the ring's K12 and K13; these two faults are K2's and K3's
@@ -304,18 +317,28 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+_CAPTURE_STREAM = None  # time_ms's warm-up and capture stream, made on first use
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device ms of one ``fn()``: captured once in a CUDA graph and replayed
     ``iters`` times between CUDA events, so the Python and launch overhead
     of the wrappers is not in the number (the host side is timed end to end
-    by ``time_serving``)."""
+    by ``time_serving``).  The warm-up runs on the capture stream, so state
+    a wrapper keeps per stream (K5's arrival counters) exists before the
+    capture and the graph holds the kernels alone."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    global _CAPTURE_STREAM
+    if _CAPTURE_STREAM is None:
+        _CAPTURE_STREAM = torch.cuda.Stream()
+    _CAPTURE_STREAM.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(_CAPTURE_STREAM):
+        for _ in range(warmup):
+            fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=_CAPTURE_STREAM):
         fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
@@ -1175,8 +1198,8 @@ def time_paged(torch, da, rows: dict, step) -> None:
             q.transpose(1, 2), kd.repeat_interleave(rep, 1), vd.repeat_interleave(rep, 1),
             attn_mask=mask[:, None, None, :])
 
-    log(f"  context, two PyTorch calls (gather of the pages + SDPA): "
-        f"{time_ms(gather_sdpa, iters=20):.4f} ms")
+    r["context_ms"] = time_ms(gather_sdpa, iters=20)
+    log(f"  context, two PyTorch calls (gather of the pages + SDPA): {r['context_ms']:.4f} ms")
 
 
 def make_models(torch, pkg):

@@ -429,7 +429,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A4 "
+                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A5 "
                 f"'--parallel ulysses'); use one of {_ATTN_IMPLS}")
         if kv_cache_dtype is not None and kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be None or one of {KV_CACHE_DTYPES}, "

@@ -16,9 +16,10 @@ K4's position is a host int: the port tracks the decode frontier on the
 host (``start + L`` is known there), so a step needs no device sync, and
 the split of slots 0..pos across blocks (:func:`decode_split`) is chosen
 from it.
-K5's positions are a device tensor, one per lane; its split of each
-lane's slots across blocks is chosen from the table width, which the
-host knows.
+K5's positions are a device tensor, one per lane; the kernel plans its
+work units from them on the card (:func:`paged_units` models the plan),
+on a grid and with a workspace that :func:`paged_plan` sizes from what the
+host knows: the lanes, the kv heads and the table's width.
 """
 
 from __future__ import annotations
@@ -48,11 +49,16 @@ DECODE_MIN_CHUNK = 128
 BLOCK_TARGET = 512
 INT8_BLOCK_TARGET = 2048
 PAGED_KERNEL = "paged_attention"
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
-# Fewest slots one block of the paged kernel walks when a lane's slots are
-# split across blocks (below it the per-block merge costs more than it saves).
-PAGED_MIN_CHUNK = 128
+# The paged kernel's plan, as csrc/paged_attention.cu fixes it: a unit's
+# slots are cut into tiles of PAGED_TILE (one ring stage); a unit holds at
+# least PAGED_MIN_CHUNK slots (a tile for each of its 4 warps) and at most
+# the slots whose pages fit its PAGED_TABLE staged table entries; at most
+# PAGED_MAX_LANES lanes.
+PAGED_TILE, PAGED_MIN_CHUNK, PAGED_TABLE, PAGED_MAX_LANES = 16, 64, 512, 1024
+# Blocks of the paged kernel per SM (two fit at D 128 in bf16).
+PAGED_BLOCKS_PER_SM = 2
 
 
 def pick_block_s(S: int, target: int = BLOCK_TARGET) -> int | None:
@@ -266,15 +272,50 @@ def cached_flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def paged_split(W: int, Hkv: int, table_slots: int, n_sms: int) -> tuple[int, int]:
-    """``(splits, chunk)``: how many blocks share one (lane, kv head) of the
-    paged kernel and how many slots each walks.  Enough splits that a batch
-    whose lanes reach the end of their tables gives about four blocks per
-    SM, each walking at least :data:`PAGED_MIN_CHUNK` slots; blocks whose
-    chunk starts past their lane's frontier exit at once."""
-    want = -(-4 * n_sms // (W * Hkv))
-    splits = max(1, min(want, -(-table_slots // PAGED_MIN_CHUNK)))
-    return splits, -(-table_slots // splits)
+def paged_chunk_cap(bs: int) -> int:
+    """Most slots one unit may hold: a multiple of :data:`PAGED_TILE` whose
+    pages (at most (chunk - 1) // bs + 2 of them) fit the staged table."""
+    return ((PAGED_TABLE - 2) * bs + 1) // PAGED_TILE * PAGED_TILE
+
+
+def paged_plan(W: int, Hkv: int, MB: int, bs: int, n_sms: int) -> tuple[int, int, int]:
+    """``(grid, target, max_units)`` of the paged kernel for W lanes, Hkv kv
+    heads and tables of MB blocks of bs slots: ``grid`` blocks (two per SM,
+    fewer when the table cannot give that many units), planning about
+    ``target`` units (``grid`` less one unit per (lane, kv head) for the
+    lanes' ragged last chunks), and ``max_units``, the most units any
+    positions can give (the workspace's size): a lane's units number
+    ceil(n / chunk) <= n / chunk + 1, and the chunk is at least the live
+    slots over ``target``, or else capped at :func:`paged_chunk_cap`."""
+    slots = MB * bs
+    most = W * Hkv * -(-slots // PAGED_MIN_CHUNK)
+    grid = max(1, min(PAGED_BLOCKS_PER_SM * n_sms, most))
+    target = max(grid - W * Hkv, (grid + 1) // 2)
+    capped = -(-W * Hkv * slots // paged_chunk_cap(bs))
+    return grid, target, min(most, W * Hkv + max(target, capped))
+
+
+def paged_units(positions, Hkv: int, MB: int, bs: int,
+                n_sms: int) -> list[tuple[int, int, int, int]]:
+    """The paged kernel's plan, in Python: its units ``(lane, kv head, lo,
+    hi)`` in the order the kernel numbers them (unit u goes to block u mod
+    grid).  Positions are clamped into the table; lane w's n = pos + 1
+    slots are cut into chunks of a size every block derives from the sum
+    of n over the lanes, and the units of a lane run over its kv heads,
+    then its chunks."""
+    W = len(positions)
+    slots = MB * bs
+    _, target, _ = paged_plan(W, Hkv, MB, bs, n_sms)
+    ns = [min(max(int(p), 0), slots - 1) + 1 for p in positions]
+    want = -(-Hkv * sum(ns) // target)
+    chunk = min(paged_chunk_cap(bs),
+                max(PAGED_MIN_CHUNK, -(-want // PAGED_TILE) * PAGED_TILE))
+    units = []
+    for w, n in enumerate(ns):
+        for hk in range(Hkv):
+            for lo in range(0, n, chunk):
+                units.append((w, hk, lo, min(n - 1, lo + chunk - 1)))
+    return units
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -319,6 +360,33 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     return out.reshape(W, 1, H, D).to(q.dtype)
 
 
+# The paged kernel's arrival counters, one per (lane, kv head), per stream:
+# zero between calls (the last unit of a split lane resets its counter), so
+# a call needs no memset.  Calls in one stream run in order, so they never
+# share a counter in flight; calls on two streams get two buffers.  A buffer
+# outgrown by more lanes or heads is kept, never freed: a CUDA graph
+# captured earlier still holds its address.  A buffer made while a graph is
+# captured is zeroed by that graph's own memset before each replay of the
+# call, and is not kept: outside the graph it would hold garbage until the
+# graph first ran.  (So warm up on the capture stream, as torch.cuda.graph
+# advises, and the graph reuses that stream's buffer with no memset.)
+_counters: dict = {}
+_outgrown: list = []
+
+
+def _paged_counters(device, stream: int, n: int) -> torch.Tensor:
+    have = _counters.get((device, stream))
+    if have is not None and have.numel() >= n:
+        return have
+    fresh = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return fresh
+    if have is not None:
+        _outgrown.append(have)
+    _counters[(device, stream)] = fresh
+    return fresh
+
+
 def _paged_launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                   block_tables: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
@@ -339,18 +407,21 @@ def _paged_launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             raise ValueError(f"paged kernel needs contiguous 16-byte aligned {name}")
     if not (block_tables.is_contiguous() and positions.is_contiguous()):
         raise ValueError("paged kernel needs contiguous block_tables and positions")
-    splits, chunk = paged_split(W, Hkv, MB * bs, build.sm_count(q.device))
+    if W > PAGED_MAX_LANES:
+        raise ValueError(f"paged kernel takes at most {PAGED_MAX_LANES} lanes, got {W}")
+    grid, target, max_units = paged_plan(W, Hkv, MB, bs, build.sm_count(q.device))
     out = torch.empty_like(q)
-    # Per split: f32 partial acc [W·H, D], then running max and sum [W·H].
-    workspace = (torch.empty(splits * W * H * (D + 2), dtype=torch.float32,
-                             device=q.device) if splits > 1 else None)
+    # Per unit: f32 partial acc [H/Hkv, D]; then running max and sum.
+    workspace = torch.empty(max_units * (H // Hkv) * (D + 2), dtype=torch.float32,
+                            device=q.device)
     fn = build.function(PAGED_KERNEL, "paged_attention", _PAGED_ARGTYPES)
+    stream = build.stream_handle(q.device)
+    counters = _paged_counters(q.device, stream.value, W * Hkv)
     status = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                None if workspace is None else workspace.data_ptr(),
-                W, H, Hkv, D, bs, MB, chunk, splits, int(dtype == torch.bfloat16),
-                k_pool.shape[0], (1.0 / math.sqrt(D)) * LOG2E,
-                build.stream_handle(q.device))
+                workspace.data_ptr(), counters.data_ptr(),
+                W, H, Hkv, D, bs, MB, k_pool.shape[0], grid, target, max_units,
+                int(dtype == torch.bfloat16), (1.0 / math.sqrt(D)) * LOG2E, stream)
     build.check(status, PAGED_KERNEL)
     build.count_launch(PAGED_KERNEL)
     return out

@@ -3,8 +3,10 @@
 Counterpart of ``distributed_machine_learning_tpu/ops/pallas/quant_matmul.py``
 (``int8_matmul`` over ``_kernel``, and ``quantize_int8``).  CUDA tensors go
 through the hand-written kernel ``csrc/quant_matmul.cu``, on the route
-:func:`int8_route` names (the wgmma mainloop for prefill, an mma.sync tile
-for decode or for columns not a multiple of 16); CPU tensors through
+:func:`int8_route` names (the wgmma mainloop for prefill, the
+weight-streaming mma.sync kernel for decode, whose contraction
+:func:`skinny_splits` cuts over a thread-block cluster, a byte-staged tile
+for columns not a multiple of 16); CPU tensors through
 :func:`int8_matmul_reference`.  Both cast x to bf16, widen the
 int8 weights to bf16 exactly, accumulate in f32, scale each output column
 in f32 and return ``x.dtype``.
@@ -22,12 +24,16 @@ import torch
 from distributed_machine_learning_tpu_torch.ops import build
 
 KERNEL = "quant_matmul"
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# The kernel's skinny (decode) tile: rows, columns and contraction depth.
-SKINNY_R, SKINNY_N, SKINNY_D = 16, 64, 64
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# The skinny (decode) route, as csrc/quant_matmul.cu fixes it: at most 16
+# rows; a warp owns 128 output columns and a slice of the contraction in
+# k16 blocks, staged through its own ring of 5 blocks; 8 warps a block;
+# at most 8 blocks (one thread-block cluster) share a column tile.
+SKINNY_R, SKINNY_COLS, SKINNY_WARPS, SKINNY_STAGES, SKINNY_MAX_SPLITS = 16, 128, 8, 5, 8
 # The kernel's routes, in the C entry point's numbering (csrc/quant_matmul.cu):
-# the skinny mma.sync tile (decode), the 128 x 128 mma.sync tile that stages
-# q byte by byte (columns not a multiple of 16), the wgmma/TMA mainloop.
+# the skinny weight-streaming kernel (decode; with K % 16 != 0 a byte-staged
+# 16 x 64 tile), the 128 x 128 mma.sync tile that stages q byte by byte
+# (columns not a multiple of 16), the wgmma/TMA mainloop.
 ROUTES = ("skinny", "tile", "wgmma")
 # Calls per route since the last reset (one per kernel call, as
 # ``build.launches["quant_matmul"]`` counts them).
@@ -50,14 +56,19 @@ def reset_route_calls() -> None:
         route_calls[name] = 0
 
 
-def split_count(R: int, D: int, K: int, n_sms: int) -> int:
-    """How many slices of the contraction the kernel runs in parallel: for
-    skinny R, enough that column tiles x slices give two blocks per SM
-    (each slice at least one depth tile); 1 (no split) otherwise."""
-    if R > SKINNY_R:
+def skinny_splits(R: int, D: int, K: int, n_sms: int) -> int:
+    """Blocks (one thread-block cluster, at most 8) that share a 128-column
+    tile's contraction on the skinny route: about three blocks for every
+    four SMs over all column tiles, as long as each warp keeps at least two
+    k16 blocks; 1 off the route and for the byte-staged K % 16 != 0 case.
+    (On an H100 the time per GEMM of one decode step's shapes is least at
+    64-128 blocks: more splits cost more in the cluster's reduction than
+    they add in bytes in flight; ``tools/decode_kernel_sweep.py --k6``.)"""
+    if R > SKINNY_R or K % 16:
         return 1
-    tiles = -(-K // SKINNY_N) * -(-R // SKINNY_R)
-    return max(1, min(-(-2 * n_sms // tiles), -(-D // SKINNY_D)))
+    tiles = -(-K // SKINNY_COLS)
+    return max(1, min(SKINNY_MAX_SPLITS, round(0.75 * n_sms / tiles),
+                      -(-D // 16) // (2 * SKINNY_WARPS)))
 
 
 def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -98,12 +109,9 @@ def _launch(x: torch.Tensor, q: torch.Tensor,
             raise ValueError(f"int8 kernel needs contiguous 16-byte aligned {name}")
     out = torch.empty((R, K), dtype=x.dtype, device=x.device)
     route = int8_route(R, D, K)
-    splits = split_count(R, D, K, build.sm_count(x.device))
-    workspace = (torch.empty((splits, R, K), dtype=torch.float32, device=x.device)
-                 if splits > 1 else None)
+    splits = skinny_splits(R, D, K, build.sm_count(x.device))
     fn = build.function(KERNEL, "w8a16_matmul", _ARGTYPES)
     status = fn(xb.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                None if workspace is None else workspace.data_ptr(),
                 R, D, K, int(x.dtype == torch.bfloat16), splits, ROUTES.index(route),
                 build.stream_handle(x.device))
     build.check(status, KERNEL)

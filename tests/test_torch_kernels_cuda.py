@@ -460,6 +460,131 @@ def test_paged_kernel_matches_plain(cuda, dtype, rep, D, bs):
            BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+def test_paged_kernel_in_graphs_on_a_fresh_stream(cuda):
+    """Two CUDA graphs captured on a stream the kernel never ran on
+    eagerly, the second replayed before the first, then eager calls on
+    that stream and on another: each is right (counters made during a
+    capture are zeroed inside that graph; eager ones kept per stream)."""
+    positions = PAGED_EDGE_POSITIONS["engine_step"]
+    W, Hkv, D, bs, mb = len(positions), 4, 128, 16, 260
+    n = sum(p // bs + 1 for p in positions)
+    tables = torch.full((W, mb), n, dtype=torch.int32, device="cuda")
+    take = 0
+    for w, p in enumerate(positions):
+        tables[w, :p // bs + 1] = torch.arange(take, take + p // bs + 1, dtype=torch.int32)
+        take += p // bs + 1
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn(W, 1, 4 * Hkv, D, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=cuda).bfloat16()
+    want = da.paged_attention_reference(q, k, v, tables, pos)
+    stream = torch.cuda.Stream()
+    graphs, outs = [], []
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            outs.append(da.paged_flash_attention(q, k, v, tables, pos))
+        graphs.append(graph)
+    for i in (1, 0, 1):
+        outs[i].zero_()
+        graphs[i].replay()
+        torch.cuda.synchronize()
+        _close(outs[i], want, BF16_TOL)
+    for s in (stream, torch.cuda.Stream()):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            got = [da.paged_flash_attention(q, k, v, tables, pos) for _ in range(2)]
+        torch.cuda.synchronize()
+        for g in got:
+            _close(g, want, BF16_TOL)
+
+
+# K5's plan at its edges: lanes at 0, on page edges (15/16), on the
+# smallest chunk's edges (63/64, 127/128) and at the table's last slot
+# (4159); one lane and sixteen; f32 pools (16-byte loads of 4 values);
+# groups of 1, 2 and 8; block sizes 16 and 4 (a tile spans four pages).
+PAGED_EDGE_POSITIONS = {
+    "one_lane_at_end": [4159],
+    "one_lane_at_0": [0],
+    "sixteen_lanes": [15, 16, 63, 64, 127, 128, 129, 0, 1, 2, 511, 512, 4000, 4159, 2, 7],
+    "engine_step": [4097, 301, 2944, 3504, 2193, 1808, 3697, 650],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_EDGE_POSITIONS))
+@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("dtype,bs", [(torch.bfloat16, 16), (torch.float32, 16),
+                                      (torch.bfloat16, 4)])
+def test_paged_kernel_plan_edges(cuda, dtype, bs, rep, case):
+    """Lanes through tables whose entries past each frontier point at the
+    scratch block, twice in a row (the arrival counters are zero again
+    after a call), against the plain version."""
+    positions = PAGED_EDGE_POSITIONS[case]
+    W, Hkv, D, mb = len(positions), 2, 128, 4160 // bs
+    n = sum(p // bs + 1 for p in positions)
+    perm = torch.randperm(n, device="cuda", generator=cuda).int()
+    tables = torch.full((W, mb), n, dtype=torch.int32, device="cuda")
+    take = 0
+    for w, p in enumerate(positions):
+        tables[w, :p // bs + 1] = perm[take:take + p // bs + 1]
+        take += p // bs + 1
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn(W, 1, Hkv * rep, D, device="cuda", generator=cuda).to(dtype)
+    k = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=cuda).to(dtype)
+    v = torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=cuda).to(dtype)
+    want = da.paged_attention_reference(q, k, v, tables, pos)
+    for _ in range(2):
+        got = da.paged_flash_attention(q, k, v, tables, pos)
+        torch.cuda.synchronize()
+        _close(got, want, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
+# K6's decode route (R <= 16): R 1, 8 and 16; depths of 8 times an odd
+# number (a last k16 block half past D); a last column tile past K (2064);
+# the head (32000, unsplit) and the byte-level head (257, the byte-staged
+# tile); the LM's fc_out depth (8192, split over a cluster of 8).
+@pytest.mark.parametrize("D,K", [(2048, 2048), (8192, 2048), (1032, 2064), (24, 1024),
+                                 (2040, 32000), (520, 257)])
+@pytest.mark.parametrize("R", [1, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_skinny_route_matches_plain(cuda, dtype, R, D, K):
+    assert qm.int8_route(R, D, K) == "skinny"
+    x = torch.randn(R, D, device="cuda", generator=cuda).to(dtype)
+    q, s = qm.quantize_int8(
+        torch.randn(D, K, device="cuda", generator=cuda) / math.sqrt(D))
+    before = (dict(qm.route_calls), build.launches["quant_matmul"])
+    got = qm.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qm.route_calls["skinny"] == before[0]["skinny"] + 1
+    assert build.launches["quant_matmul"] == before[1] + 1
+    assert got.dtype == dtype and got.shape == (R, K)
+    _close(got, qm.int8_matmul_reference(x, q, s),
+           BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
+# The skinny route's cluster reduction at every cluster size, called
+# directly past the split policy, at depths that leave most of a cluster's
+# 64 warps with no k16 block (D 24: two blocks; D 136: nine) or a ragged
+# share (D 1032): an empty warp still pushes its zero share into the other
+# blocks' shared memory.
+@pytest.mark.parametrize("D", [24, 136, 1032])
+@pytest.mark.parametrize("R", [1, 8, 16])
+def test_int8_skinny_cluster_splits_at_shallow_depth(cuda, R, D):
+    K = 384
+    x = torch.randn(R, D, device="cuda", generator=cuda).bfloat16()
+    q, s = qm.quantize_int8(
+        torch.randn(D, K, device="cuda", generator=cuda) / math.sqrt(D))
+    want = qm.int8_matmul_reference(x, q, s)
+    fn = build.function(qm.KERNEL, "w8a16_matmul", qm._ARGTYPES)
+    for splits in range(1, qm.SKINNY_MAX_SPLITS + 1):
+        out = torch.full((R, K), float("nan"), device="cuda", dtype=torch.bfloat16)
+        status = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), R, D, K, 1,
+                    splits, qm.ROUTES.index("skinny"), build.stream_handle(x.device))
+        build.check(status, qm.KERNEL)
+        torch.cuda.synchronize()
+        _close(out, want, BF16_TOL)
+
+
 # K = 257 (a byte-level LM head) and 40: columns not a multiple of 16.
 @pytest.mark.parametrize("R,D,K", [(1, 64, 16), (8, 2048, 1024), (13, 320, 960),
                                    (300, 512, 2064), (8, 256, 257), (40, 64, 40)])

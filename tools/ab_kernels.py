@@ -9,17 +9,83 @@ commit unpacked with ``git archive``).  Imports that tree's
 ``chip_smoke.py`` and port package (nothing of the running checkout),
 builds its kernels into ``TREE/build/kernels``, runs its kernel checks
 with their timings (K1, K4 in both modes, K6, K2/K3, K11-K13; each beside
-its library call), then times its bf16 and int8-weight generate (prefill
-+ first token and the decode step, ``chip_smoke.time_serving``).  Prints
-one line per timed kernel and a last JSON line of every row's numbers.
-Compare two versions inside one call, in turns: parent, change, change,
-parent.
+its library call), times K5 at the engine's decode step (inputs built
+here: :func:`paged_step_inputs`; called through ``paged_flash_attention``,
+whose signature every tree shares; beside the gather of the pages + SDPA),
+then times its bf16 and int8-weight generate (prefill + first token and the
+decode step, ``chip_smoke.time_serving``).  Prints one line per timed
+kernel and a last JSON line of every row's numbers.  Compare two versions
+inside one call, in turns: parent, change, change, parent.
 """
 
 import json
 import sys
 import time
 from pathlib import Path
+
+# The lanes' positions at the engine decode step that chip_smoke.py's engine
+# phase times K5 at (its seeded traffic gives these; it logs them).
+ENGINE_STEP_POSITIONS = (4097, 301, 2944, 3504, 2193, 1808, 3697, 650)
+
+
+def paged_step_inputs(torch, smoke):
+    """K5's inputs at the engine's decode step, as ``chip_smoke.ENGINE``
+    lays them out: bf16 pools of 2080 blocks of 16 slots plus the scratch
+    block, 4 kv heads of 128; 8 lanes at ENGINE_STEP_POSITIONS, each
+    lane's table a run of a seeded permutation of the pool's blocks up to
+    its frontier and the scratch block past it; a random bf16 query of 16
+    heads."""
+    H, Hkv = smoke.MODEL["n_heads"], smoke.MODEL["n_kv_heads"]
+    D = smoke.MODEL["d_model"] // H
+    bs, n = smoke.ENGINE["block_size"], smoke.ENGINE["num_blocks"]
+    mb = smoke.ENGINE["max_len"] // bs
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    perm = torch.randperm(n, generator=gen, device="cuda").int()
+    tables = torch.full((len(ENGINE_STEP_POSITIONS), mb), n, dtype=torch.int32, device="cuda")
+    take = 0
+    for w, p in enumerate(ENGINE_STEP_POSITIONS):
+        tables[w, :p // bs + 1] = perm[take:take + p // bs + 1]
+        take += p // bs + 1
+    k, v = (torch.randn(n + 1, Hkv, bs, D, device="cuda", generator=gen).bfloat16()
+            for _ in range(2))
+    q = torch.randn(len(ENGINE_STEP_POSITIONS), 1, H, D, device="cuda", generator=gen).bfloat16()
+    positions = torch.tensor(ENGINE_STEP_POSITIONS, dtype=torch.int32, device="cuda")
+    return q, k, v, tables, positions
+
+
+def time_paged_step(torch, smoke, da, rows: dict) -> None:
+    """K5 at the engine's decode step against its plain version (the row
+    gates), timed beside its bytes bound and the gather of the pages into a
+    dense cache + SDPA (two PyTorch calls, context only)."""
+    q, k, v, tables, positions = paged_step_inputs(torch, smoke)
+    W, H, (Hkv, bs, D) = q.shape[0], q.shape[2], k.shape[1:]
+    failed = []
+    err = smoke.compare(f"paged_attention engine step positions {list(ENGINE_STEP_POSITIONS)}",
+                        da.paged_flash_attention(q, k, v, tables, positions),
+                        da.paged_attention_reference(q, k, v, tables, positions), failed)
+    smoke.raise_failed(failed)
+    n = sum(p + 1 for p in ENGINE_STEP_POSITIONS)
+    nbytes = (2 * n * Hkv * D * 2 + 4 * sum(p // bs + 1 for p in ENGINE_STEP_POSITIONS)
+              + 4 * W + 2 * W * H * D * 2)
+    S = tables.shape[1] * bs
+    mask = torch.arange(S, device="cuda")[None, :] <= positions[:, None].long()
+
+    def gather_sdpa():
+        kd = k[tables.long()].transpose(1, 2).reshape(W, Hkv, S, D)
+        vd = v[tables.long()].transpose(1, 2).reshape(W, Hkv, S, D)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), kd.repeat_interleave(H // Hkv, 1),
+            vd.repeat_interleave(H // Hkv, 1), attn_mask=mask[:, None, None, :])
+
+    row = rows["paged_attention:engine_step"] = dict(
+        max_abs_err=err,
+        ms=smoke.time_ms(lambda: da.paged_flash_attention(q, k, v, tables, positions),
+                         iters=50),
+        context_ms=smoke.time_ms(gather_sdpa, iters=20),
+        **smoke.bound(4.0 * H * D * n, smoke.F32_FLOPS, nbytes))
+    smoke.log(f"  paged_attention at the engine step: {row['ms']:.4f} ms, "
+              f"{nbytes / row['ms'] / 1e6:.1f} GB/s, bound {row['bound_ms']:.4f} ms, "
+              f"gather + SDPA {row['context_ms']:.4f} ms")
 
 
 def main(argv) -> int:
@@ -54,13 +120,14 @@ def main(argv) -> int:
     smoke.check_decode(torch, da, rows, True)
     smoke.check_decode_int8(torch, da, rows, True)
     smoke.check_int8(torch, qm, rows, True)
+    time_paged_step(torch, smoke, da, rows)
     smoke.check_flash_bwd(torch, fa, rows, True)
     smoke.check_ring_flash(torch, rf, rows, True)
     models, prompt = smoke.make_models(torch, pkg)
     fns = smoke.generate_fns(models)
     for mode in ("bf16", "int8"):
         smoke.time_serving(torch, mode, models[mode], fns[mode], prompt)
-    keep = ("ms", "library_ms", "bound_ms", "diag_ms")
+    keep = ("ms", "library_ms", "context_ms", "bound_ms", "diag_ms")
     print(json.dumps({"tree": str(tree), "rows": {
         name: {k: row[k] for k in keep if row.get(k) is not None}
         for name, row in rows.items()}}), flush=True)

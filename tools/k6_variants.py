@@ -46,30 +46,41 @@ VARIANTS = {
 SHAPES = [(32768, 2048, 2048), (32768, 2048, 1024), (32768, 2048, 8192), (32768, 8192, 2048)]
 
 
-def build_variants() -> dict:
-    src = (build.CSRC / "quant_matmul.cu").read_text()
-    out = build.BUILD_DIR.parent / "k6_variants"
+def build_variants(source: str, variants: dict, dest: str) -> dict:
+    """{name: loaded library} of ``ops/csrc/<source>.cu`` with each variant's
+    edits ([(text, replacement), ...], each text there once), built under
+    ``build/<dest>/<source>/<name>/`` with ``ops/build.py``'s flags, one
+    nvcc each, in parallel."""
+    text0 = (build.CSRC / f"{source}.cu").read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
+    for name, edits in variants.items():
+        text = text0
         for old, new in edits:
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the text to edit is not in quant_matmul.cu once")
+                raise RuntimeError(f"{source} {name}: the text to edit is not there once")
             text = text.replace(old, new)
-        d = out / name
+        d = build.BUILD_DIR.parent / dest / source / name
         d.mkdir(parents=True, exist_ok=True)
         for header in build.CSRC.glob("*.cuh"):
             (d / header.name).write_text(header.read_text())
-        (d / "quant_matmul.cu").write_text(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "quant_matmul.cu")]
+        (d / f"{source}.cu").write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), d)
-    fns = {}
+    libs = {}
     for name, (proc, d) in procs.items():
         log, _ = proc.communicate(timeout=900)
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        fn = ctypes.CDLL(str(d / "lib.so")).w8a16_matmul
+            raise RuntimeError(f"{source} {name}: nvcc exit {proc.returncode}\n{log}")
+        libs[name] = ctypes.CDLL(str(d / "lib.so"))
+    return libs
+
+
+def w8a16_functions(libs: dict) -> dict:
+    """{name: the library's ``w8a16_matmul``, typed}."""
+    fns = {}
+    for name, lib in libs.items():
+        fn = lib.w8a16_matmul
         fn.argtypes, fn.restype = qm._ARGTYPES, ctypes.c_int
         fns[name] = fn
     return fns
@@ -95,7 +106,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(f"card: {card.stdout.strip()}", flush=True)
-    fns = build_variants()
+    fns = w8a16_functions(build_variants("quant_matmul", VARIANTS, "k6_variants"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     wgmma = qm.ROUTES.index("wgmma")
     for R, D, K in SHAPES:
@@ -110,7 +121,7 @@ def main() -> int:
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         for name, fn in fns.items():
             def call(fn=fn):
-                status = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), None,
+                status = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                             R, D, K, 1, 1, wgmma, stream)
                 if status:
                     raise RuntimeError(f"{name}: cudaError_t {status}")
