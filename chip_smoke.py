@@ -111,8 +111,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Step 2 also holds the int8 ring codec K8 (with and without residual), K9
 and K10 to their plain versions BIT FOR BIT at the VGG path's chunk
-lengths, a single element, a ragged length, an all-zero and a NaN chunk,
-and times them at the largest chunk.
+lengths, a single element, a ragged length, a length past what K8 can
+stage on chip, an all-zero and a NaN chunk, and chunks whose largest |v|
+or NaN sits in K8's last block; K8 also in CUDA graphs replayed twice and
+out of order.  A profiler trace of one K8 call must show one kernel and no
+memset.  All three are timed at the VGG path's four chunk lengths, K8 with
+and without the residual.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
@@ -282,6 +286,19 @@ PERTURBATIONS = {
     # K9 skips the ragged tail (a length that is no multiple of 4).
     "codec-decode-add-skip-tail": (
         "ring_codec", "acc[j] = acc[j] + static_cast<float>(q[j]) * s;", "(void)j;"),
+    # After K8's grid barrier each block scales by its own max alone.
+    "codec-own-partial-only": (
+        "ring_codec",
+        "amax = max(amax, __ldcg(partials + b));",
+        "amax = m;"),
+    # K8 skips the ragged tail (n % 4 elements) in both passes.
+    "codec-drop-tail": (
+        "ring_codec",
+        "const int tail = blockIdx.x == gridDim.x - 1 ? static_cast<int>(n - nvec * 4) : 0;",
+        "const int tail = 0;"),
+    # K8 skips the part of a slice past what shared memory stages.
+    "codec-drop-overflow": (
+        "ring_codec", "const long long end = hi;", "const long long end = lo + on_chip;"),
     # K11 ignores the carry in: every step starts from an empty (m, l, acc).
     "ring-fwd-ignore-carry": (
         "ring_flash", "const bool has_carry = row < L;  // padded rows start empty",
@@ -691,10 +708,58 @@ def check_adamw(torch, fadam, rows: dict, timing: bool) -> None:
 # The int8 ring codec K8-K10, held BITWISE to its plain version (the
 # reference's contract: a truncated scale makes every q * scale exact): the
 # chunk lengths of the VGG path (VGG-11 with BN, 9,231,114 parameters in 25
-# MiB buckets of 6,553,600 + 2,677,514, at world 2 and 4), a single element
-# and a ragged 4097; then an all-zero chunk and a chunk holding one NaN.
-CODEC_LENGTHS = (3_276_800, 1_338_757, 1_638_400, 669_379, 1, 4097)
-CODEC_SETS = 8  # buffer sets the codec timings rotate over (past the L2)
+# MiB buckets of 6,553,600 + 2,677,514: at world 4, the part3 int8 phase,
+# then at world 2, the cli.part3 run), a single element,
+# a ragged 4097 and the whole gradient as one chunk (CODEC_OVER_CAPACITY:
+# 36.9 MB, past what the card's shared memory can stage, so K8 reads each
+# slice's excess from HBM twice); then an all-zero chunk, a chunk holding
+# one NaN, and chunks whose largest |v| or NaN sits in the last block's
+# slice (the last element: the ragged tail).
+CODEC_PATH_LENGTHS = (1_638_400, 669_379, 3_276_800, 1_338_757)
+CODEC_OVER_CAPACITY = 9_231_114
+CODEC_LENGTHS = (*CODEC_PATH_LENGTHS, 1, 4097, CODEC_OVER_CAPACITY)
+CODEC_SETS = 8  # fewest buffer sets the codec timings rotate over (past the L2)
+CODEC_ROTATE_BYTES = 200e6  # operand bytes the sets span at least (4x the L2)
+
+
+def codec_row(name: str, n: int, residual: bool = True,
+              first: int = CODEC_PATH_LENGTHS[0]) -> str:
+    """The key of a codec kernel's row at chunk length ``n``: the bare name
+    at ``first`` (K8 with the residual), ``name:n=N`` at other lengths,
+    ``ring_encode_int8:n=N,no_residual`` for K8 without the residual."""
+    if not residual:
+        return f"{name}:n={n},no_residual"
+    return name if n == first else f"{name}:n={n}"
+
+
+@contextlib.contextmanager
+def codec_row_tally(tally: dict):
+    """Count the codec's launches by ``codec_row`` key into ``tally``
+    (the wrappers count per kernel), passing every call on."""
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    saved = rc._launch_encode, rc._launch_decode_add, rc._launch_decode
+
+    def count(key):
+        tally[key] = tally.get(key, 0) + 1
+
+    def encode(v, residual, plan=None):
+        count(codec_row("ring_encode_int8", v.numel(), residual))
+        return saved[0](v, residual, plan)
+
+    def decode_add(q, scale, acc):
+        count(codec_row("ring_decode_add_int8", acc.numel()))
+        return saved[1](q, scale, acc)
+
+    def decode(q, scale, length):
+        count(codec_row("ring_decode_int8", length))
+        return saved[2](q, scale, length)
+
+    rc._launch_encode, rc._launch_decode_add, rc._launch_decode = encode, decode_add, decode
+    try:
+        yield
+    finally:
+        rc._launch_encode, rc._launch_decode_add, rc._launch_decode = saved
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -711,7 +776,16 @@ def check_codec(torch, rc, rows: dict, timing: bool) -> None:
     nan = torch.randn(4097, device="cuda", generator=gen)
     nan[1234] = float("nan")
     cases.append(("one NaN n=4097", nan))
+    for n, what in ((669_379, "max"), (669_379, "NaN"), (CODEC_OVER_CAPACITY, "max")):
+        last = 0.01 * torch.randn(n, device="cuda", generator=gen)
+        last[-1] = float("nan") if what == "NaN" else 1.0
+        cases.append((f"{what} last n={n}", last))
     failed = []
+    for n in CODEC_LENGTHS:
+        log(f"  ring codec K8 plan n={n}: {rc.device_encode_plan(torch.device('cuda', 0), n)}")
+    plan = rc.device_encode_plan(torch.device("cuda", 0), CODEC_OVER_CAPACITY)
+    if plan.staged >= plan.slice:
+        failed.append(f"n={CODEC_OVER_CAPACITY} is not past the on-chip capacity: {plan}")
     for label, v in cases:
         acc = torch.randn(v.numel(), device="cuda", generator=gen)
         got_r = rc.encode_int8_residual(v)
@@ -730,59 +804,156 @@ def check_codec(torch, rc, rows: dict, timing: bool) -> None:
         log(f"  ring codec {label}: scale {float(want_r[1]):.6g}, bitwise "
             f"{'ok' if not bad else 'BAD: ' + ', '.join(bad)}")
         failed += [f"{name} {label}" for name in bad]
+    failed += check_codec_graphs(torch, rc, gen)
     for name in ("ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8"):
         rows[name] = {"max_abs_err": 0.0 if not failed else float("nan")}
     raise_failed(failed)
-    if not timing:
-        return
-    # The path's largest chunk (world 2, the first bucket), as the ring hands
-    # it to the codec.  Each timed call finds its operands out of L2, as a
-    # hop does: the captured function runs the call over CODEC_SETS distinct
-    # sets of buffers (~235 MB, past the 50 MB L2) and the time is per call.
-    n = CODEC_LENGTHS[0]
-    vs = [0.01 * torch.randn(n, device="cuda", generator=gen) for _ in range(CODEC_SETS)]
-    accs = [torch.randn(n, device="cuda", generator=gen) for _ in range(CODEC_SETS)]
-    encs = [rc.encode_int8_residual(v)[:2] for v in vs]
-    scales = [float(sc) for _, sc in encs]  # host copies for the library calls' alpha
+    if timing:
+        codec_trace(torch, rc)
+        time_codec(torch, rc, rows)
 
-    def per_call(fn, iters: int = 10) -> float:
-        return time_ms(lambda: [fn(i) for i in range(CODEC_SETS)], iters=iters) / CODEC_SETS
 
-    try:
-        accs[0].add_(encs[0][0], alpha=scales[0])
-        add_label = "acc.add_(q, alpha=scale) (int8 q promoted)"
+def check_codec_graphs(torch, rc, gen) -> list:
+    """K8 captured in CUDA graphs on a fresh stream, bit for bit its plain
+    version: one graph of both modes at the largest path chunk replayed
+    twice, then two graphs (the two world-4 chunks) replayed out of order.
+    Returns the names of the failed checks."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    failed, graphs = [], []
+    for n in (max(CODEC_PATH_LENGTHS), *CODEC_PATH_LENGTHS[:2]):
+        v = 0.01 * torch.randn(n, device="cuda", generator=gen)
+        v[n // 2] = 3.0
+        with torch.cuda.stream(stream):  # warm up where the graph is captured
+            rc.encode_int8_residual(v)
+            rc.encode_int8(v)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            outs = (*rc.encode_int8_residual(v), *rc.encode_int8(v))
+        # v stays referenced: torch.cuda.graph empties the allocator's cache
+        # before each capture, and a freed input would be unmapped under
+        # the earlier graphs.
+        graphs.append((f"graph n={n}", graph, v, outs, rc.encode_int8_residual_reference(v)))
+    order = [0, 0, 2, 1, 2, 1]  # graph 0 twice, then the other two out of order
+    for k, i in enumerate(order):
+        label, graph, _, outs, (wq, ws, we) = graphs[i]
+        for t in outs:
+            t.fill_(7)  # stale output bits would pass as a result
+        graph.replay()
+        torch.cuda.synchronize()
+        names = ("q", "scale", "residual", "q (no residual)", "scale (no residual)")
+        bad = [name for name, a, b in zip(names, outs, (wq, ws, we, wq, ws))
+               if not bits_equal(torch, a, b)]
+        log(f"  ring codec K8 {label}, replay {k} (order {order}): bitwise "
+            f"{'ok' if not bad else 'BAD: ' + ', '.join(bad)}")
+        if bad:
+            failed.append(f"K8 {label} replay {k}")
+    return failed
 
-        def library_add(i):
-            accs[i].add_(encs[i][0], alpha=scales[i])
-    except RuntimeError:
-        add_label = "acc.add_(q.float() * scale) (alpha refused for int8 q)"
 
-        def library_add(i):
-            accs[i].add_(encs[i][0].float() * encs[i][1])
-    shape = (f"n={n} f32 (the first bucket's chunk at world 2), operands out of L2 "
-             f"(rotated over {CODEC_SETS} buffer sets)")
-    rows["ring_encode_int8"].update(
-        ms=per_call(lambda i: rc.encode_int8_residual(vs[i])),
-        plain_ms=per_call(lambda i: rc.encode_int8_residual_reference(vs[i]), iters=3),
-        library_ms=None, **bound(3.0 * n, F32_FLOPS, 9 * n + 4),
-        shape=shape + ", with the residual; library: none (no one call: "
-              "quantize_per_tensor takes the scale given and clips at -128)")
-    rows["ring_decode_add_int8"].update(
-        ms=per_call(lambda i: rc.decode_add_int8(*encs[i], accs[i])),
-        plain_ms=per_call(lambda i: rc.decode_add_int8_reference(*encs[i], accs[i]), iters=3),
-        library_ms=per_call(library_add), **bound(2.0 * n, F32_FLOPS, 9 * n + 4),
-        shape=shape + f", in place; library: {add_label}")
-    rows["ring_decode_int8"].update(
-        ms=per_call(lambda i: rc.decode_int8(*encs[i], n)),
-        plain_ms=per_call(lambda i: rc.decode_int8_reference(*encs[i], n), iters=3),
-        library_ms=per_call(lambda i: encs[i][0].float().mul_(encs[i][1])),
-        **bound(1.0 * n, F32_FLOPS, 5 * n + 4),
-        shape=shape + "; library: q.float().mul_(scale)")
-    for name in ("ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8"):
-        r = rows[name]
-        lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
-        log(f"  {name}: {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-            f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library {lib}")
+def codec_trace(torch, rc) -> None:
+    """One K8 call at the largest path chunk is one kernel and no memset:
+    the graph it captures into holds one cooperative kernel node and no
+    memset node (``rc.graph_census``), and the profiler's device events of
+    the call, eager and replayed, show one K8 kernel and no memset."""
+    v = 0.01 * torch.randn(max(CODEC_PATH_LENGTHS), device="cuda")
+    rc.encode_int8_residual(v)  # the default stream's buffer, made before the trace
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the stream's barrier buffer, made outside the graph
+        rc.encode_int8_residual(v)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        rc.encode_int8_residual(v)
+    census = rc.graph_census(graph)
+    log(f"  ring codec K8 captured call, graph nodes: {census}")
+    failed = [] if census == {"kernels": 1, "cooperative": 1, "memsets": 0} else [
+        f"K8 captured call: {census}"]
+    graph.instantiate()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, fn in (("eager", lambda: rc.encode_int8_residual(v)), ("graph", graph.replay)):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [x for x in names if "encode_kernel" in x]
+        memsets = [x for x in names if "memset" in x.lower()]
+        log(f"  ring codec K8 trace, {label} call: device events {names}")
+        if len(kernels) != 1 or memsets:
+            failed.append(f"K8 {label} call: {len(kernels)} encode kernels, memsets {memsets}")
+    del graph
+    raise_failed(failed)
+
+
+def time_codec(torch, rc, rows: dict, lengths=CODEC_PATH_LENGTHS) -> None:
+    """K8 (with and without the residual), K9 and K10 at each chunk length,
+    each call finding its operands out of L2 as a hop does: the captured
+    function runs the call over at least CODEC_SETS distinct buffer sets
+    spanning CODEC_ROTATE_BYTES, and the time is per call.  Rows: keyed by
+    ``codec_row`` (the bare names at the first length)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for n in lengths:
+        sets = max(CODEC_SETS, math.ceil(CODEC_ROTATE_BYTES / (9 * n)))
+        vs = [0.01 * torch.randn(n, device="cuda", generator=gen) for _ in range(sets)]
+        accs = [torch.randn(n, device="cuda", generator=gen) for _ in range(sets)]
+        encs = [rc.encode_int8_residual(v)[:2] for v in vs]
+        scales = [float(sc) for _, sc in encs]  # host copies for the library calls' alpha
+
+        def per_call(fn, iters: int = 10, sets=sets) -> float:
+            return time_ms(lambda: [fn(i) for i in range(sets)], iters=iters) / sets
+
+        try:
+            accs[0].add_(encs[0][0], alpha=scales[0])
+            add_label = "acc.add_(q, alpha=scale) (int8 q promoted)"
+
+            def library_add(i, accs=accs, encs=encs, scales=scales):
+                accs[i].add_(encs[i][0], alpha=scales[i])
+        except RuntimeError:
+            add_label = "acc.add_(q.float() * scale) (alpha refused for int8 q)"
+
+            def library_add(i, accs=accs, encs=encs):
+                accs[i].add_(encs[i][0].float() * encs[i][1])
+
+        def row_key(name, residual=True, n=n):
+            return codec_row(name, n, residual, lengths[0])
+
+        shape = f"n={n} f32, operands out of L2 (rotated over {sets} buffer sets)"
+        timed = {
+            row_key("ring_encode_int8"): dict(
+                ms=per_call(lambda i: rc.encode_int8_residual(vs[i])),
+                plain_ms=per_call(lambda i: rc.encode_int8_residual_reference(vs[i]), iters=3),
+                library_ms=None, **bound(3.0 * n, F32_FLOPS, 9 * n + 4),
+                shape=shape + ", with the residual; library: none (no one call: "
+                      "quantize_per_tensor takes the scale given and clips at -128)"),
+            row_key("ring_encode_int8", False): dict(
+                ms=per_call(lambda i: rc.encode_int8(vs[i])),
+                plain_ms=per_call(lambda i: rc.encode_int8_reference(vs[i]), iters=3),
+                library_ms=None, **bound(2.0 * n, F32_FLOPS, 5 * n + 4),
+                shape=shape + ", without the residual; library: none"),
+            row_key("ring_decode_add_int8"): dict(
+                ms=per_call(lambda i: rc.decode_add_int8(*encs[i], accs[i])),
+                plain_ms=per_call(lambda i: rc.decode_add_int8_reference(*encs[i], accs[i]),
+                                  iters=3),
+                library_ms=per_call(library_add), **bound(2.0 * n, F32_FLOPS, 9 * n + 4),
+                shape=shape + f", in place; library: {add_label}"),
+            row_key("ring_decode_int8"): dict(
+                ms=per_call(lambda i: rc.decode_int8(*encs[i], n)),
+                plain_ms=per_call(lambda i: rc.decode_int8_reference(*encs[i], n), iters=3),
+                library_ms=per_call(lambda i: encs[i][0].float().mul_(encs[i][1])),
+                **bound(1.0 * n, F32_FLOPS, 5 * n + 4),
+                shape=shape + "; library: q.float().mul_(scale)")}
+        for key, row in timed.items():
+            base = rows.get(key.split(":")[0], {})
+            rows.setdefault(key, {"max_abs_err": base.get("max_abs_err", 0.0)}).update(row)
+            library = row["library_ms"]
+            log(f"  {key}: {row['ms']:.5f} ms ({row['bound_ms'] / row['ms']:.1%} of the "
+                f"{row['bound_ms']:.5f} ms bound), plain {row['plain_ms']:.4f}, library "
+                + ("none" if library is None else f"{library:.5f}"))
+        del vs, accs, encs
 
 
 # K4's check positions at S 4608 (both modes, B 8 and B 1): the first
@@ -2037,13 +2208,16 @@ def vgg_rank(rank: int, world: int, init_method: str, label: str, flags: list) -
     args = common.parse_flags(parser, [*flags, "--num-nodes", str(world), "--rank", str(rank),
                                        "--max-iters", str(VGG_ITERS)])
     kwargs = {"bucket_bytes": args.bucket_mb * 2**20} if strategy == "ring" else None
+    codec_rows: dict = {}
     build.reset_launch_counts()
-    res = common.run_part(strategy, batch, use_bn, args, kwargs, init_method=init_method,
-                          shutdown=False)
+    with codec_row_tally(codec_rows):
+        res = common.run_part(strategy, batch, use_bn, args, kwargs, init_method=init_method,
+                              shutdown=False)
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     sync()
     out = {k: res[k] for k in ("losses", "times", "sync_ms", "backend", "wire", "device")}
     out["launches"] = dict(build.launches)
+    out["codec_rows"] = codec_rows
     out["n_params"] = sum(p.numel() for p in res["state"].model.parameters())
     try:
         step, state = res["step"], res["state"]
@@ -2091,7 +2265,9 @@ def vgg_rank(rank: int, world: int, init_method: str, label: str, flags: list) -
 def run_vgg(torch, rows: dict) -> None:
     """The VGG parts (VGG_RUNS), each through its ranks; gates: finite,
     falling losses; the int8 run's K8/K9/K10 launches per step equal the
-    formula on every rank (and no codec launch elsewhere); every rank's
+    formula on every rank (and no codec launch elsewhere), and rank 0's
+    launches by codec row (``codec_row_tally``; a row's ``launches``) sum
+    to each kernel's count; every rank's
     synced gradients bit for bit the same; the int8 step through the
     kernels equal to the same step through the plain codec, bit for bit,
     on every rank.  Reports step ms, the sync inside the step, images/s and
@@ -2144,10 +2320,28 @@ def run_vgg(torch, rows: dict) -> None:
                 f"by rank: {eq}")
             if not all(e["grads"] and e["residual"] for e in eq):
                 failed.append(f"{label}: kernel step differs from the plain-codec step")
-            for name in CODEC_KERNELS:
-                rows[name]["launches"] = r0["launches"][name]
+            tally = r0["codec_rows"]
+            by_kernel = {k: sum(c for key, c in tally.items() if key.split(":")[0] == k)
+                         for k in CODEC_KERNELS}
+            ok = by_kernel == {k: r0["launches"][k] for k in CODEC_KERNELS}
+            log(f"vgg {label}: codec launches by row, rank 0: {tally}: "
+                f"{'ok' if ok else 'BAD'} (sums {by_kernel})")
+            if not ok:
+                failed.append(f"{label}: codec launches by row do not sum to the counts")
+            for key, row in rows.items():
+                if key.split(":")[0] in CODEC_KERNELS:
+                    row["launches"] = tally.get(key, 0)
+            for k in CODEC_KERNELS:  # the device time each kernel leaves above its bound
+                timed = [row for key, row in rows.items()
+                         if key.split(":")[0] == k and "ms" in row]
+                if timed:
+                    gap = sum(row["launches"] * (row["ms"] - row["bound_ms"]) for row in timed)
+                    log(f"vgg {label}: {k}, launches x (ms - bound) over the rows, rank 0: "
+                        f"{gap:.4f} ms")
         for key, row in rows.items():
-            row["vgg_launches"] = row.get("vgg_launches", 0) + r0["launches"][key.split(":")[0]]
+            name = key.split(":")[0]
+            row["vgg_launches"] = row.get("vgg_launches", 0) + (
+                r0["codec_rows"].get(key, 0) if name in CODEC_KERNELS else r0["launches"][name])
     if failed:
         raise AssertionError("vgg: " + "; ".join(failed))
 
@@ -2670,7 +2864,7 @@ def perturb(torch, pkg, name: str) -> int:
         (copy / src.name).write_text(src.read_text())
     (copy / fname).write_text(text.replace(old, new))
     build.CSRC = copy  # every kernel builds from the copy; one of them differs
-    build.build_all()
+    build.build_all(["ring_codec"] if kernel == "ring_codec" else build.SOURCES)
     caught = []
     log(f"perturbation {name}: kernel checks")
     training = kernel in ("flash_bwd", "fused_adamw")

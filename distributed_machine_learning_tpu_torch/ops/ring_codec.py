@@ -8,7 +8,9 @@ accumulator chunk (``decode_add_int8``) and, in the all-gather, decodes the
 relayed payload (``decode_int8``).  CUDA tensors go through the
 hand-written kernels of ``csrc/ring_codec.cu``; CPU tensors through the
 plain versions below, which are also what ``Int8Scheme(impl="xla")`` runs
-on either device.
+on either device.  K8 is one cooperative launch (every block resident at
+once, or the launch fails and the wrapper raises) whose grid, slices and
+shared-memory staging :func:`encode_plan` sets.
 
 The recipe (the reference's, op for op)::
 
@@ -25,6 +27,7 @@ nothing here syncs with the host.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,7 +38,10 @@ ENCODE, DECODE_ADD, DECODE = "ring_encode_int8", "ring_decode_add_int8", "ring_d
 # 0xFFFFFF00 as an int32: zeroes the low 8 mantissa bits of an f32.
 _SCALE_MASK = -256
 _ENCODE_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_void_p]
+_BUDGET_ARGS = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+_CENSUS_ARGS = [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)] * 3
 _DECODE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_void_p]
 
@@ -98,23 +104,148 @@ def _check(name: str, t: torch.Tensor, dtype, device, numel: int | None = None) 
         raise ValueError(f"ring codec kernel needs {name} contiguous and 16-byte aligned")
 
 
-def _launch_encode(v: torch.Tensor, residual: bool):
-    """K8 on the card: ``(q, scale)`` or ``(q, scale, err)``."""
+# K8's launch plan.  ENCODE_MAX_GRID mirrors ENC_MAX_GRID of
+# csrc/ring_codec.cu.  The rule's constants come from tools/codec_sweep.py
+# --sweep on the card (PERF.md gives the readings): as many blocks as are
+# resident, one an SM until a slice would pass ENCODE_ONE_BLOCK_SLICE
+# elements, then two; fewer, fuller blocks only below ENCODE_MIN_SLICE
+# elements a block.
+ENCODE_MAX_GRID = 1024
+ENCODE_ONE_BLOCK_SLICE = 16384
+ENCODE_MIN_SLICE = 4096
+
+
+class EncodePlan(NamedTuple):
+    """K8's launch: ``grid`` co-resident blocks; block b owns elements
+    ``[b·slice, (b+1)·slice)`` of the chunk (the last block fewer, plus the
+    ``n % 4`` tail); the first ``staged`` of them come on chip (in the
+    kernel's ENC_STAGES bulk copies), the rest of the slice is read from
+    HBM/L2 again after the barrier.  ``slice`` and ``staged`` are multiples
+    of 4."""
+
+    grid: int
+    slice: int
+    staged: int
+
+
+def encode_blocks_per_sm(n: int, sm_count: int) -> int:
+    """The rule's K8 blocks an SM for a chunk of ``n``: 2 once one block an
+    SM would own more than ENCODE_ONE_BLOCK_SLICE elements."""
+    return 1 if n <= sm_count * ENCODE_ONE_BLOCK_SLICE else 2
+
+
+def encode_plan(n: int, sm_count: int, smem_per_block: int,
+                blocks_per_sm: int | None = None) -> EncodePlan:
+    """K8's plan for a chunk of ``n`` f32 on ``sm_count`` SMs, a block
+    staging at most ``smem_per_block`` bytes (the budget at
+    ``blocks_per_sm``, by default :func:`encode_blocks_per_sm`): at most
+    ``sm_count · blocks_per_sm`` blocks (all resident at once), none given
+    fewer than ENCODE_MIN_SLICE elements unless the chunk is shorter, the
+    slices as equal as 16-byte vectors allow."""
+    if blocks_per_sm is None:
+        blocks_per_sm = encode_blocks_per_sm(n, sm_count)
+    nvec = n // 4
+    most = max(1, min(sm_count * blocks_per_sm, ENCODE_MAX_GRID))
+    blocks = min(most, max(1, -(-nvec // (ENCODE_MIN_SLICE // 4))))
+    slice_vec = -(-nvec // blocks)
+    grid = -(-nvec // slice_vec) if slice_vec else 1
+    staged_vec = min(slice_vec, smem_per_block // 16)
+    return EncodePlan(grid, 4 * slice_vec, 4 * staged_vec)
+
+
+def encode_slices(plan: EncodePlan, n: int) -> list[tuple[int, int, int]]:
+    """What each K8 block of ``plan`` owns of a chunk of ``n`` elements, as
+    the kernel indexes it: ``(start, staged_stop, stop)``, the staged part
+    ``[start, staged_stop)`` on chip and ``[staged_stop, stop)`` read from
+    HBM/L2; the last block's ``stop`` takes in the ``n % 4`` tail."""
+    body = n - n % 4
+    out = []
+    for b in range(plan.grid):
+        start = min(b * plan.slice, body)
+        stop = min(start + plan.slice, body)
+        out.append((start, min(stop, start + plan.staged), stop))
+    start, staged_stop, _ = out[-1]
+    out[-1] = (start, staged_stop, n)
+    return out
+
+
+_budgets: dict = {}
+_plans: dict = {}
+
+
+def stage_budget(device, blocks_per_sm: int) -> int:
+    """Bytes of shared memory a K8 block may stage with ``blocks_per_sm``
+    blocks on each SM, by the occupancy calculator on the card."""
+    key = (device, blocks_per_sm)
+    if key not in _budgets:
+        out = ctypes.c_int(0)
+        fn = build.function(SOURCE, "ring_encode_stage_budget", _BUDGET_ARGS)
+        with torch.cuda.device(device):  # the C side sizes the current device
+            status = fn(blocks_per_sm, ctypes.byref(out))
+        build.check(status, "ring_encode_stage_budget")
+        _budgets[key] = out.value
+    return _budgets[key]
+
+
+def device_encode_plan(device, n: int) -> EncodePlan:
+    """The plan K8 launches with for a chunk of ``n`` on ``device``."""
+    key = (device, n)
+    if key not in _plans:
+        sms = build.sm_count(device)
+        bps = encode_blocks_per_sm(n, sms)
+        _plans[key] = encode_plan(n, sms, stage_budget(device, bps), bps)
+    return _plans[key]
+
+
+# K8's per-block maxima, one buffer per (device, stream).  A launch writes
+# every slot it reads before the grid barrier, so the buffer is never
+# zeroed (no memset), and calls in one stream never share it in flight.  A
+# buffer made while a graph is captured belongs to that graph and is not
+# kept (as K5's counters): warm up on the capture stream.
+_partials: dict = {}
+
+
+def _encode_partials(device, stream: int) -> torch.Tensor:
+    have = _partials.get((device, stream))
+    if have is not None:
+        return have
+    fresh = torch.empty(ENCODE_MAX_GRID, dtype=torch.int32, device=device)
+    if not torch.cuda.is_current_stream_capturing():
+        _partials[(device, stream)] = fresh
+    return fresh
+
+
+def _launch_encode(v: torch.Tensor, residual: bool, plan: EncodePlan | None = None):
+    """K8 on the card: ``(q, scale)`` or ``(q, scale, err)``; ``plan``
+    defaults to :func:`device_encode_plan`."""
     if v.dim() != 1:
         raise ValueError(f"ring codec kernel takes a flat chunk, got shape {tuple(v.shape)}")
     _check("v", v, torch.float32, v.device)
     n = v.numel()
+    plan = plan or device_encode_plan(v.device, n)
     q = torch.empty(n, dtype=torch.int8, device=v.device)
     scale = torch.empty(1, dtype=torch.float32, device=v.device)
     err = torch.empty(n, dtype=torch.float32, device=v.device) if residual else None
-    amax = torch.empty(1, dtype=torch.int32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    partials = _encode_partials(v.device, stream)
     fn = build.function(SOURCE, ENCODE, _ENCODE_ARGS)
-    status = fn(v.data_ptr(), n, q.data_ptr(), scale.data_ptr(),
-                err.data_ptr() if residual else None, amax.data_ptr(),
-                8 * build.sm_count(v.device), build.stream_handle(v.device))
+    with torch.cuda.device(v.device):  # the C side sizes and launches on the current device
+        status = fn(v.data_ptr(), n, q.data_ptr(), scale.data_ptr(),
+                    err.data_ptr() if residual else None, partials.data_ptr(), plan.grid,
+                    plan.slice // 4, plan.staged // 4, ctypes.c_void_p(stream))
     build.check(status, ENCODE)
     build.count_launch(ENCODE)
     return (q, scale, err) if residual else (q, scale)
+
+
+def graph_census(graph: torch.cuda.CUDAGraph) -> dict:
+    """Kernel nodes, cooperative kernel nodes and memset nodes of a graph
+    captured with ``keep_graph=True``."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = build.function(SOURCE, "ring_codec_graph_census", _CENSUS_ARGS)
+    build.check(fn(graph.raw_cuda_graph(), *(ctypes.byref(x) for x in out)),
+                "ring_codec_graph_census")
+    return dict(zip(("kernels", "cooperative", "memsets"), (x.value for x in out)))
 
 
 def _launch_decode_add(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:

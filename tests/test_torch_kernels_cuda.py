@@ -753,8 +753,11 @@ def _bits_equal(a, b):
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
-@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 4096, 4097, 669_379, 1_338_757])
-@pytest.mark.parametrize("kind", ["normal", "zero", "nan", "inf", "tiny"])
+# 9,231,114: the whole VGG gradient as one chunk, past what K8 stages on
+# chip.  "max_last" and "nan_last" put the largest |v| or a NaN in the last
+# element: K8's last block, its ragged tail where n % 4 != 0.
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 4096, 4097, 669_379, 1_338_757, 9_231_114])
+@pytest.mark.parametrize("kind", ["normal", "zero", "nan", "inf", "tiny", "max_last", "nan_last"])
 def test_ring_codec_kernels_bitwise(cuda, n, kind):
     from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
 
@@ -767,6 +770,10 @@ def test_ring_codec_kernels_bitwise(cuda, n, kind):
         v[n // 3] = float("inf")
     elif kind == "tiny":
         v *= 1e-38  # subnormal scale: no flush to zero
+    elif kind == "max_last":
+        v[-1] = -1.0
+    elif kind == "nan_last":
+        v[-1] = float("nan")
     acc = torch.randn(n, device="cuda", generator=cuda)
     build.reset_launch_counts()
     q, scale, err = rc.encode_int8_residual(v)
@@ -781,6 +788,44 @@ def test_ring_codec_kernels_bitwise(cuda, n, kind):
                       (added, rc.decode_add_int8_reference(wq, wscale, acc.clone())),
                       (dec, rc.decode_int8_reference(wq, wscale, n))):
         assert _bits_equal(got, want)
+
+
+def test_ring_encode_graphs_replay_bitwise(cuda):
+    """K8 captured on a fresh stream: one graph replayed twice, then two
+    graphs replayed out of order, each time bit for bit the plain version
+    (the per-stream partials buffer needs no reset between replays)."""
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graphs = []
+    for n in (1_638_400, 669_379):
+        v = torch.randn(n, device="cuda", generator=cuda) * 0.01
+        v[n // 3] = 2.0
+        with torch.cuda.stream(stream):
+            rc.encode_int8_residual(v)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            outs = (*rc.encode_int8_residual(v), *rc.encode_int8(v))
+        wq, ws, we = rc.encode_int8_residual_reference(v)
+        graphs.append((graph, v, outs, (wq, ws, we, wq, ws)))  # v outlives the graph
+    for i in (0, 0, 1, 0, 1, 1):
+        graph, _, outs, want = graphs[i]
+        for t in outs:
+            t.fill_(3)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(_bits_equal(a, b) for a, b in zip(outs, want))
+
+
+def test_ring_encode_refuses_a_grid_that_cannot_be_resident(cuda):
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    v = torch.randn(4 * rc.ENCODE_MAX_GRID * 64, device="cuda", generator=cuda)
+    with pytest.raises(RuntimeError):
+        rc._launch_encode(v, True, rc.EncodePlan(rc.ENCODE_MAX_GRID, 256, 256))
+    torch.cuda.synchronize()
 
 
 def test_ring_codec_kernels_refuse_what_they_do_not_take(cuda):

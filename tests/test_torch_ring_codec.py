@@ -145,3 +145,22 @@ def test_wire_bytes_vs_jax():
     assert tring._bucket_bounds(9_231_114, 25 * 2**20, 4) == \
         jring._bucket_bounds(9_231_114, 25 * 2**20, 4) == \
         [(0, 6_553_600), (6_553_600, 9_231_114)]
+
+
+# K8's launch plan on an H100 (132 SMs, 227 KB of shared memory a block at
+# one block an SM, 113 KB at two): the path's chunk lengths, edges, and the
+# whole VGG gradient as one chunk (past what shared memory can stage).
+@pytest.mark.parametrize("n", [1, 3, 4, 4097, 669_379, 1_638_400, 3_276_800, 9_231_114])
+def test_encode_plan_covers_the_chunk(n):
+    for blocks_per_sm, smem in ((1, 232_448), (2, 115_200)):
+        plan = trc.encode_plan(n, 132, smem, blocks_per_sm)
+        assert 1 <= plan.grid <= 132 * blocks_per_sm
+        assert plan.slice % 4 == 0 and plan.staged % 4 == 0 and plan.staged <= plan.slice
+        assert plan.staged * 4 <= smem
+        slices = trc.encode_slices(plan, n)
+        assert [s[0] for s in slices] == [b * plan.slice for b in range(plan.grid)]
+        assert slices[-1][2] == n  # the tail is the last block's
+        edges = [0] + [e for s in slices for e in (s[0], s[2])] + [n]
+        assert edges[0::2] == edges[1::2]  # owned once each, in order, no gap
+        assert all(s[0] <= s[1] <= s[2] for s in slices)
+        assert (n // 4 > 132 * blocks_per_sm * (smem // 16)) == (plan.staged < plan.slice)

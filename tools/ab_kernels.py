@@ -2,7 +2,7 @@
 """Kernel and prefill timings of one checkout, for parent-vs-change pairs.
 
 Run from the root of a checkout on a machine with a CUDA card:
-    python3 tools/ab_kernels.py TREE
+    python3 tools/ab_kernels.py TREE [--codec-only]
 
 TREE is a directory holding a checkout of the repo (this one, or an older
 commit unpacked with ``git archive``).  Imports that tree's
@@ -13,11 +13,18 @@ its library call), times K5 at the engine's decode step (inputs built
 here: :func:`paged_step_inputs`; called through ``paged_flash_attention``,
 whose signature every tree shares; beside the gather of the pages + SDPA),
 then times its bf16 and int8-weight generate (prefill + first token and the
-decode step, ``chip_smoke.time_serving``).  Prints one line per timed
-kernel and a last JSON line of every row's numbers.  Compare two versions
-inside one call, in turns: parent, change, change, parent.
+decode step, ``chip_smoke.time_serving``).  The int8 ring codec: the
+tree's ``check_codec`` (bit for bit), then K8 with and without the
+residual, K9 and K10 at the VGG path's four chunk lengths, operands rotated
+out of L2 (``chip_smoke.time_codec``; a tree older than that function is
+timed by this checkout's, so both sides of a pair run one timing code).
+``--codec-only`` builds ``ring_codec.cu`` alone and times the codec alone.
+Prints one line per timed kernel and a last JSON line of every row's
+numbers.  Compare two versions inside one call, in turns: parent, change,
+change, parent.
 """
 
+import importlib.util
 import json
 import sys
 import time
@@ -26,6 +33,22 @@ from pathlib import Path
 # The lanes' positions at the engine decode step that chip_smoke.py's engine
 # phase times K5 at (its seeded traffic gives these; it logs them).
 ENGINE_STEP_POSITIONS = (4097, 301, 2944, 3504, 2193, 1808, 3697, 650)
+
+
+def time_codec(torch, smoke, rc, rows: dict) -> None:
+    """The tree's codec checks, then its K8-K10 timed by the tree's
+    ``time_codec`` at its ``CODEC_PATH_LENGTHS``.  A tree older than that
+    function is timed by this checkout's (drop this once no compared parent
+    lacks it)."""
+    smoke.check_codec(torch, rc, rows, False)
+    timer = getattr(smoke, "time_codec", None)
+    if timer is None:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_codec_timing", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        timer = mod.time_codec
+    timer(torch, rc, rows)
 
 
 def paged_step_inputs(torch, smoke):
@@ -89,6 +112,8 @@ def time_paged_step(torch, smoke, da, rows: dict) -> None:
 
 
 def main(argv) -> int:
+    codec_only = "--codec-only" in argv
+    argv = [a for a in argv if a != "--codec-only"]
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -102,6 +127,7 @@ def main(argv) -> int:
     from distributed_machine_learning_tpu_torch.ops import decode_attention as da
     from distributed_machine_learning_tpu_torch.ops import flash_attention as fa
     from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
     from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
 
     if not torch.cuda.is_available():
@@ -113,9 +139,12 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smoke.log(f"tree {tree}; card: {smoke.card_line()}")
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(["ring_codec"] if codec_only else build.SOURCES)
     smoke.log(f"build {time.perf_counter() - t0:.1f} s")
     rows: dict = {}
+    time_codec(torch, smoke, rc, rows)
+    if codec_only:
+        return report(tree, rows)
     smoke.check_flash(torch, fa, rows, True)
     smoke.check_decode(torch, da, rows, True)
     smoke.check_decode_int8(torch, da, rows, True)
@@ -127,6 +156,10 @@ def main(argv) -> int:
     fns = smoke.generate_fns(models)
     for mode in ("bf16", "int8"):
         smoke.time_serving(torch, mode, models[mode], fns[mode], prompt)
+    return report(tree, rows)
+
+
+def report(tree: Path, rows: dict) -> int:
     keep = ("ms", "library_ms", "context_ms", "bound_ms", "diag_ms")
     print(json.dumps({"tree": str(tree), "rows": {
         name: {k: row[k] for k in keep if row.get(k) is not None}

@@ -2,7 +2,7 @@
 """Run chip_smoke.py's multi-rank phases alone, on a card per rank.
 
 Run from the root of a checkout on a machine with four CUDA cards:
-    python3 tools/cross_card_phases.py
+    python3 tools/cross_card_phases.py [PHASE ...]
 
 Drives the context-parallel LM ring (``chip_smoke.run_ring``: 4 ranks,
 B 1 x L 16384) and the VGG parts (``chip_smoke.run_vgg``: world 1, 2 and
@@ -15,7 +15,11 @@ and ``cli.lm --parallel dp --num-nodes 4`` at the LM's full width
 reference's protocol lines and name nccl in its banner.  With a card per
 rank the ranks choose nccl (``runtime/distributed.plan_placement``); on
 one card they share it over gloo, as ``chip_smoke.py`` runs them.  Prints
-each kernel's launches over the spawned phases; exits 1 if a phase fails.
+each kernel's launches over the spawned phases (the codec's by chunk length
+and residual); exits 1 if a phase fails.
+PHASE names limit the run to those phases (``ring``, ``vgg``, ``ring cli``,
+``vgg cli``, ``dp cli``), e.g. the VGG ones alone after a change to the
+int8 ring codec.
 """
 
 import os
@@ -91,12 +95,21 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
     print(f"card: {smoke.card_line()}; {cards} cards", flush=True)
     build.build_all()
     rows = {name: {} for name in build.KERNELS}
+    rows.update({smoke.codec_row(k, n, r): {} for k in smoke.CODEC_KERNELS
+                 for n in smoke.CODEC_PATH_LENGTHS for r in (True, False)
+                 if r or k == "ring_encode_int8"})  # the codec's launches by row
     backend = "nccl" if cards >= DP_CLI["world"] else "gloo"
-    phases = (("ring", lambda: smoke.run_ring(torch, rows)),
+    phases = [("ring", lambda: smoke.run_ring(torch, rows)),
               ("vgg", lambda: smoke.run_vgg(torch, rows)),
               ("ring cli", lambda: smoke.run_ring_cli(torch, backend)),
               ("vgg cli", lambda: smoke.run_vgg_cli(torch, backend)),
-              ("dp cli", lambda: run_dp_cli(smoke, backend)))
+              ("dp cli", lambda: run_dp_cli(smoke, backend))]
+    chosen = sys.argv[1:] or [name for name, _ in phases]
+    unknown = set(chosen) - {name for name, _ in phases}
+    if unknown:
+        print(f"cross_card_phases: unknown phases {sorted(unknown)}", file=sys.stderr)
+        sys.exit(2)
+    phases = [(name, phase) for name, phase in phases if name in chosen]
     failed = []
     for name, phase in phases:
         t0 = time.perf_counter()
