@@ -84,8 +84,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    over host buffers): part1 (world 1, batch 256), part2a, part2b and part3
    (world 2, batch 64 a rank) and part3 with ``--ring-compress int8
    --ring-codec-impl pallas`` (world 4), 40 iterations each.  Launch counts
-   are zeroed just before and read just after in every rank: K8/K9/K10
-   once per bucket per hop as the formula says, and nowhere else.  Gates:
+   are zeroed just before and read just after in every rank: K8 and K9
+   once per bucket per hop, K10 once per bucket (the all-gather's batched
+   decode), as the formula says, and nowhere else.  Gates:
    losses finite (falling for the BN parts; the BN-free parts sit on the ln
    10 plateau for the reference's 40 iterations); every rank's synced
    gradients bit for bit equal; one int8 step through the kernels equal
@@ -114,9 +115,12 @@ and K10 to their plain versions BIT FOR BIT at the VGG path's chunk
 lengths, a single element, a ragged length, a length past what K8 can
 stage on chip, an all-zero and a NaN chunk, and chunks whose largest |v|
 or NaN sits in K8's last block; K8 also in CUDA graphs replayed twice and
-out of order.  A profiler trace of one K8 call must show one kernel and no
-memset.  All three are timed at the VGG path's four chunk lengths, K8 with
-and without the residual.
+out of order; the batched K10 at the all-gather's (world, chunk) points,
+rows in the ring's order, in one launch.  A profiler trace of one K8 call
+must show one kernel and no memset, and one of an int8 ring call one K10
+kernel for its all-gather and no copy after it.  All three are timed at the
+VGG path's four chunk lengths, K8 with and without the residual, and the
+all-gather's decode per ring call beside its bound and one ``torch.mul``.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
@@ -283,9 +287,18 @@ PERTURBATIONS = {
     "codec-no-scale-truncation": (
         "ring_codec", "return __uint_as_float(__float_as_uint(s) & SCALE_MASK);",
         "return s;"),
-    # K9 skips the ragged tail (a length that is no multiple of 4).
+    # K9's last block skips the ragged tail (n % 16 elements).
     "codec-decode-add-skip-tail": (
         "ring_codec", "acc[j] = acc[j] + static_cast<float>(q[j]) * s;", "(void)j;"),
+    # The batched K10 drops the last row of its table.
+    "codec-rows-skip-last": (
+        "ring_codec",
+        "const dim3 grid(static_cast<unsigned>(tiles_for(n)), static_cast<unsigned>(rows));",
+        "const dim3 grid(static_cast<unsigned>(tiles_for(n)), static_cast<unsigned>(rows - "
+        "(rows > 1)));"),
+    # K10 leaves each row's ragged tail (n % 16 elements) unwritten.
+    "codec-decode-drop-tail16": (
+        "ring_codec", "dst[j] = static_cast<float>(q[j]) * s;", "(void)j;"),
     # After K8's grid barrier each block scales by its own max alone.
     "codec-own-partial-only": (
         "ring_codec",
@@ -405,6 +418,15 @@ def raise_failed(failed: list) -> None:
         raise AssertionError(f"outside tolerance: {'; '.join(failed)}")
 
 
+def plain_decode_rows(qs, scales, dsts, length: int) -> None:
+    """K10's launcher as its plain version: each row decoded into its
+    destination."""
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    for q, scale, dst in zip(qs, scales, dsts):
+        dst.copy_(rc.decode_int8_reference(q, scale, length))
+
+
 @contextlib.contextmanager
 def plain_kernels(ring_block: int | None = None):
     """Route the model's, the trainers', the ring codec's and the ring
@@ -454,7 +476,7 @@ def plain_kernels(ring_block: int | None = None):
                  rc.encode_int8_residual_reference(v) if residual
                  else rc.encode_int8_reference(v))),
              (rc, "_launch_decode_add", rc.decode_add_int8_reference),
-             (rc, "_launch_decode", rc.decode_int8_reference),
+             (rc, "_launch_decode_rows", plain_decode_rows),
              (rf, "_launch_fwd", in_place(rf.chunk_fwd_reference, 3)),
              (rf, "_launch_dq", in_place(rf.chunk_dq_reference, 1)),
              (rf, "_launch_dkv", in_place(rf.chunk_dkv_reference, 2))]
@@ -718,17 +740,24 @@ def check_adamw(torch, fadam, rows: dict, timing: bool) -> None:
 CODEC_PATH_LENGTHS = (1_638_400, 669_379, 3_276_800, 1_338_757)
 CODEC_OVER_CAPACITY = 9_231_114
 CODEC_LENGTHS = (*CODEC_PATH_LENGTHS, 1, 4097, CODEC_OVER_CAPACITY)
+# The all-gather's batched K10 at the path's (world, chunk length) points:
+# world 4 is the part3 int8 phase, world 2 the cli.part3 run.
+CODEC_ALLGATHER = ((4, 1_638_400), (4, 669_379), (2, 3_276_800), (2, 1_338_757))
 CODEC_SETS = 8  # fewest buffer sets the codec timings rotate over (past the L2)
 CODEC_ROTATE_BYTES = 200e6  # operand bytes the sets span at least (4x the L2)
 
 
 def codec_row(name: str, n: int, residual: bool = True,
-              first: int = CODEC_PATH_LENGTHS[0]) -> str:
+              first: int = CODEC_PATH_LENGTHS[0], rows: int = 1) -> str:
     """The key of a codec kernel's row at chunk length ``n``: the bare name
     at ``first`` (K8 with the residual), ``name:n=N`` at other lengths,
-    ``ring_encode_int8:n=N,no_residual`` for K8 without the residual."""
+    ``ring_encode_int8:n=N,no_residual`` for K8 without the residual,
+    ``ring_decode_int8:rows=W,n=N`` for a K10 launch of W > 1 rows (the
+    all-gather's)."""
     if not residual:
         return f"{name}:n={n},no_residual"
+    if rows > 1:
+        return f"{name}:rows={rows},n={n}"
     return name if n == first else f"{name}:n={n}"
 
 
@@ -738,7 +767,7 @@ def codec_row_tally(tally: dict):
     (the wrappers count per kernel), passing every call on."""
     from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
 
-    saved = rc._launch_encode, rc._launch_decode_add, rc._launch_decode
+    saved = rc._launch_encode, rc._launch_decode_add, rc._launch_decode_rows
 
     def count(key):
         tally[key] = tally.get(key, 0) + 1
@@ -751,15 +780,16 @@ def codec_row_tally(tally: dict):
         count(codec_row("ring_decode_add_int8", acc.numel()))
         return saved[1](q, scale, acc)
 
-    def decode(q, scale, length):
-        count(codec_row("ring_decode_int8", length))
-        return saved[2](q, scale, length)
+    def decode_rows(qs, scales, dsts, length):
+        count(codec_row("ring_decode_int8", length, rows=len(dsts)))
+        return saved[2](qs, scales, dsts, length)
 
-    rc._launch_encode, rc._launch_decode_add, rc._launch_decode = encode, decode_add, decode
+    rc._launch_encode, rc._launch_decode_add, rc._launch_decode_rows = (
+        encode, decode_add, decode_rows)
     try:
         yield
     finally:
-        rc._launch_encode, rc._launch_decode_add, rc._launch_decode = saved
+        rc._launch_encode, rc._launch_decode_add, rc._launch_decode_rows = saved
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -805,12 +835,48 @@ def check_codec(torch, rc, rows: dict, timing: bool) -> None:
             f"{'ok' if not bad else 'BAD: ' + ', '.join(bad)}")
         failed += [f"{name} {label}" for name in bad]
     failed += check_codec_graphs(torch, rc, gen)
+    failed += check_decode_rows(torch, rc, gen)
     for name in ("ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8"):
         rows[name] = {"max_abs_err": 0.0 if not failed else float("nan")}
     raise_failed(failed)
     if timing:
         codec_trace(torch, rc)
+        ring_call_trace(torch)
         time_codec(torch, rc, rows)
+
+
+def allgather_case(torch, rc, world: int, n: int, gen):
+    """The all-gather's decode at (world, n) as the ring lays it out: W
+    payloads, a [W, n rounded up to 16] f32 out, the rows in the ring's
+    order on rank 0 (its own, 1, then each arrival's: 0, W-1, ..., 2)."""
+    payloads = [rc.encode_int8(0.01 * torch.randn(n, device="cuda", generator=gen))
+                for _ in range(world)]
+    out = torch.empty(world, -(-n // 16) * 16, device="cuda")
+    return payloads, out, [1 % world] + [(-s) % world for s in range(world - 1)]
+
+
+def check_decode_rows(torch, rc, gen) -> list:
+    """The batched K10 bit for bit its plain version at the all-gather's
+    (world, n) points: every element of ``out``, pad columns included (both
+    start from the same sentinel bits), and one launch a call.  Returns the
+    names of the failed checks."""
+    from distributed_machine_learning_tpu_torch.ops import build
+
+    failed = []
+    for world, n in CODEC_ALLGATHER:
+        payloads, out, order = allgather_case(torch, rc, world, n, gen)
+        out.view(torch.int32).copy_(torch.arange(out.numel(), device="cuda").view(out.shape))
+        want = rc.decode_rows_int8_reference(payloads, out.clone(), order, n)
+        before = build.launches[rc.DECODE]
+        got = rc.decode_rows_int8(payloads, out, order, n)
+        torch.cuda.synchronize()
+        launches = build.launches[rc.DECODE] - before
+        ok = bits_equal(torch, got, want) and launches == 1
+        log(f"  ring codec batched K10 W={world} n={n} rows {order}: {launches} launch(es), "
+            f"bitwise {'ok' if ok else 'BAD'}")
+        if not ok:
+            failed.append(f"batched K10 W={world} n={n}")
+    return failed
 
 
 def check_codec_graphs(torch, rc, gen) -> list:
@@ -889,6 +955,50 @@ def codec_trace(torch, rc) -> None:
     raise_failed(failed)
 
 
+class MirrorComm:
+    """A ring of ``world`` ranks in one process whose every hop hands back
+    what was sent: it drives ``ring_all_reduce_flat``'s kernels, in the
+    path's order, without a second process (the sums are not a real
+    all-reduce's)."""
+
+    def __init__(self, world: int):
+        self.world, self.rank = world, 0
+
+    def send_recv(self, payload, dst, src):
+        return tuple(payload)
+
+
+def ring_call_trace(torch) -> None:
+    """The profiler's device events of one int8 ring call as the path makes
+    it (world 4, the first 25 MiB bucket, mean, the residual): the
+    all-gather's W decodes are ONE K10 kernel, and no copy kernel or memcpy
+    runs after it (its rows land in the output; chunk 1,638,400 is a
+    multiple of 16, so the result is a view)."""
+    from distributed_machine_learning_tpu_torch.ops import ring
+
+    world, n = CODEC_ALLGATHER[0]
+    x = 0.01 * torch.randn(world * n, device="cuda")
+    scheme, comm = ring.Int8Scheme("pallas"), MirrorComm(world)
+    ring.ring_all_reduce_flat(x, comm, mean=True, scheme=scheme, return_residual=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ring.ring_all_reduce_flat(x, comm, mean=True, scheme=scheme, return_residual=True)
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    decodes = [start for start, name in events if "decode_rows_kernel" in name]
+    after = [name for start, name in events
+             if decodes and start > decodes[0] and "copy" in name.lower()]
+    counts = {k: sum(k in name for _, name in events)
+              for k in ("encode_kernel", "decode_add_kernel", "decode_rows_kernel")}
+    log(f"  int8 ring call trace (W {world}, chunk {n}): {len(events)} device events, codec "
+        f"kernels {counts}, copies after K10: {after}")
+    if len(decodes) != 1 or after:
+        raise AssertionError(f"int8 ring call: {len(decodes)} K10 kernels, copies after it "
+                             f"{after}")
+
+
 def time_codec(torch, rc, rows: dict, lengths=CODEC_PATH_LENGTHS) -> None:
     """K8 (with and without the residual), K9 and K10 at each chunk length,
     each call finding its operands out of L2 as a hop does: the captured
@@ -945,15 +1055,56 @@ def time_codec(torch, rc, rows: dict, lengths=CODEC_PATH_LENGTHS) -> None:
                 plain_ms=per_call(lambda i: rc.decode_int8_reference(*encs[i], n), iters=3),
                 library_ms=per_call(lambda i: encs[i][0].float().mul_(encs[i][1])),
                 **bound(1.0 * n, F32_FLOPS, 5 * n + 4),
-                shape=shape + "; library: q.float().mul_(scale)")}
+                shape=shape + "; one row; library: q.float().mul_(scale)")}
         for key, row in timed.items():
-            base = rows.get(key.split(":")[0], {})
-            rows.setdefault(key, {"max_abs_err": base.get("max_abs_err", 0.0)}).update(row)
-            library = row["library_ms"]
-            log(f"  {key}: {row['ms']:.5f} ms ({row['bound_ms'] / row['ms']:.1%} of the "
-                f"{row['bound_ms']:.5f} ms bound), plain {row['plain_ms']:.4f}, library "
-                + ("none" if library is None else f"{library:.5f}"))
+            log_codec_row(rows, key, row)
         del vs, accs, encs
+    time_allgather(torch, rc, rows)
+
+
+def log_codec_row(rows: dict, key: str, row: dict) -> None:
+    base = rows.get(key.split(":")[0], {})
+    rows.setdefault(key, {"max_abs_err": base.get("max_abs_err", 0.0)}).update(row)
+    library = row["library_ms"]
+    log(f"  {key}: {row['ms']:.5f} ms ({row['bound_ms'] / row['ms']:.1%} of the "
+        f"{row['bound_ms']:.5f} ms bound), plain {row['plain_ms']:.4f}, library "
+        + ("none" if library is None else f"{library:.5f}"))
+
+
+def time_allgather(torch, rc, rows: dict) -> None:
+    """The all-gather's decode work per ring call at each CODEC_ALLGATHER
+    point: ``out`` allocated as the ring does (``torch.empty``) and the W
+    payloads decoded into it by one batched K10 call, operands rotated out
+    of L2 as ``time_codec`` does.  Bound: 5·W·n + 4·W bytes; library:
+    ``torch.mul`` of the W codes stacked into one [W, n] int8 tensor (outside
+    the timed region) by the W scales, into ``out[:, :n]``."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for world, n in CODEC_ALLGATHER:
+        sets = max(CODEC_SETS, math.ceil(CODEC_ROTATE_BYTES / (5 * world * n)))
+        cases = [allgather_case(torch, rc, world, n, gen) for _ in range(sets)]
+        stacked = [(torch.stack([q for q, _ in p]), torch.cat([s for _, s in p]))
+                   for p, _, _ in cases]
+        stride = cases[0][1].shape[1]
+
+        def per_call(fn, iters: int = 10) -> float:
+            return time_ms(lambda: [fn(*c) for c in cases], iters=iters) / sets
+
+        def library(i):
+            q2d, scales = stacked[i]
+            torch.mul(q2d, scales.view(-1, 1), out=cases[i][1][:, :n])
+
+        row = dict(
+            ms=per_call(lambda p, _, order: rc.decode_rows_int8(
+                p, torch.empty(world, stride, device="cuda"), order, n)),
+            plain_ms=per_call(lambda p, _, order: rc.decode_rows_int8_reference(
+                p, torch.empty(world, stride, device="cuda"), order, n), iters=3),
+            library_ms=time_ms(lambda: [library(i) for i in range(sets)]) / sets,
+            **bound(1.0 * world * n, F32_FLOPS, 5 * world * n + 4 * world),
+            shape=f"the all-gather's decode per ring call: W={world} payloads of n={n} into a "
+                  f"[{world}, {stride}] f32 out, operands out of L2 (rotated over {sets} sets); "
+                  "library: torch.mul(q2d, scales.view(-1, 1), out=out[:, :n])")
+        log_codec_row(rows, codec_row("ring_decode_int8", n, rows=world), row)
+        del cases, stacked
 
 
 # K4's check positions at S 4608 (both modes, B 8 and B 1): the first
@@ -2158,7 +2309,8 @@ CODEC_KERNELS = ("ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8")
 def codec_launches_per_step(world: int, n_params: int) -> dict:
     """K8/K9/K10 launches per step per rank of the int8 ring with error
     feedback: B buckets, each a ring of W-1 reduce-scatter encodes (with the
-    residual) and one all-gather encode, W-1 decode-adds, W decodes."""
+    residual) and one all-gather encode, W-1 decode-adds and one batched
+    decode of the all-gather's W payloads."""
     from distributed_machine_learning_tpu_torch.ops.ring import (
         DEFAULT_BUCKET_BYTES,
         _bucket_bounds,
@@ -2166,7 +2318,7 @@ def codec_launches_per_step(world: int, n_params: int) -> dict:
 
     b = len(_bucket_bounds(n_params, DEFAULT_BUCKET_BYTES, 4))
     return {"ring_encode_int8": b * world, "ring_decode_add_int8": b * (world - 1),
-            "ring_decode_int8": b * world}
+            "ring_decode_int8": b}
 
 
 def _snapshot(state, step):

@@ -67,10 +67,33 @@
 //   a block, two past it; two bulk copies a slice.  Staging the slice beat
 //   reading v twice (a plan with nothing staged) at every path length.
 //
-// K9 and K10 are grid-stride loops of 16-byte f32 loads (4 elements, their 4
-//   int8 codes in one 4-byte word); the ragged tail (length not a multiple of
-//   4) is finished by the first threads of the grid.  Pointers are 16-byte
-//   aligned (the wrapper checks).
+// K9 and K10 stream: per element K9 reads 1 + 4 bytes and writes 4, K10
+//   reads 1 and writes 4 (9 and 5 bytes: 1.80 and 1.00 us at 669,379
+//   elements at 3.35 TB/s), a few operations each.  At the path's lengths
+//   a whole row is about one latency-bandwidth product of HBM, so what a
+//   call costs beyond its bytes is the launch, the dispatch of its blocks
+//   and one round trip; the designs cut launches and keep every load of a
+//   thread in flight at once.  A lane takes 16 elements: one 16-byte load
+//   of codes, which its warp transposes through shared memory (512 bytes a
+//   warp) so that each of the lane's four 16-byte f32 accesses is part of
+//   512 contiguous bytes of the warp; codes widen to f32 exactly by a byte
+//   permute under 2^23 and one subtraction (not the quarter-rate
+//   int-to-float conversion).
+//   K10 decodes a table of up to DEC_MAX_ROWS rows in ONE launch: (codes,
+//     scale, destination) a row, passed by value as a kernel parameter, every
+//     row of one length n.  The ring's all-gather hands it its W payloads
+//     after the last hop and each row lands straight in the ring's output:
+//     no per-row launch, no intermediate tensor, no row copy (5n bytes a
+//     row).  The grid is (blocks of THREADS x 16 elements, rows); each row's
+//     last block finishes that row's n % 16 tail.
+//   K9 (acc += q * scale, in place) is one wave: the grid is the occupancy
+//     calculator's blocks per SM x SMs, or fewer when the row needs fewer,
+//     with a grid-stride loop past it.  A lane issues its four acc loads and
+//     its code load before the first use; the scale is loaded once, beside
+//     them.  The last block finishes the n % 16 tail.  tools/codec_sweep.py
+//     --k9 times the variants PERF.md reports (L2 eviction policies, staging
+//     by bulk copies) against this one.
+//   Pointers are 16-byte aligned (the wrappers check).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -286,56 +309,155 @@ cudaError_t encode_occupancy(size_t smem, int* blocks) {
   return e;
 }
 
-// K9: acc += q * scale, in place.
+// Four int8 codes (one 32-bit word) as exact f32: each code's byte, sign
+// bit flipped (b + 128 in [0, 255]), becomes the low mantissa byte of 2^23,
+// and 2^23 + 128 is subtracted.  Equal to static_cast<float>(code).
+__device__ __forceinline__ float4 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float BIAS = 8388736.f;  // 2^23 + 128
+  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - BIAS,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - BIAS,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - BIAS,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - BIAS);
+}
+
+__device__ __forceinline__ float4 scaled(const float4& c, float s) {
+  return make_float4(c.x * s, c.y * s, c.z * s, c.w * s);
+}
+
+// The 16-byte accesses of K9 and K10 (i counts 16-byte vectors):
+// tools/codec_sweep.py --k9 builds a variant of these with L2 policies.
+__device__ __forceinline__ uint4 load_codes(const signed char* q, long long i) {
+  return reinterpret_cast<const uint4*>(q)[i];
+}
+__device__ __forceinline__ float4 k9_load_acc(const float* acc, long long i) {
+  return reinterpret_cast<const float4*>(acc)[i];
+}
+__device__ __forceinline__ void k9_store_acc(float* acc, long long i, const float4& a) {
+  reinterpret_cast<float4*>(acc)[i] = a;
+}
+
+// K9's and K10's warp-level layout.  Lane l loads the 16 codes of vector
+// v0 + l (one 16-byte load: the warp reads 512 contiguous bytes) and puts
+// them in its warp's slot of shared memory; after __syncwarp, for k = 0..3,
+// lane l takes code word 32k + l (4 codes) back and accesses f32 vector
+// 32k + l of the warp's 512 elements, so each of the four 16-byte f32
+// accesses of a warp covers 512 contiguous bytes (a thread's own 16 codes
+// would put its four f32 vectors 64 bytes apart: four times the requests).
+constexpr int WARPS = THREADS / 32;
+constexpr int WARP_VECS = 32;  // 16-code vectors a warp iteration (512 elements)
+
+// This lane's code words, transposed through the warp's slot `words` (128
+// words): returns words[32k + lane] in w[k].  `valid` vectors of the warp's
+// 32 exist; a lane past them contributes zero codes.  Every lane calls it.
+__device__ __forceinline__ void warp_codes(const signed char* __restrict__ q, long long v0,
+                                           int valid, int lane, uint32_t* words, uint32_t w[4]) {
+  const uint4 c = lane < valid ? load_codes(q, v0 + lane) : make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();  // the slot's last readers are done
+  reinterpret_cast<uint4*>(words)[lane] = c;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = words[32 * k + lane];
+}
+
+// K9: acc += q * scale, in place (see the note above).  Each warp walks
+// 512-element stretches of the row, a grid-stride loop (warp-uniform
+// bounds); the last block finishes the n % 16 tail.
 __global__ void __launch_bounds__(THREADS)
     decode_add_kernel(const signed char* __restrict__ q, const float* __restrict__ scale,
                       float* __restrict__ acc, long long n) {
-  const float s = *scale;
-  const long long nvec = n / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const long long first = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  for (long long i = first; i < nvec; i += stride) {
-    const char4 c = reinterpret_cast<const char4*>(q)[i];
-    float4 a = reinterpret_cast<const float4*>(acc)[i];
-    a.x = a.x + static_cast<float>(c.x) * s;
-    a.y = a.y + static_cast<float>(c.y) * s;
-    a.z = a.z + static_cast<float>(c.z) * s;
-    a.w = a.w + static_cast<float>(c.w) * s;
-    reinterpret_cast<float4*>(acc)[i] = a;
+  __shared__ uint32_t words[WARPS][4 * WARP_VECS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float s = __ldg(scale);
+  const long long nvec = n / 16;
+  const long long step = static_cast<long long>(gridDim.x) * WARPS * WARP_VECS;
+  for (long long v0 = (static_cast<long long>(blockIdx.x) * WARPS + warp) * WARP_VECS; v0 < nvec;
+       v0 += step) {
+    const int valid = static_cast<int>(min(static_cast<long long>(WARP_VECS), nvec - v0));
+    float4 a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (32 * k + lane < 4 * valid) a[k] = k9_load_acc(acc, 4 * v0 + 32 * k + lane);
+    uint32_t w[4];
+    warp_codes(q, v0, valid, lane, words[warp], w);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (32 * k + lane >= 4 * valid) continue;
+      const float4 d = widen4(w[k]);
+      a[k].x = a[k].x + d.x * s;
+      a[k].y = a[k].y + d.y * s;
+      a[k].z = a[k].z + d.z * s;
+      a[k].w = a[k].w + d.w * s;
+      k9_store_acc(acc, 4 * v0 + 32 * k + lane, a[k]);
+    }
   }
-  if (first < n - nvec * 4) {
-    const long long j = nvec * 4 + first;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < n - nvec * 16) {
+    const long long j = nvec * 16 + threadIdx.x;
     acc[j] = acc[j] + static_cast<float>(q[j]) * s;
   }
 }
 
-// K10: out = q * scale.
+// K10's row table, passed by value (DEC_MAX_ROWS x 24 bytes of the kernel
+// parameter space).
+constexpr int DEC_MAX_ROWS = 32;  // ring_codec.DECODE_ROWS_MAX
+struct DecodeRows {
+  const signed char* q[DEC_MAX_ROWS];
+  const float* scale[DEC_MAX_ROWS];
+  float* dst[DEC_MAX_ROWS];
+};
+
+// K10: dst_r = q_r * scale_r for row r = blockIdx.y; each warp one
+// 512-element stretch (the layout above); the row's last block finishes
+// its n % 16 tail.
 __global__ void __launch_bounds__(THREADS)
-    decode_kernel(const signed char* __restrict__ q, const float* __restrict__ scale,
-                  float* __restrict__ out, long long n) {
-  const float s = *scale;
-  const long long nvec = n / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const long long first = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  for (long long i = first; i < nvec; i += stride) {
-    const char4 c = reinterpret_cast<const char4*>(q)[i];
-    float4 o;
-    o.x = static_cast<float>(c.x) * s;
-    o.y = static_cast<float>(c.y) * s;
-    o.z = static_cast<float>(c.z) * s;
-    o.w = static_cast<float>(c.w) * s;
-    reinterpret_cast<float4*>(out)[i] = o;
+    decode_rows_kernel(const __grid_constant__ DecodeRows rows, long long n) {
+  __shared__ uint32_t words[WARPS][4 * WARP_VECS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const signed char* __restrict__ q = rows.q[blockIdx.y];
+  float* __restrict__ dst = rows.dst[blockIdx.y];
+  const float s = __ldg(rows.scale[blockIdx.y]);
+  const long long nvec = n / 16;
+  const long long v0 = (static_cast<long long>(blockIdx.x) * WARPS + warp) * WARP_VECS;
+  if (v0 < nvec) {
+    const int valid = static_cast<int>(min(static_cast<long long>(WARP_VECS), nvec - v0));
+    uint32_t w[4];
+    warp_codes(q, v0, valid, lane, words[warp], w);
+    float4* out = reinterpret_cast<float4*>(dst) + 4 * v0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (32 * k + lane < 4 * valid) out[32 * k + lane] = scaled(widen4(w[k]), s);
   }
-  if (first < n - nvec * 4) {
-    const long long j = nvec * 4 + first;
-    out[j] = static_cast<float>(q[j]) * s;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < n - nvec * 16) {
+    const long long j = nvec * 16 + threadIdx.x;
+    dst[j] = static_cast<float>(q[j]) * s;
   }
 }
 
-int grid_for(long long n, int max_blocks) {
-  const long long work = n / 4 > 0 ? n / 4 : 1;
-  const long long blocks = (work + THREADS - 1) / THREADS;
-  return static_cast<int>(blocks < max_blocks ? blocks : max_blocks);
+// Blocks of THREADS that cover n elements at 16 a thread (at least one).
+long long tiles_for(long long n) {
+  const long long tiles = (n / 16 + THREADS - 1) / THREADS;
+  return tiles > 0 ? tiles : 1;
+}
+
+// K9's grid on the current device: one wave (the occupancy calculator's
+// blocks per SM x SMs, cached per device), or fewer if n needs fewer.
+cudaError_t decode_add_grid(long long n, int* grid) {
+  static int waves[MAX_DEVICES] = {};  // 0: not asked yet
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (waves[dev] == 0) {
+    int sms, fit;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, decode_add_kernel, THREADS, 0);
+    if (e != cudaSuccess) return e;
+    waves[dev] = fit * sms;
+  }
+  const long long tiles = tiles_for(n);
+  *grid = static_cast<int>(tiles < waves[dev] ? tiles : waves[dev]);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -428,22 +550,33 @@ extern "C" int ring_codec_graph_census(void* graph, int* kernels, int* cooperati
   return 0;
 }
 
-// K9.  q: n int8; scale: one f32; acc: n f32, updated in place.
+// K9 on the current device.  q: n int8; scale: one f32; acc: n f32,
+// updated in place.
 extern "C" int ring_decode_add_int8(const void* q, const void* scale, void* acc, long long n,
-                                    int max_blocks, void* stream) {
+                                    void* stream) {
   if (n <= 0) return 0;
-  decode_add_kernel<<<grid_for(n, max_blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int grid;
+  cudaError_t e = decode_add_grid(n, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_add_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const signed char*>(q), static_cast<const float*>(scale),
       static_cast<float*>(acc), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10.  q: n int8; scale: one f32; out: n f32.
-extern "C" int ring_decode_int8(const void* q, const void* scale, void* out, long long n,
-                                int max_blocks, void* stream) {
-  if (n <= 0) return 0;
-  decode_kernel<<<grid_for(n, max_blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(out), n);
+// K10, one launch for `rows` (1..DEC_MAX_ROWS) rows of n elements: row r
+// decodes q[r] (n int8) by scale[r] (one f32) into dst[r] (n f32).
+extern "C" int ring_decode_rows_int8(const void* const* q, const void* const* scale,
+                                     void* const* dst, int rows, long long n, void* stream) {
+  if (rows < 1 || rows > DEC_MAX_ROWS || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  DecodeRows table = {};
+  for (int r = 0; r < rows; ++r) {
+    table.q[r] = static_cast<const signed char*>(q[r]);
+    table.scale[r] = static_cast<const float*>(scale[r]);
+    table.dst[r] = static_cast<float*>(dst[r]);
+  }
+  const dim3 grid(static_cast<unsigned>(tiles_for(n)), static_cast<unsigned>(rows));
+  decode_rows_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(table, n);
   return static_cast<int>(cudaGetLastError());
 }

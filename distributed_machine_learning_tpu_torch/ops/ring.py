@@ -17,17 +17,20 @@ tests hold them to it):
 - all-gather: the owned chunks circulate; with a lossy codec the owner
   encodes its chunk once, stores decode(encode(own)) like every receiver,
   and the *encoded* payload is relayed bit-exactly, so every rank ends
-  with identical bits (the replication invariant);
+  with identical bits (the replication invariant); the W payloads are
+  kept and decoded after the last hop, in one ``decode_rows`` call that
+  writes each straight into its row of the output;
 - the error-feedback residual is this rank's send errors plus, on its own
   chunk, the broadcast encode's loss (× n under mean).
 
 Wire codecs (``WireScheme``): ``none``, ``bf16`` (cast), ``int8`` (per
 chunk symmetric int8 + one f32 scale; ``impl="pallas"`` routes to the
-hand-written kernels K8-K10 of ``ops/ring_codec.py``, ``"xla"`` to their
-plain versions — the names are the reference's ``--ring-codec-impl``
-values, so a JAX command line runs unchanged) and ``topk``.  Each rank's
-chunk rows start on 16-element boundaries so every chunk view is 16-byte
-aligned for the kernels.  ``ring_all_gather_flat`` and ``topology=`` are
+hand-written kernels K8-K10 of ``ops/ring_codec.py`` (the all-gather's W
+decodes are one K10 launch), ``"xla"`` to their plain versions — the
+names are the reference's ``--ring-codec-impl`` values, so a JAX command
+line runs unchanged) and ``topk``.  Each rank's chunk rows start on
+16-element boundaries so every chunk view is 16-byte aligned for the
+kernels.  ``ring_all_gather_flat`` and ``topology=`` are
 not ported (ROADMAP A5).
 """
 
@@ -46,7 +49,9 @@ class WireScheme:
     the exact (identity) scheme.  ``encode(v)`` gives the tensors that go on
     the wire, ``decode(payload, length)`` a dense f32 chunk,
     ``decode_add(payload, acc)`` adds the decode into ``acc`` in place,
-    ``payload_bytes(length)`` the static byte accounting."""
+    ``decode_rows(payloads, out, rows, length)`` decodes each payload into
+    its row of ``out``, ``payload_bytes(length)`` the static byte
+    accounting."""
 
     name = "none"
 
@@ -67,6 +72,12 @@ class WireScheme:
     def decode_add(self, payload: tuple, acc: torch.Tensor) -> torch.Tensor:
         """One arrival: ``acc += decode(payload)``, in place."""
         return acc.add_(self.decode(payload, acc.shape[0]).to(acc.dtype))
+
+    def decode_rows(self, payloads: list, out: torch.Tensor, rows: list, length: int) -> None:
+        """The all-gather's decodes: ``out[rows[k], :length] =
+        decode(payloads[k])``; the rest of ``out`` is left alone."""
+        for payload, i in zip(payloads, rows):
+            out[i, :length] = self.decode(payload, length)
 
 
 class CastScheme(WireScheme):
@@ -126,6 +137,11 @@ class Int8Scheme(WireScheme):
             return super().decode_add(payload, acc)
         q, scale = payload
         return ring_codec.decode_add_int8(q, scale, acc)
+
+    def decode_rows(self, payloads, out, rows, length):
+        if not self._kernels(out):
+            return super().decode_rows(payloads, out, rows, length)
+        ring_codec.decode_rows_int8(payloads, out, rows, length)
 
     def payload_bytes(self, length, itemsize=4):
         return length + 4  # int8 chunk + one f32 scale
@@ -217,7 +233,7 @@ def ring_all_reduce_flat(x: torch.Tensor, comm, mean: bool = False,
     own = rows[own_i, :chunk]
     if mean:
         own = own / n
-    out = torch.zeros_like(rows)
+    out = torch.empty_like(rows)  # every [:chunk] of it is written below
     if scheme is None:
         out[own_i, :chunk] = own
         cur = (own,)
@@ -225,12 +241,11 @@ def ring_all_reduce_flat(x: torch.Tensor, comm, mean: bool = False,
             cur = comm.send_recv(cur, right, left)
             out[(r - s) % n, :chunk] = cur[0]
     else:
-        payload = scheme.encode(own)
-        own_dec = scheme.decode(payload, chunk).to(x.dtype)
-        out[own_i, :chunk] = own_dec
-        for s in range(n - 1):
-            payload = comm.send_recv(payload, right, left)
-            out[(r - s) % n, :chunk] = scheme.decode(payload, chunk)
+        payloads = [scheme.encode(own)]
+        for s in range(n - 1):  # relay each payload as it came; decode after the last hop
+            payloads.append(comm.send_recv(payloads[-1], right, left))
+        scheme.decode_rows(payloads, out, [own_i] + [(r - s) % n for s in range(n - 1)], chunk)
+        own_dec = out[own_i, :chunk]
     result = out[:, :chunk].reshape(-1)[:length]
     if not return_residual:
         return result

@@ -4,9 +4,11 @@ Counterpart of ``distributed_machine_learning_tpu/ops/pallas/ring_codec.py``.
 Each hop of part3's compressed ring (``--ring-compress int8``) quantizes
 the partial it sends (``encode_int8``, with the error-feedback residual
 ``v − q·scale`` when the strategy carries one), adds what arrives into its
-accumulator chunk (``decode_add_int8``) and, in the all-gather, decodes the
-relayed payload (``decode_int8``).  CUDA tensors go through the
-hand-written kernels of ``csrc/ring_codec.cu``; CPU tensors through the
+accumulator chunk (``decode_add_int8``) and, after the all-gather's last
+hop, decodes every payload straight into its row of the ring's output in
+one call (``decode_rows_int8``; ``decode_int8`` is its one-row case).
+CUDA tensors go through the hand-written kernels of
+``csrc/ring_codec.cu``; CPU tensors through the
 plain versions below, which are also what ``Int8Scheme(impl="xla")`` runs
 on either device.  K8 is one cooperative launch (every block resident at
 once, or the launch fails and the wrapper raises) whose grid, slices and
@@ -35,6 +37,7 @@ from distributed_machine_learning_tpu_torch.ops import build
 
 SOURCE = "ring_codec"
 ENCODE, DECODE_ADD, DECODE = "ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8"
+DECODE_ROWS = "ring_decode_rows_int8"  # K10's C entry; it counts as DECODE
 # 0xFFFFFF00 as an int32: zeroes the low 8 mantissa bits of an f32.
 _SCALE_MASK = -256
 _ENCODE_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -42,8 +45,13 @@ _ENCODE_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_vo
                 ctypes.c_longlong, ctypes.c_void_p]
 _BUDGET_ARGS = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 _CENSUS_ARGS = [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)] * 3
-_DECODE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p]
+_DECODE_ADD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_void_p]
+_DECODE_ROWS_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_void_p]
+# Rows of one K10 launch: DEC_MAX_ROWS of csrc/ring_codec.cu (the row table
+# is a kernel parameter); a longer list is split into launches of this many.
+DECODE_ROWS_MAX = 32
 
 
 def truncate_scale(scale: torch.Tensor) -> torch.Tensor:
@@ -91,6 +99,14 @@ def decode_add_int8_reference(q: torch.Tensor, scale: torch.Tensor,
 def decode_int8_reference(q: torch.Tensor, scale: torch.Tensor, length: int) -> torch.Tensor:
     """Plain K10: ``q·scale`` as a new f32 [length]."""
     return q[:length].float() * scale
+
+
+def decode_rows_int8_reference(payloads, out: torch.Tensor, rows, length: int) -> torch.Tensor:
+    """Plain batched K10: ``out[rows[k], :length] = q_k·scale_k`` for each
+    payload ``(q_k, scale_k)``; the rest of ``out`` is left alone."""
+    for (q, scale), i in zip(payloads, rows):
+        out[i, :length] = decode_int8_reference(q, scale, length)
+    return out
 
 
 def _check(name: str, t: torch.Tensor, dtype, device, numel: int | None = None) -> None:
@@ -254,25 +270,35 @@ def _launch_decode_add(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor) 
     _check("acc", acc, torch.float32, acc.device)
     _check("q", q, torch.int8, acc.device, n)
     _check("scale", scale, torch.float32, acc.device, 1)
-    fn = build.function(SOURCE, DECODE_ADD, _DECODE_ARGS)
-    status = fn(q.data_ptr(), scale.data_ptr(), acc.data_ptr(), n,
-                8 * build.sm_count(acc.device), build.stream_handle(acc.device))
+    fn = build.function(SOURCE, DECODE_ADD, _DECODE_ADD_ARGS)
+    with torch.cuda.device(acc.device):  # the C side sizes the grid for the current device
+        status = fn(q.data_ptr(), scale.data_ptr(), acc.data_ptr(), n,
+                    build.stream_handle(acc.device))
     build.check(status, DECODE_ADD)
     build.count_launch(DECODE_ADD)
     return acc
 
 
-def _launch_decode(q: torch.Tensor, scale: torch.Tensor, length: int) -> torch.Tensor:
-    """K10 on the card: ``q·scale`` as a new f32 [length]."""
-    _check("q", q, torch.int8, q.device, length)
-    _check("scale", scale, torch.float32, q.device, 1)
-    out = torch.empty(length, dtype=torch.float32, device=q.device)
-    fn = build.function(SOURCE, DECODE, _DECODE_ARGS)
-    status = fn(q.data_ptr(), scale.data_ptr(), out.data_ptr(), length,
-                8 * build.sm_count(q.device), build.stream_handle(q.device))
-    build.check(status, DECODE)
+def _launch_decode_rows(qs, scales, dsts, length: int) -> None:
+    """K10 on the card, ONE launch: ``dsts[k][:] = qs[k]·scales[k]`` for at
+    most DECODE_ROWS_MAX rows, each of ``length`` elements (16-byte
+    aligned, contiguous; the destinations f32 views, written in place)."""
+    if not 1 <= len(dsts) <= DECODE_ROWS_MAX or not len(qs) == len(scales) == len(dsts):
+        raise ValueError(f"ring codec K10 takes 1 to {DECODE_ROWS_MAX} rows a launch, each "
+                         f"with codes, a scale and a destination; got {len(qs)}, "
+                         f"{len(scales)}, {len(dsts)}")
+    device = dsts[0].device
+    for k, (q, scale, dst) in enumerate(zip(qs, scales, dsts)):
+        _check(f"destination {k}", dst, torch.float32, device, length)
+        _check(f"q {k}", q, torch.int8, device, length)
+        _check(f"scale {k}", scale, torch.float32, device, 1)
+    table = [(ctypes.c_void_p * len(dsts))(*(t.data_ptr() for t in ts))
+             for ts in (qs, scales, dsts)]
+    fn = build.function(SOURCE, DECODE_ROWS, _DECODE_ROWS_ARGS)
+    with torch.cuda.device(device):  # launch where the stream lives
+        status = fn(*table, len(dsts), length, build.stream_handle(device))
+    build.check(status, DECODE_ROWS)
     build.count_launch(DECODE)
-    return out
 
 
 def encode_int8(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -294,7 +320,28 @@ def decode_add_int8(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor) -> 
 
 
 def decode_int8(q: torch.Tensor, scale: torch.Tensor, length: int) -> torch.Tensor:
-    """The all-gather relay's decode: ``q·scale`` as f32 [length]; K10."""
-    if q.is_cuda:
-        return _launch_decode(q, scale, length)
-    return decode_int8_reference(q, scale, length)
+    """One payload's decode: ``q·scale`` as a new f32 [length]; K10 with a
+    table of one row."""
+    if not q.is_cuda:
+        return decode_int8_reference(q, scale, length)
+    out = torch.empty(length, dtype=torch.float32, device=q.device)
+    _launch_decode_rows([q], [scale], [out], length)
+    return out
+
+
+def decode_rows_int8(payloads, out: torch.Tensor, rows, length: int) -> torch.Tensor:
+    """The all-gather's decode: ``out[rows[k], :length] = q_k·scale_k`` for
+    each payload ``(q_k, scale_k)``, straight into ``out`` (f32, 2-D, rows
+    16-byte aligned); K10, one launch per DECODE_ROWS_MAX rows.  Returns
+    ``out``."""
+    if not out.is_cuda:
+        return decode_rows_int8_reference(payloads, out, rows, length)
+    if out.dim() != 2 or len(rows) != len(payloads):
+        raise ValueError(f"ring codec K10 decodes {len(payloads)} payloads into rows {rows} "
+                         f"of a 2-D out, got shape {tuple(out.shape)}")
+    dsts = [out[i, :length] for i in rows]
+    for k in range(0, len(dsts), DECODE_ROWS_MAX):
+        part = payloads[k:k + DECODE_ROWS_MAX]
+        _launch_decode_rows([q for q, _ in part], [s for _, s in part],
+                            dsts[k:k + DECODE_ROWS_MAX], length)
+    return out

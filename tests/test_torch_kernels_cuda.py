@@ -755,8 +755,10 @@ def _bits_equal(a, b):
 
 # 9,231,114: the whole VGG gradient as one chunk, past what K8 stages on
 # chip.  "max_last" and "nan_last" put the largest |v| or a NaN in the last
-# element: K8's last block, its ragged tail where n % 4 != 0.
-@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 4096, 4097, 669_379, 1_338_757, 9_231_114])
+# element: K8's last block, its ragged tail where n % 4 != 0.  15, 16 and
+# 17 sit around K9's and K10's 16-element lane vector.
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 15, 16, 17, 127, 4096, 4097, 669_379, 1_338_757,
+                               9_231_114])
 @pytest.mark.parametrize("kind", ["normal", "zero", "nan", "inf", "tiny", "max_last", "nan_last"])
 def test_ring_codec_kernels_bitwise(cuda, n, kind):
     from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
@@ -849,10 +851,56 @@ def test_ring_codec_kernels_refuse_what_they_do_not_take(cuda):
         rc.decode_add_int8(q.cpu(), scale, v.clone())
 
 
+# The all-gather's batched K10 at lengths around the 16-element lane vector
+# and a path length (669,379 = 16 x 41,836 + 3).
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 669_379])
+@pytest.mark.parametrize("world", [4, 40])
+def test_ring_decode_rows_bitwise(cuda, n, world):
+    """The batched K10 writes each payload's decode into its row of a
+    padded out, rows out of order with the owner's among them, bit for bit
+    the plain version, pad columns untouched; one launch per 32 rows."""
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    payloads = [rc.encode_int8(torch.randn(n, device="cuda", generator=cuda))
+                for _ in range(world)]
+    own = world // 2
+    order = [own] + [i for i in torch.randperm(world, generator=cuda, device="cuda").tolist()
+                     if i != own]
+    out = torch.arange(world * (-(-n // 16) * 16 + 16), device="cuda", dtype=torch.int32)
+    out = out.view(torch.float32).view(world, -1)
+    want = rc.decode_rows_int8_reference(payloads, out.clone(), order, n)
+    build.reset_launch_counts()
+    rc.decode_rows_int8(payloads, out, order, n)
+    torch.cuda.synchronize()
+    assert build.launches["ring_decode_int8"] == -(-world // rc.DECODE_ROWS_MAX)
+    assert _bits_equal(out, want)
+
+
+def test_ring_decode_rows_refuses_what_it_does_not_take(cuda):
+    from distributed_machine_learning_tpu_torch.ops import ring_codec as rc
+
+    q, scale = rc.encode_int8(torch.randn(64, device="cuda", generator=cuda))
+    out = torch.empty(4, 80, device="cuda")
+    with pytest.raises(ValueError):  # a destination off 16-byte alignment
+        rc._launch_decode_rows([q], [scale], [out[0, 1:65]], 64)
+    with pytest.raises(ValueError):  # a row of another length
+        rc._launch_decode_rows([q, q[:48]], [scale, scale], [out[0, :64], out[1, :64]], 64)
+    with pytest.raises(ValueError):  # an int8 destination
+        rc._launch_decode_rows([q], [scale], [torch.empty(64, dtype=torch.int8, device="cuda")],
+                               64)
+    rows = rc.DECODE_ROWS_MAX + 1  # more rows than one table holds, below the split
+    big = torch.empty(rows, 64, device="cuda")
+    with pytest.raises(ValueError):
+        rc._launch_decode_rows([q] * rows, [scale] * rows, list(big), 64)
+    with pytest.raises(ValueError):  # a CPU payload for a CUDA out
+        rc.decode_rows_int8([(q.cpu(), scale)], out, [0], 64)
+
+
 def test_int8_ring_step_kernels_match_plain_codec(cuda):
     """A world-1 ring has no hop, so the path's kernels are exercised on one
     process through the scheme's seams: encode with residual, decode-add,
-    decode of a VGG-sized bucket chunk, kernels vs the "xla" impl."""
+    decode and the all-gather's batched decode of a VGG-sized bucket chunk,
+    kernels vs the "xla" impl."""
     from distributed_machine_learning_tpu_torch.ops import ring
 
     v = torch.randn(1_338_757, device="cuda", generator=cuda)
@@ -863,8 +911,12 @@ def test_int8_ring_step_kernels_match_plain_codec(cuda):
     a1, a2 = acc.clone(), acc.clone()
     ks.decode_add((kq, ks_), a1)
     ps.decode_add((pq, ps_), a2)
+    outs = [torch.zeros(2, 1_338_768, device="cuda") for _ in "kp"]
+    ks.decode_rows([(kq, ks_), (kq, ks_)], outs[0], [1, 0], v.numel())
+    ps.decode_rows([(pq, ps_), (pq, ps_)], outs[1], [1, 0], v.numel())
     for got, want in ((kq, pq), (ks_, ps_), (kerr, perr), (a1, a2),
-                      (ks.decode((kq, ks_), v.numel()), ps.decode((pq, ps_), v.numel()))):
+                      (ks.decode((kq, ks_), v.numel()), ps.decode((pq, ps_), v.numel())),
+                      tuple(outs)):
         assert _bits_equal(got, want)
 
 

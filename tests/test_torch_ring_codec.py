@@ -128,6 +128,51 @@ def test_int8_scheme_seams_vs_jax(impl):
     _equal(tacc, js.decode_add(jenc, jnp.asarray(acc), 1237), "decode_add")
 
 
+@pytest.mark.parametrize("n", [1, 15, 17, 1000, 4099])
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_decode_rows_bitwise_vs_jax(world, n):
+    """The plain batched K10 writes JAX's ``decode_int8`` of each payload,
+    bit for bit, into its row of a strided ``out`` (rows in the ring's
+    order: the owner's, then each arrival's) and leaves every other element
+    alone."""
+    import jax.numpy as jnp
+
+    from distributed_machine_learning_tpu.ops.pallas import ring_codec as jrc
+
+    rng = np.random.default_rng(world * 10_000 + n)
+    chunks = [(rng.standard_normal(n) * rng.choice([1e-3, 1.0, 40.0])).astype(np.float32)
+              for _ in range(world)]
+    payloads = [trc.encode_int8(torch.from_numpy(v)) for v in chunks]
+    stride = -(-n // 16) * 16 + 16
+    sentinel = np.arange(world * stride, dtype=np.uint32).view(np.float32).reshape(world, stride)
+    own = world - 1
+    rows = [own] + [(own - 1 - s) % world for s in range(world - 1)]
+    out = torch.from_numpy(sentinel.copy())
+    assert trc.decode_rows_int8(payloads, out, rows, n) is out
+    want = sentinel.copy()
+    for (q, scale), i in zip(payloads, rows):
+        want[i, :n] = np.asarray(jrc.decode_int8(jnp.asarray(q.numpy()),
+                                                 jnp.asarray(scale.numpy()), n))
+    _equal(out, want, f"decode_rows world={world} n={n}")
+
+
+@pytest.mark.parametrize("name", ["none", "bf16", "topk"])
+def test_wire_scheme_decode_rows_is_per_row_decode(name):
+    """``decode_rows`` of the schemes without a kernel is their per-row
+    ``decode``, row for row; nothing else of ``out`` moves."""
+    scheme = tring.get_wire_scheme(name)
+    rng = np.random.default_rng(7)
+    n, rows = 37, [2, 0, 1]
+    payloads = [scheme.encode(torch.from_numpy(rng.standard_normal(n).astype(np.float32)))
+                for _ in rows]
+    out = torch.full((3, 48), -5.0)
+    scheme.decode_rows(payloads, out, rows, n)
+    want = torch.full((3, 48), -5.0)
+    for payload, i in zip(payloads, rows):
+        want[i, :n] = scheme.decode(payload, n)
+    _equal(out, want.numpy(), f"{name} decode_rows")
+
+
 def test_wire_bytes_vs_jax():
     from distributed_machine_learning_tpu.ops import ring as jring
 

@@ -16,16 +16,20 @@ then times its bf16 and int8-weight generate (prefill + first token and the
 decode step, ``chip_smoke.time_serving``).  The int8 ring codec: the
 tree's ``check_codec`` (bit for bit), then K8 with and without the
 residual, K9 and K10 at the VGG path's four chunk lengths, operands rotated
-out of L2 (``chip_smoke.time_codec``; a tree older than that function is
-timed by this checkout's, so both sides of a pair run one timing code).
-``--codec-only`` builds ``ring_codec.cu`` alone and times the codec alone.
+out of L2 (``chip_smoke.time_codec``), and the ring all-gather's decode
+work per ring call at the path's four (world, chunk) points: a tree whose
+ring decodes row by row (no ``ring_codec.decode_rows_int8``) is timed
+here on a copy of that loop (:func:`rowwise_allgather`), with the same
+harness, bound and library call as the tree's ``time_allgather`` that
+times one batched call.  ``--codec-only`` builds ``ring_codec.cu`` alone
+and times the codec alone.
 Prints one line per timed kernel and a last JSON line of every row's
 numbers.  Compare two versions inside one call, in turns: parent, change,
 change, parent.
 """
 
-import importlib.util
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -35,20 +39,59 @@ from pathlib import Path
 ENGINE_STEP_POSITIONS = (4097, 301, 2944, 3504, 2193, 1808, 3697, 650)
 
 
+# The all-gather's (world, chunk length) points, as chip_smoke.CODEC_ALLGATHER.
+ALLGATHER = ((4, 1_638_400), (4, 669_379), (2, 3_276_800), (2, 1_338_757))
+
+
 def time_codec(torch, smoke, rc, rows: dict) -> None:
-    """The tree's codec checks, then its K8-K10 timed by the tree's
-    ``time_codec`` at its ``CODEC_PATH_LENGTHS``.  A tree older than that
-    function is timed by this checkout's (drop this once no compared parent
-    lacks it)."""
+    """The tree's codec checks and timings; for a tree whose all-gather
+    decodes row by row, that loop's timing too."""
     smoke.check_codec(torch, rc, rows, False)
-    timer = getattr(smoke, "time_codec", None)
-    if timer is None:
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_codec_timing", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        timer = mod.time_codec
-    timer(torch, rc, rows)
+    smoke.time_codec(torch, rc, rows)
+    if not hasattr(rc, "decode_rows_int8"):
+        time_rowwise_allgather(torch, smoke, rc, rows)
+
+
+def rowwise_allgather(torch, rc, payloads, order, stride: int, n: int):
+    """The all-gather's decode as ``ops/ring.py`` did it before the batched
+    K10 (its lines 220-233 at the parent commit): a zeroed out, then a K10
+    call and a copy into the row for each payload."""
+    out = torch.zeros(len(payloads), stride, device="cuda")
+    for (q, scale), i in zip(payloads, order):
+        out[i, :n] = rc.decode_int8(q, scale, n)
+    return out
+
+
+def time_rowwise_allgather(torch, smoke, rc, rows: dict) -> None:
+    """:func:`rowwise_allgather` at each ALLGATHER point, timed as the
+    batched call's ``chip_smoke.time_allgather`` times it (operands rotated
+    out of L2, the same bound and library call), under the same row keys."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for world, n in ALLGATHER:
+        sets = max(smoke.CODEC_SETS, math.ceil(smoke.CODEC_ROTATE_BYTES / (5 * world * n)))
+        stride = -(-n // 16) * 16
+        order = [1 % world] + [(-s) % world for s in range(world - 1)]
+        cases = [[rc.encode_int8(0.01 * torch.randn(n, device="cuda", generator=gen))
+                  for _ in range(world)] for _ in range(sets)]
+        outs = [torch.empty(world, stride, device="cuda") for _ in range(sets)]
+        stacked = [(torch.stack([q for q, _ in p]), torch.cat([s for _, s in p])) for p in cases]
+
+        def library(i):
+            q2d, scales = stacked[i]
+            torch.mul(q2d, scales.view(-1, 1), out=outs[i][:, :n])
+
+        def per_call(fn, iters: int = 10) -> float:
+            return smoke.time_ms(lambda: [fn(i) for i in range(sets)], iters=iters) / sets
+
+        key = f"ring_decode_int8:rows={world},n={n}"
+        rows[key] = dict(
+            ms=per_call(lambda i: rowwise_allgather(torch, rc, cases[i], order, stride, n)),
+            library_ms=per_call(library),
+            **smoke.bound(1.0 * world * n, smoke.F32_FLOPS, 5 * world * n + 4 * world))
+        smoke.log(f"  {key}, row by row (zeroed out, {world} K10 calls and row copies): "
+                  f"{rows[key]['ms']:.5f} ms, bound {rows[key]['bound_ms']:.5f}, library "
+                  f"{rows[key]['library_ms']:.5f}")
+        del cases, outs, stacked
 
 
 def paged_step_inputs(torch, smoke):

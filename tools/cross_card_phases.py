@@ -98,6 +98,8 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
     rows.update({smoke.codec_row(k, n, r): {} for k in smoke.CODEC_KERNELS
                  for n in smoke.CODEC_PATH_LENGTHS for r in (True, False)
                  if r or k == "ring_encode_int8"})  # the codec's launches by row
+    rows.update({smoke.codec_row("ring_decode_int8", n, rows=w): {}
+                 for w, n in smoke.CODEC_ALLGATHER})  # the all-gather's batched K10
     backend = "nccl" if cards >= DP_CLI["world"] else "gloo"
     phases = [("ring", lambda: smoke.run_ring(torch, rows)),
               ("vgg", lambda: smoke.run_vgg(torch, rows)),
