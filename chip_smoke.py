@@ -66,6 +66,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``make_generate_fn`` at batch 1 token for token; times the engine's
    decode step, its tokens/s over a drain, prefill per prompt length and
    the device idle share over a few steps.
+5b. Serves the same model through the serving fleet (``runtime/serving``
+   router, ``serving_worker`` threads, an in-process hub): three engine
+   replicas (ENGINE's config each, one shared model and int8 twin, a pool
+   each, every one warmed on both prefill paths and both levers before
+   any worker starts), 2 live and 1 spare, 32 requests of the engine
+   traffic's distribution through ``router.submit``.  (a) steady, the
+   latency lever: exactly once with no eviction, every request well
+   formed, first tokens
+   against the plain path, K1 and K5 launched; the device idle share over
+   the run.  (b) under a ``RegimeScheduler``, replica 0 drained after 8
+   completions and another live replica killed after 16: exactly once,
+   1 eviction, 1 drain, 4 promotions, a regime flip, K6 launched.  Reports
+   tokens/s beside the lone engine's drain of the same requests, request
+   and per-stage latency quantiles, the longest beat gap of a live
+   replica and the launches of each run; then ``python -m
+   ...cli.serve --engine --replicas 2 --spares 1 --requests 64
+   --drain-after 16``, which must exit 0 with the audit passing.  Step 2
+   also holds K5 over 4-slot pages at head dim 32 and K6 at that CLI
+   engine's shapes to their plain versions.
 6. Trains the same model through ``cli.lm``'s ``build`` and
    ``train_epoch``, as its ``main`` runs them (``--parallel dp``, B 4 ×
    L 4096, bf16 compute over f32 master weights, ``--fused-update``,
@@ -159,6 +178,19 @@ BATCH, PROMPT, NEW_TOKENS, SEED = 8, 4096, 32, 0
 # each run drained ENGINE_REPEATS times).
 ENGINE = dict(max_lanes=8, block_size=16, num_blocks=2080, max_len=4160)
 ENGINE_REQUESTS, ENGINE_REPEATS = 16, 3
+# The serving fleet: engine replicas (threads of this process, ENGINE's
+# config each, one shared model and int8 twin, a paged pool each) behind
+# the router over an in-process hub; FLEET_REQUESTS of engine_traffic's
+# distribution.  Run (b) drains replica 0 after FLEET_DRAIN_AFTER
+# completions and kills another live replica after FLEET_KILL_AFTER.  Its
+# promotions: the 2 first, the spare when the drain starts, and the
+# drained replica (a spare again) when the eviction heals the fleet.
+FLEET = dict(replicas=2, spares=1)
+FLEET_REQUESTS, FLEET_DRAIN_AFTER, FLEET_KILL_AFTER = 32, 8, 16
+FLEET_PROMOTIONS = 4
+# The serve CLI's --engine model on the card (heads of dim 32) and pool.
+CLI_ENGINE_LM = dict(vocab_size=32, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2)
+CLI_ENGINE = dict(max_lanes=4, block_size=4, num_blocks=32, max_len=16, max_new=8)
 # The trainer (cli.lm --parallel dp on one card) at the model's full width.
 TRAIN = dict(seq_len=4096, batch_size=4, max_iters=8)
 
@@ -1428,6 +1460,43 @@ def check_paged(torch, da, rows: dict) -> None:
     raise_failed(failed)
 
 
+def check_fleet_shapes(torch, da, qm) -> None:
+    """K5 and K6 at the serve CLI's --engine shapes on the card: K5 over
+    4-slot pages (a 16-slot tile spans four of them), f32 and bf16 pools,
+    H 4 / Hkv 2, D 32, 4 lanes at ragged positions plus an idle one; K6 on
+    f32 x at every projection of that model and its 32-column head, at
+    decode R 4 and prefill R 1-3.  Row gates as elsewhere."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg, E = CLI_ENGINE, CLI_ENGINE_LM["d_model"]
+    H, Hkv = CLI_ENGINE_LM["n_heads"], CLI_ENGINE_LM["n_kv_heads"]
+    bs, mb = cfg["block_size"], cfg["max_len"] // cfg["block_size"]
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        positions = [0, 3, 4, 15]
+        n = len(positions) * mb
+        tables = torch.full((len(positions) + 1, mb), n, dtype=torch.int32, device="cuda")
+        tables[:-1] = torch.randperm(n, generator=gen, device="cuda").int().reshape(-1, mb)
+        q = torch.randn(len(positions) + 1, 1, H, E // H, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(n + 1, Hkv, bs, E // H, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(n + 1, Hkv, bs, E // H, device="cuda", generator=gen).to(dtype)
+        pos = torch.tensor(positions + [0], dtype=torch.int32, device="cuda")
+        got = da.paged_flash_attention(q, k, v, tables, pos)
+        torch.cuda.synchronize()
+        compare(f"paged_attention cli engine bs={bs} {dtype} positions={pos.tolist()}", got,
+                da.paged_attention_reference(q, k, v, tables, pos), failed)
+    kv = 2 * Hkv * (E // H)
+    for R in (cfg["max_lanes"], 1, 3):
+        for D, K in ((E, E), (E, kv), (E, 4 * E), (4 * E, E), (E, CLI_ENGINE_LM["vocab_size"])):
+            x = torch.randn(R, D, device="cuda", generator=gen)
+            qw, sc = qm.quantize_int8(torch.randn(D, K, device="cuda", generator=gen) / math.sqrt(D))
+            got = qm.int8_matmul(x, qw, sc)
+            torch.cuda.synchronize()
+            compare(f"quant_matmul cli engine f32 x R={R} D={D} K={K} "
+                    f"({qm.int8_route(R, D, K)} route)", got,
+                    qm.int8_matmul_reference(x, qw, sc), failed, tol=GEMM_F32_TOL)
+    raise_failed(failed)
+
+
 def eager_ms(torch, fn, iters: int = 3) -> float:
     """Device-timeline ms of one ``fn()`` run eagerly (for functions that
     sync with the host and cannot be captured in a CUDA graph)."""
@@ -1854,14 +1923,13 @@ def run_generate_cli(torch) -> None:
                              f"{(res.stdout + res.stderr)[-2000:]}")
 
 
-def engine_traffic(torch):
-    """ENGINE_REQUESTS requests from SEED: prompt lengths in 256-4096 (the
-    first two 4096 and 300, so flash and dense prefill both run), new-token
-    counts in 8-64, token ids over the vocabulary."""
+def engine_traffic(torch, n: int = ENGINE_REQUESTS):
+    """``n`` requests from SEED: prompt lengths in 256-4096 (the first two
+    4096 and 300, so flash and dense prefill both run), new-token counts in
+    8-64, token ids over the vocabulary."""
     gen = torch.Generator().manual_seed(SEED)
-    lens = [4096, 300] + torch.randint(256, 4097, (ENGINE_REQUESTS - 2,),
-                                       generator=gen).tolist()
-    news = torch.randint(8, 65, (ENGINE_REQUESTS,), generator=gen).tolist()
+    lens = [4096, 300] + torch.randint(256, 4097, (n - 2,), generator=gen).tolist()
+    news = torch.randint(8, 65, (n,), generator=gen).tolist()
     prompts = [torch.randint(0, MODEL["vocab_size"], (n,), generator=gen).tolist()
                for n in lens]
     return prompts, news
@@ -2094,6 +2162,279 @@ def serve_engine(torch, build, da, model, rows: dict) -> None:
     engine.abort_all()
     del engine, step
     time_engine(torch, model, prompts)
+
+
+def fleet_engines(torch, model, n: int) -> list:
+    """``n`` engine replicas over ``model`` (ENGINE's config, both levers):
+    one int8 twin shared by all, a paged pool each.  Each is warmed on both
+    prefill paths and both levers before any worker thread starts."""
+    from distributed_machine_learning_tpu_torch.inference.continuous import (
+        ContinuousEngine,
+        EngineConfig,
+    )
+
+    engines = []
+    for _ in range(n):
+        engine = ContinuousEngine(model, EngineConfig(**ENGINE), device=model.device,
+                                  lever_models=engines[0].models if engines else None)
+        engine.warmup(prompt_lens=(300, 2048))
+        engines.append(engine)
+    torch.cuda.synchronize(model.device)
+    return engines
+
+
+def fleet_run(torch, engines, prompts, news, *, scheduler=None, drain_after: int = 0,
+              kill_after: int = 0, profile: bool = False) -> dict:
+    """One fleet run: a router over an in-process hub (FLEET replicas live,
+    the rest spares), one worker thread per engine, every request submitted
+    through ``router.submit`` with back-pressure.  Beat times count from the
+    moment the replicas are live.  ``drain_after``: drain
+    replica 0 after that many completions; ``kill_after``: then stop another
+    live replica's worker (its own stop event) and wait for its eviction.
+    Returns the verdict, the completions by request index, the wall seconds
+    from the first submit to idle, each rank's beat times and, with
+    ``profile``, the run's device busy share (torch.profiler, CUDA only)."""
+    import threading
+
+    from distributed_machine_learning_tpu_torch.runtime import serving, serving_worker
+    from distributed_machine_learning_tpu_torch.runtime import transport as tr
+
+    beats: dict = {}
+
+    def sync():  # every card the replicas run on
+        for device in {engine.device for engine in engines}:
+            torch.cuda.synchronize(device)
+
+    class BeatLog(tr.InProcTransport):
+        def publish_beat(self, rank, payload):
+            beats.setdefault(rank, []).append(time.monotonic())
+            super().publish_beat(rank, payload)
+
+    prof, victim, result = None, None, {"busy": None}
+    if profile:  # started before the fleet: its start holds up every thread a while
+        from torch.profiler import ProfilerActivity, profile as tracer
+        try:
+            prof = tracer(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as exc:  # the tracer is optional: report, keep serving
+            log(f"fleet profiler: not measured ({type(exc).__name__}: {exc})")
+            prof = None
+    hub = tr.InProcHub()
+    cfg = serving.ServingConfig(replicas=FLEET["replicas"], max_queue=len(prompts),
+                                micro_batch=ENGINE["max_lanes"],
+                                max_outstanding=ENGINE["max_lanes"], poll_s=0.005)
+    router = serving.ServingRouter(tr.InProcTransport(hub), cfg, scheduler=scheduler)
+    stops = [threading.Event() for _ in engines]
+    workers = [serving_worker.start_worker_thread(
+        BeatLog(hub), rank, None, stops[rank],
+        serving_worker.ServingWorkerConfig(micro_batch=ENGINE["max_lanes"]), engine=engine)
+        for rank, engine in enumerate(engines)]
+    stop_router = threading.Event()
+    rt = threading.Thread(target=router.run, args=(stop_router,), name="fleet-router",
+                          daemon=True)
+    rt.start()
+    try:
+        deadline = time.monotonic() + 30.0
+        while len(router._replicas) < FLEET["replicas"]:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: replicas never went live")
+            time.sleep(0.005)
+        live_mono = time.monotonic()
+        sync()
+        t0 = time.perf_counter()
+        rids, drained = [], drain_after <= 0
+        deadline = time.monotonic() + 300.0
+
+        def chaos():
+            nonlocal drained, victim
+            if not drained and router.completed >= drain_after:
+                drained = router.drain(0)
+            if kill_after and victim is None and router.completed >= kill_after:
+                with router._lock:
+                    live = [r for r, rep in sorted(router._replicas.items())
+                            if r != 0 and not rep.draining]
+                victim = live[0]
+                stops[victim].set()
+
+        for p, n in zip(prompts, news):
+            while True:
+                try:
+                    rids.append(router.submit(p, max_new=n))
+                    break
+                except serving.Overloaded:
+                    time.sleep(0.005)
+            chaos()
+        while router.completed < len(prompts) and time.monotonic() < deadline:
+            chaos()
+            time.sleep(0.002)
+        if not router.wait_idle(max(deadline - time.monotonic(), 1.0)):
+            raise AssertionError(f"fleet: not idle in time: {router.audit()}")
+        sync()
+        result["seconds"] = time.perf_counter() - t0
+        result["span"] = (live_mono, time.monotonic())
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            result["busy"], prof = device_busy(torch, prof), None
+        if victim is not None:  # the kill's eviction comes a beat timeout later
+            while router.evictions < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+        by_rid = {rid: i for i, rid in enumerate(rids)}
+        done = {}
+        for rid, i in by_rid.items():
+            entry = router.result(rid)
+            levers = [ev.get("lever") for ev in entry["events"] if ev.get("stage") == "decode"]
+            done[i] = {"tokens": entry["result"], "lever": levers[-1] if levers else None,
+                       "generated": len(entry["result"] or ()) - len(prompts[i])}
+        result["done"] = done
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        result["verdict"] = router.close()
+        stop_router.set()
+        for stop in stops:
+            stop.set()
+        for t, _ in workers:
+            t.join(timeout=30)
+        rt.join(timeout=10)
+    result["beats"], result["victim"] = beats, victim
+    return result
+
+
+def log_fleet_run(run: str, r: dict, news, card: str) -> None:
+    v, gen = r["verdict"], sum(news)
+    lat = v["latency"]
+    log(f"fleet run ({run}) [{card}]: {v['completed']}/{v['admitted']} completed, "
+        f"exactly_once {v['exactly_once']}, {v['promotions']} promotions, "
+        f"{v['evictions']} evictions, {v['drains']} drains, {v['duplicates_discarded']} "
+        f"duplicates; {gen} generated tokens in {r['seconds']:.3f} s -> "
+        f"{gen / r['seconds']:.1f} generated tok/s")
+    log(f"fleet run ({run}) request latency s [{card}]: p50 {lat['p50']:.4f}, p95 "
+        f"{lat['p95']:.4f}, p99 {lat['p99']:.4f}, max {lat['max']:.4f}")
+    for stage in ("queued", "dispatched", "bound", "prefill", "decode", "completed", "requeued"):
+        q = v["stage_latency"].get(stage)
+        if q:
+            log(f"  stage {stage:10s} s [{card}]: p50 {q['p50']:.4f}, p95 {q['p95']:.4f}, "
+                f"p99 {q['p99']:.4f}, max {q['max']:.4f}")
+
+
+def serve_fleet(torch, build, model, rows: dict, card: str) -> None:
+    """The serving fleet at full width: engine replicas behind the router.
+    (a) steady: FLEET live + spares, no scheduler (the latency lever),
+    FLEET_REQUESTS requests; gates: exactly once with no eviction, every
+    request well formed, first tokens against the plain path, K1 and K5
+    launched; the
+    device idle share over the run from the profiler.  (b) chaos: the same
+    under a RegimeScheduler, replica 0 drained and another live replica
+    killed; gates: exactly once, one eviction, one drain, FLEET_PROMOTIONS
+    promotions, a regime flip, K6 launched.  Reports tokens/s beside the
+    lone engine's drain of the same requests, latency and stage quantiles,
+    the longest beat gap of a live replica, the launches of each run; then
+    the real ``cli.serve --engine``."""
+    from distributed_machine_learning_tpu_torch.runtime.scheduler import RegimeScheduler
+
+    prompts, news = engine_traffic(torch, FLEET_REQUESTS)
+    log(f"fleet traffic: {FLEET_REQUESTS} requests, prompt lengths "
+        f"{[len(p) for p in prompts]}, new tokens {news}")
+    engines = fleet_engines(torch, model, FLEET["replicas"] + FLEET["spares"])
+    lone, seconds = drain_engine(torch, engines[0], prompts, news)
+    log(f"fleet: the lone engine's drain of the same requests (latency lever) [{card}]: "
+        f"{seconds:.3f} s -> {sum(news) / seconds:.1f} generated tok/s")
+
+    build.reset_launch_counts()
+    a = fleet_run(torch, engines, prompts, news, profile=True)
+    launches_a = dict(build.launches)
+    log_fleet_run("a", a, news, card)
+    log(f"fleet run (a) launches [{card}]: {launches_a}")
+    t_lo, t_hi = a["span"]
+    gaps = []
+    for rank, ts in sorted(a["beats"].items()):
+        ts = [t for t in ts if t_lo <= t <= t_hi]
+        if len(ts) > 1:
+            gaps.append((max(b - x for x, b in zip(ts, ts[1:])), rank))
+    if gaps:
+        gap, rank = max(gaps)
+        log(f"fleet run (a): longest beat gap of a live replica {gap * 1e3:.1f} ms "
+            f"(replica {rank}; beat interval 50 ms, eviction at 2000 ms) [{card}]")
+    if a["busy"] is None:
+        log("fleet run (a) profiler: not measured (no device events traced)")
+    else:
+        n, busy, window, by_name = a["busy"]
+        log(f"fleet run (a) profiler (CUDA activity only) [{card}]: {n} device events, "
+            f"busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms device window, "
+            f"device idle share {1 - busy / max(window, 1e-9):.3f}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  {us / 1e3:9.1f} ms  {name[:90]}")
+    v = a["verdict"]
+    if not (v["exactly_once"] and v["admitted"] == v["completed"] == FLEET_REQUESTS):
+        raise AssertionError(f"fleet run (a): not exactly once: {v}")
+    if v["evictions"] or v["promotions"] != FLEET["replicas"]:
+        raise AssertionError(f"fleet run (a): a healthy replica was evicted: {v['evictions']} "
+                             f"evictions, {v['promotions']} promotions")
+    for name in ("flash_fwd", "paged_attention"):
+        if launches_a[name] == 0:
+            raise AssertionError(f"fleet run (a): {name} never launched")
+    check_completions(a["done"], prompts, news, "fleet run (a)")
+    same = sum(a["done"][i]["tokens"] == lone[i]["tokens"] for i in range(FLEET_REQUESTS))
+    log(f"fleet run (a) vs the lone engine's drain: {same}/{FLEET_REQUESTS} requests equal "
+        f"token for token")
+
+    # Run (b) on fresh engines: a killed replica leaves its engine mid-flight.
+    del engines
+    gc.collect()
+    engines = fleet_engines(torch, model, FLEET["replicas"] + FLEET["spares"])
+    sched = RegimeScheduler()
+    build.reset_launch_counts()
+    b = fleet_run(torch, engines, prompts, news, scheduler=sched,
+                  drain_after=FLEET_DRAIN_AFTER, kill_after=FLEET_KILL_AFTER)
+    launches_b = dict(build.launches)
+    log_fleet_run("b", b, news, card)
+    log(f"fleet run (b): killed replica {b['victim']}; regime {sched.lever} after "
+        f"{sched.flips} flip(s); levers by request "
+        f"{[b['done'][i]['lever'][0] for i in range(FLEET_REQUESTS)]}")
+    log(f"fleet run (b) launches [{card}]: {launches_b}")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["fleet_launches"] = launches_a[name] + launches_b[name]
+    v = b["verdict"]
+    want = dict(exactly_once=True, admitted=FLEET_REQUESTS, completed=FLEET_REQUESTS,
+                evictions=1, drains=1, promotions=FLEET_PROMOTIONS)
+    if any(v[k] != x for k, x in want.items()):
+        raise AssertionError(f"fleet run (b): {({k: v[k] for k in want})}, want {want}")
+    if sched.flips < 1:
+        raise AssertionError("fleet run (b): the regime scheduler never flipped")
+    if launches_b["quant_matmul"] == 0:
+        raise AssertionError("fleet run (b): quant_matmul never launched")
+    check_completions(b["done"], prompts, news, "fleet run (b)")
+    # The plain path is swapped in module-wide: only with every fleet thread gone.
+    check_first_tokens(torch, engines[0], a["done"], prompts, "fleet run (a)")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_serve_cli(torch)
+
+
+def run_serve_cli(torch) -> None:
+    """The real ``cli.serve --engine`` on the card: two replicas and a spare
+    of the tiny engine (heads of dim 32), 64 requests, a drain after 16; it
+    must exit 0 with the exactly-once audit passing."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as tel:
+        cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.serve",
+               "--engine", "--replicas", "2", "--spares", "1", "--requests", "64",
+               "--drain-after", "16", "--telemetry-dir", tel]
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith(("fleet:", "requests:", "fleet events:", "latency:",
+                                   "regime:", "exactly-once"))]
+        log(f"cli.serve --engine ({time.perf_counter() - t0:.1f} s): exit code "
+            f"{res.returncode}; " + " | ".join(lines))
+        if res.returncode != 0 or "exactly-once audit: PASS" not in res.stdout:
+            raise AssertionError(f"cli.serve --engine: exit code {res.returncode}; output "
+                                 f"tail {(res.stdout + res.stderr)[-2000:]}")
 
 
 # Trainer gates, kernel path vs plain path of one train step from the same
@@ -3093,14 +3434,29 @@ def profile_steps(torch, label: str, run, steps: int = 4) -> None:
                 run(i)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy = device_busy(torch, prof)
     except Exception as exc:  # the tracer is optional: report, keep serving results
         log(f"profiler: not measured ({type(exc).__name__}: {exc})")
         return
-    if not spans:
+    if busy is None:
         log("profiler: not measured (no device events traced)")
         return
+    n, busy_us, window, by_name = busy
+    log(f"profiler, {label} x{steps}: {n} device events, busy "
+        f"{busy_us / steps:.1f} us/step of a {window / steps:.1f} us/step device window, "
+        f"host wall {wall_us / steps:.1f} us/step, device idle share "
+        f"{1 - busy_us / max(window, 1e-9):.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {us / steps:9.1f} us/step  {name[:90]}")
+
+
+def device_busy(torch, prof):
+    """(device events, busy us, device window us, us by kernel name) of a
+    finished torch.profiler run, or None if it traced no device event."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -3109,17 +3465,10 @@ def profile_steps(torch, label: str, run, steps: int = 4) -> None:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
-    log(f"profiler, {label} x{steps}: {len(spans)} device events, busy "
-        f"{busy / steps:.1f} us/step of a {window / steps:.1f} us/step device window, "
-        f"host wall {wall_us / steps:.1f} us/step, device idle share "
-        f"{1 - busy / max(window, 1e-9):.3f}")
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {us / steps:9.1f} us/step  {name[:90]}")
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return len(spans), busy, spans[-1][1] - spans[0][0], by_name
 
 
 def main(argv=None) -> int:
@@ -3182,6 +3531,7 @@ def main(argv=None) -> int:
     check_decode_int8(torch, da, rows, timing)
     check_int8(torch, qm, rows, timing)
     check_paged(torch, da, rows)
+    check_fleet_shapes(torch, da, qm)
     check_flash_bwd(torch, fa, rows, timing)
     check_adamw(torch, fadam, rows, timing)
     check_codec(torch, rc, rows, timing)
@@ -3200,6 +3550,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serve_engine(torch, build, da, models["bf16"], rows)
     log(f"engine phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_fleet(torch, build, models["bf16"], rows, card)
+    log(f"fleet phases: {time.perf_counter() - t0:.1f} s")
     del models, prompt
     gc.collect()
     torch.cuda.empty_cache()
@@ -3244,6 +3597,7 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "context_ms": row.get("context_ms"), "kv_int8_launches": row["kv_int8_launches"],
             "engine_launches": row["engine_launches"],
+            "fleet_launches": row["fleet_launches"],
             "train_launches": row["train_launches"], "vgg_launches": row["vgg_launches"],
             "ring_launches": row["ring_launches"], "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -44,6 +44,7 @@ positions and reads back one token per lane per step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -118,12 +119,14 @@ class ContinuousEngine:
     decode iteration and returns the requests that finished.  ``model`` is
     a float :class:`~..models.transformer.TransformerLM` with its weights
     loaded, on ``device``; ``generator`` feeds sampling (greedy needs
-    none)."""
+    none).  ``lever_models``: another engine's ``models`` over the same
+    ``model``, so replicas share one int8 twin (each engine keeps its own
+    pool); None builds them here."""
 
     def __init__(self, model, cfg: EngineConfig | None = None, *,
                  registry=None, scheduler=None, name: str = "engine",
                  version=None, generator: torch.Generator | None = None,
-                 device=None):
+                 device=None, lever_models: dict | None = None):
         self.cfg = cfg = cfg or EngineConfig()
         want = resolve_device(device)
         if model.device.type != want.type or (want.index is not None
@@ -147,7 +150,13 @@ class ContinuousEngine:
         self.allocator = BlockAllocator(cfg.num_blocks, cfg.block_size)
         self._model = model.eval()
         self.models: dict = {}  # lever -> the model that serves it
-        self._set_models()
+        if lever_models is None:
+            self._set_models()
+        elif lever_models.get(LATENCY, model) is not model \
+                or set(lever_models) != set(cfg.levers):
+            raise ValueError("lever_models must serve this model on cfg.levers")
+        else:
+            self.models = dict(lever_models)
         shape = (cfg.num_blocks + 1, model.n_kv_heads, cfg.block_size, model.head_dim)
 
         def pool():
@@ -404,7 +413,15 @@ class ContinuousEngine:
 
     def step(self) -> list[dict]:
         """One engine iteration; returns the requests that completed during
-        it.  Safe to call with nothing in flight (admission still runs)."""
+        it.  Safe to call with nothing in flight (admission still runs).
+        The engine's card is made current for the step, so a replica thread
+        (whose current device is its own) serves a model on any card."""
+        on_card = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                   else contextlib.nullcontext())
+        with on_card:
+            return self._step()
+
+    def _step(self) -> list[dict]:
         completed: list[dict] = []
         lever = self._pick_lever()
         self._admit(lever, completed)

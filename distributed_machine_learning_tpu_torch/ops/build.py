@@ -14,7 +14,9 @@ hold several, as ``decode_attention.cu`` holds K4's bf16/f32 and int8
 modes, ``flash_bwd.cu`` dQ and dK/dV, ``ring_codec.cu`` the three codec
 kernels and ``ring_flash.cu`` the three ring chunk steps).  A wrapper adds one where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels
-(``reset_launch_counts`` zeroes them).
+(``reset_launch_counts`` zeroes them).  Serving replicas are threads of
+one process that launch from several threads at once, so a count moves
+under a lock.
 """
 
 from __future__ import annotations
@@ -46,15 +48,18 @@ launches: dict[str, int] = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 _sms: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def count_launch(name: str) -> None:
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:

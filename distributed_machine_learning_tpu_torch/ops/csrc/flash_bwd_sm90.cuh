@@ -563,7 +563,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   if (!make_maps<D>(m, q, k, v, dout, st, B, p, BQ, BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DqSmem<D>::BYTES;
-  static bool configured = false;
+  static std::atomic<unsigned long long> configured{0};
   if (int err = set_smem_once(dq_kernel<D, KIND>, smem, configured)) return err;
   dim3 grid(B * p.H, (p.L + BQ - 1) / BQ);
   dq_kernel<D, KIND><<<grid, THREADS, smem, stream>>>(m[0], m[1], m[2], m[3], p);
@@ -579,7 +579,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (!make_maps<D>(m, q, k, v, dout, st, B, p, BQT, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DkvSmem<D>::BYTES;
-  static bool configured = false;
+  static std::atomic<unsigned long long> configured{0};
   if (int err = set_smem_once(dkv_kernel<D, KIND>, smem, configured)) return err;
   dim3 grid(B * p.Hkv, (p.L + BK - 1) / BK);
   dkv_kernel<D, KIND><<<grid, THREADS, smem, stream>>>(m[0], m[1], m[2], m[3], p);

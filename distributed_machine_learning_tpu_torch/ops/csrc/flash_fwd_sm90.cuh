@@ -348,7 +348,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const long long* st,
       !make_map<D>(&tv, v, B, p.L, p.Hkv, st[6], st[7], st[8], BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Tile<D>::SMEM;
-  static bool configured = false;
+  static std::atomic<unsigned long long> configured{0};
   if (int err = set_smem_once(fwd_kernel<D, KIND>, smem, configured)) return err;
   dim3 grid(B * p.H, (p.L + BQ - 1) / BQ);
   fwd_kernel<D, KIND><<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -659,12 +661,18 @@ int launch_one(const void* q, const void* k, const void* v, const int* tables,
                float scale_log2, cudaStream_t stream) {
   using G = Geom<T, D, REP>;
   auto kernel = paged_kernel<T, D, REP>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           G::smem(MAX_LANES));
+  // The shared-memory opt-in belongs to a card: once a card (a bit each;
+  // cards past 63 set it every call), from any thread.
+  static std::atomic<unsigned long long> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!bit || !(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::smem(MAX_LANES));
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured.fetch_or(bit);
   }
   kernel<<<grid, NWARPS * 32, G::smem(W), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,

@@ -747,7 +747,7 @@ int launch_skinny(const void* x, const void* q, const void* scale, void* out, in
   if (!make_map_2d(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, D, K, SK_COLS, 16))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = w8a16_skinny_kernel<NT, OUT_BF16>;
-  static bool configured = false;
+  static std::atomic<unsigned long long> configured{0};
   if (int err = set_smem_once(kernel, Skinny<NT>::SMEM, configured)) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (K + SK_COLS - 1) / SK_COLS);
@@ -776,7 +776,7 @@ int launch_wgmma(const void* x, const void* q, const void* scale, void* out, int
                    OUT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                    K, R, (OUT_BF16 ? 2LL : 4LL) * K, OUT_BF16 ? 64 : 32, WG_BM))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;
+  static std::atomic<unsigned long long> configured{0};
   if (int err = set_smem_once(w8a16_wgmma_kernel<OUT_BF16>, WG_SMEM, configured)) return err;
   dim3 grid((K + WG_BN - 1) / WG_BN, (R + WG_BM - 1) / WG_BM);
   w8a16_wgmma_kernel<OUT_BF16><<<grid, WG_THREADS, WG_SMEM, stream>>>(

@@ -13,6 +13,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace sm90 {
 
 constexpr float NEG_INF = -1e30f;
@@ -312,14 +314,20 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int heads, long l
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Opt a kernel into ``smem`` bytes of dynamic shared memory, once.
+// Opt a kernel into ``smem`` bytes of dynamic shared memory on the current
+// card, once a card: the attribute belongs to a card, and one process may
+// launch on several cards (a serving replica a card) from several threads.
+// ``configured`` holds a bit a card; cards past 63 are set every call.
 template <typename Kernel>
-int set_smem_once(Kernel kernel, int smem, bool& configured) {
-  if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int set_smem_once(Kernel kernel, int smem, std::atomic<unsigned long long>& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!bit || !(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured.fetch_or(bit);
   }
   return 0;
 }

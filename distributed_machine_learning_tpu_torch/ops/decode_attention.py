@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -370,21 +371,26 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
 # call, and is not kept: outside the graph it would hold garbage until the
 # graph first ran.  (So warm up on the capture stream, as torch.cuda.graph
 # advises, and the graph reuses that stream's buffer with no memset.)
+# Serving replicas launch from several threads: a buffer is made and
+# installed under a lock, so two threads growing one stream's buffer at
+# once keep one buffer and never drop the other unkept.
 _counters: dict = {}
 _outgrown: list = []
+_counters_lock = threading.Lock()
 
 
 def _paged_counters(device, stream: int, n: int) -> torch.Tensor:
-    have = _counters.get((device, stream))
-    if have is not None and have.numel() >= n:
-        return have
-    fresh = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+    with _counters_lock:
+        have = _counters.get((device, stream))
+        if have is not None and have.numel() >= n:
+            return have
+        fresh = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return fresh
+        if have is not None:
+            _outgrown.append(have)
+        _counters[(device, stream)] = fresh
         return fresh
-    if have is not None:
-        _outgrown.append(have)
-    _counters[(device, stream)] = fresh
-    return fresh
 
 
 def _paged_launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

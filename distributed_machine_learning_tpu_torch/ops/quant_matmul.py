@@ -18,6 +18,7 @@ a dequantized weight from memory; the port never calls it.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,8 +37,10 @@ SKINNY_R, SKINNY_COLS, SKINNY_WARPS, SKINNY_STAGES, SKINNY_MAX_SPLITS = 16, 128,
 # (columns not a multiple of 16), the wgmma/TMA mainloop.
 ROUTES = ("skinny", "tile", "wgmma")
 # Calls per route since the last reset (one per kernel call, as
-# ``build.launches["quant_matmul"]`` counts them).
+# ``build.launches["quant_matmul"]`` counts them), moved under a lock:
+# serving replicas launch from several threads.
 route_calls: dict[str, int] = dict.fromkeys(ROUTES, 0)
+_route_lock = threading.Lock()
 
 
 def int8_route(R: int, D: int, K: int) -> str:
@@ -52,8 +55,9 @@ def int8_route(R: int, D: int, K: int) -> str:
 
 
 def reset_route_calls() -> None:
-    for name in route_calls:
-        route_calls[name] = 0
+    with _route_lock:
+        for name in route_calls:
+            route_calls[name] = 0
 
 
 def skinny_splits(R: int, D: int, K: int, n_sms: int) -> int:
@@ -116,7 +120,8 @@ def _launch(x: torch.Tensor, q: torch.Tensor,
                 build.stream_handle(x.device))
     build.check(status, KERNEL)
     build.count_launch(KERNEL)
-    route_calls[route] += 1
+    with _route_lock:
+        route_calls[route] += 1
     return out
 
 

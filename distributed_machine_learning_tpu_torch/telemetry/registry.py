@@ -1,14 +1,19 @@
-"""Process metrics registry: named counters, gauges, histograms.
+"""Process-wide metrics registry: named counters, gauges, histograms.
 
-Counterpart of what the serving engine uses from
-``distributed_machine_learning_tpu/telemetry/registry.py``
-(``MetricsRegistry`` with ``counter``/``gauge``/``histogram`` and
-``snapshot``, and ``default_latency_buckets``), copied so the port imports
-nothing of the JAX package.  Prometheus semantics, minimally: a counter
-never decreases, a gauge is last-write-wins, a histogram has fixed
-buckets plus exact count/sum/min/max and reports p50/p95/p99 by linear
-interpolation inside the owning bucket.  Instruments are keyed by
-``(name, sorted(labels))``: repeated calls return the same object.
+A copy of ``distributed_machine_learning_tpu/telemetry/registry.py``, so
+the port imports nothing of the JAX package.  Semantics follow the
+Prometheus data model, minimally:
+
+- :class:`Counter` — monotonically non-decreasing; ``inc(n)``.
+- :class:`Gauge` — last-write-wins; ``set(v)``.
+- :class:`Histogram` — FIXED buckets chosen at creation (no rebinning,
+  so merge/export is trivial) plus exact count/sum/min/max, exposing
+  p50/p95/p99 by linear interpolation inside the owning bucket.
+
+Instruments are keyed by ``(name, sorted(labels))`` — repeated
+``registry.counter("x", kind="y")`` calls return the same object, so
+call sites never need to cache handles.  Creation takes a lock;
+updates are plain attribute writes, cheap enough for per-step use.
 """
 
 from __future__ import annotations
@@ -18,9 +23,26 @@ import threading
 from typing import Iterable
 
 
+def default_time_buckets() -> tuple[float, ...]:
+    """Exponential seconds buckets, 100 µs .. ~2 min — wide enough for a
+    CPU-host step AND a checkpoint serialize in the same histogram."""
+    out = []
+    b = 1e-4
+    while b < 120.0:
+        out.append(b)
+        b *= 2.0
+    return tuple(out)
+
+
 def default_latency_buckets() -> tuple[float, ...]:
-    """Request-latency seconds buckets, 0.5 ms .. ~16 s at √2 steps: the
-    resolution sits where per-request latencies live."""
+    """Request-latency seconds buckets, 0.5 ms .. ~16 s at √2 steps.
+    Histogram buckets are fixed at
+    construction, and :func:`default_time_buckets`' doubling grid
+    (tuned for multi-second train steps) puts an entire
+    millisecond-scale serving distribution inside one or two buckets,
+    flattening p50/p95/p99 into the same interpolated value.  The √2
+    ratio doubles the resolution exactly where per-request latencies
+    live while still reaching tail-amplification territory."""
     out = []
     b = 5e-4
     while b < 16.0:
@@ -30,7 +52,8 @@ def default_latency_buckets() -> tuple[float, ...]:
 
 
 class Counter:
-    """Monotonic counter; ``inc`` with a negative amount raises."""
+    """Monotonic counter.  ``inc`` with a negative amount is an error —
+    a decreasing "counter" is a gauge wearing the wrong name."""
 
     __slots__ = ("name", "labels", "value")
 
@@ -60,10 +83,14 @@ class Gauge:
 
 
 class Histogram:
-    """Fixed-bucket histogram with exact count/sum/min/max.  ``buckets`` are
-    ascending upper bounds (default :func:`default_latency_buckets`); an
-    implicit +inf bucket catches the overflow and reports the exact
-    observed max."""
+    """Fixed-bucket histogram with exact count/sum/min/max.
+
+    ``buckets`` are upper bounds (ascending); an implicit +inf bucket
+    catches the overflow.  Quantiles interpolate linearly inside the
+    bucket that crosses the target rank — the standard fixed-bucket
+    estimate — except the +inf bucket, which reports the exact observed
+    max (unbounded interpolation would be fiction).
+    """
 
     __slots__ = ("name", "labels", "bounds", "counts", "count", "sum",
                  "min", "max")
@@ -72,7 +99,7 @@ class Histogram:
                  buckets: Iterable[float] | None = None):
         self.name = name
         self.labels = labels
-        bounds = tuple(sorted(buckets)) if buckets else default_latency_buckets()
+        bounds = tuple(sorted(buckets)) if buckets else default_time_buckets()
         if not bounds:
             raise ValueError(f"histogram {name} needs at least one bucket")
         self.bounds = bounds
@@ -86,8 +113,10 @@ class Histogram:
         self.counts[bisect.bisect_left(self.bounds, v)] += 1
         self.count += 1
         self.sum += v
-        self.min = min(self.min, v)
-        self.max = max(self.max, v)
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
 
     @property
     def mean(self) -> float:
@@ -105,19 +134,24 @@ class Histogram:
             if c == 0:
                 continue
             if seen + c >= rank:
-                if i == len(self.bounds):  # +inf bucket: the exact max
+                if i == len(self.bounds):  # +inf bucket: report exact max
                     return self.max
                 lo = self.bounds[i - 1] if i > 0 else min(self.min, 0.0)
                 hi = self.bounds[i]
                 frac = (rank - seen) / c
+                # Clamp into the observed range so a single-bucket
+                # histogram never reports below its own min / above max.
                 return min(max(lo + frac * (hi - lo), self.min), self.max)
             seen += c
         return self.max
 
     def quantiles(self) -> dict:
-        return {"p50": self.percentile(0.50), "p95": self.percentile(0.95),
-                "p99": self.percentile(0.99),
-                "max": self.max if self.count else 0.0}
+        return {
+            "p50": self.percentile(0.50),
+            "p95": self.percentile(0.95),
+            "p99": self.percentile(0.99),
+            "max": self.max if self.count else 0.0,
+        }
 
 
 def _label_key(labels: dict) -> tuple:
@@ -125,7 +159,7 @@ def _label_key(labels: dict) -> tuple:
 
 
 class MetricsRegistry:
-    """Get-or-create home for every instrument."""
+    """Get-or-create home for every instrument in the process."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -133,10 +167,13 @@ class MetricsRegistry:
 
     def _get(self, cls, name: str, labels: dict, **kw):
         key = (cls.__name__, name, _label_key(labels))
-        with self._lock:
-            inst = self._instruments.get(key)
-            if inst is None:
-                inst = self._instruments[key] = cls(name, _label_key(labels), **kw)
+        inst = self._instruments.get(key)
+        if inst is None:
+            with self._lock:
+                inst = self._instruments.get(key)
+                if inst is None:
+                    inst = cls(name, _label_key(labels), **kw)
+                    self._instruments[key] = inst
         return inst
 
     def counter(self, name: str, **labels) -> Counter:
@@ -149,9 +186,10 @@ class MetricsRegistry:
                   **labels) -> Histogram:
         return self._get(Histogram, name, labels, buckets=buckets)
 
+    # -- export ----------------------------------------------------------
     def snapshot(self) -> dict:
-        """JSON-ready dump of every instrument (histogram quantiles
-        included)."""
+        """JSON-ready dump of every instrument (quantiles included for
+        histograms) — the ``registry.json`` payload."""
         out: dict = {"counters": [], "gauges": [], "histograms": []}
         with self._lock:
             instruments = list(self._instruments.values())
@@ -164,7 +202,60 @@ class MetricsRegistry:
                 entry["value"] = inst.value
                 out["gauges"].append(entry)
             else:
-                entry.update(count=inst.count, sum=inst.sum, mean=inst.mean,
-                             **inst.quantiles())
+                entry.update(
+                    count=inst.count, sum=inst.sum, mean=inst.mean,
+                    **inst.quantiles(),
+                )
                 out["histograms"].append(entry)
         return out
+
+    def to_prometheus(self) -> str:
+        """Prometheus textfile-collector format (final values — the
+        node-exporter textfile pattern, not a live scrape endpoint).
+
+        One ``# TYPE`` line per metric FAMILY (name), with every label
+        series grouped under it — the exposition format allows at most
+        one TYPE per family, and promtool rejects duplicates.
+
+        Label VALUES are escaped per the exposition format (backslash,
+        double-quote, newline): an abort reason or fault spec carried
+        as a label would otherwise break the line grammar and take the
+        whole textfile down with it — the scrape that fails is exactly
+        the post-mortem one.
+        """
+
+        def esc(v) -> str:
+            return (str(v).replace("\\", r"\\").replace('"', r"\"")
+                    .replace("\n", r"\n"))
+
+        def fmt(name, labels, value, extra_labels=()):
+            pairs = [*labels, *extra_labels]
+            lab = ("{" + ",".join(f'{k}="{esc(v)}"' for k, v in pairs)
+                   + "}" if pairs else "")
+            return f"{name}{lab} {value}"
+
+        with self._lock:
+            instruments = list(self._instruments.values())
+        families: dict[str, tuple[str, list]] = {}
+        for inst in instruments:
+            kind = ("counter" if isinstance(inst, Counter)
+                    else "gauge" if isinstance(inst, Gauge)
+                    else "histogram")
+            families.setdefault(inst.name, (kind, []))[1].append(inst)
+        lines = []
+        for name, (kind, insts) in families.items():
+            lines.append(f"# TYPE {name} {kind}")
+            for inst in insts:
+                if kind in ("counter", "gauge"):
+                    lines.append(fmt(name, inst.labels, inst.value))
+                    continue
+                cum = 0
+                for bound, c in zip(inst.bounds, inst.counts):
+                    cum += c
+                    lines.append(fmt(f"{name}_bucket", inst.labels, cum,
+                                     (("le", repr(bound)),)))
+                lines.append(fmt(f"{name}_bucket", inst.labels, inst.count,
+                                 (("le", "+Inf"),)))
+                lines.append(fmt(f"{name}_sum", inst.labels, inst.sum))
+                lines.append(fmt(f"{name}_count", inst.labels, inst.count))
+        return "\n".join(lines) + "\n" if lines else ""

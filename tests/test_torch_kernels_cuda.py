@@ -436,7 +436,7 @@ def test_int8_kv_model_on_the_card_matches_plain_path(cuda):
 
 
 @pytest.mark.parametrize("bs", [4, 16, 128])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_kernel_matches_plain(cuda, dtype, rep, D, bs):
@@ -537,6 +537,21 @@ def test_paged_kernel_plan_edges(cuda, dtype, bs, rep, case):
         got = da.paged_flash_attention(q, k, v, tables, pos)
         torch.cuda.synchronize()
         _close(got, want, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
+# The serve CLI's --engine model on the card (d_model 128, heads of dim 32,
+# vocab 32): every projection and the 32-column head, f32 x, at its decode
+# width (4 lanes) and its prefill lengths (1-3 tokens).
+@pytest.mark.parametrize("D,K", [(128, 128), (512, 128), (128, 512), (128, 32)])
+@pytest.mark.parametrize("R", [1, 2, 3, 4])
+def test_int8_cli_engine_shapes_match_plain(cuda, R, D, K):
+    x = torch.randn(R, D, device="cuda", generator=cuda)
+    q, s = qm.quantize_int8(
+        torch.randn(D, K, device="cuda", generator=cuda) / math.sqrt(D))
+    got = qm.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (R, K)
+    _close(got, qm.int8_matmul_reference(x, q, s), F32_TOL)
 
 
 # K6's decode route (R <= 16): R 1, 8 and 16; depths of 8 times an odd
@@ -740,6 +755,58 @@ def test_engine_on_the_card_matches_plain_path(cuda):
     with plain_kernels():
         want = serve()
     assert got == want
+
+
+def test_engine_fleet_on_the_card_matches_plain_path(cuda):
+    """The serve CLI's engine fleet on the card: two live replicas and a
+    spare (threads launching K5 and K6 at once, over one shared model and
+    int8 twin) behind the router; every request's tokens equal a lone
+    engine's with every kernel swapped for its plain version."""
+    import threading
+
+    from distributed_machine_learning_tpu_torch.cli import serve
+    from distributed_machine_learning_tpu_torch.runtime.serving import (
+        ServingConfig,
+        ServingRouter,
+    )
+    from distributed_machine_learning_tpu_torch.runtime.serving_worker import (
+        ServingWorkerConfig,
+        start_worker_thread,
+    )
+    from distributed_machine_learning_tpu_torch.runtime.transport import (
+        InProcHub,
+        InProcTransport,
+    )
+
+    engines = serve.make_engines(3, 4, torch.device("cuda"))
+    prompts = [[1 + (7 * i + j) % 13 for j in range(1 + i % 3)] for i in range(24)]
+    hub = InProcHub()
+    router = ServingRouter(InProcTransport(hub), ServingConfig(replicas=2, poll_s=0.002))
+    stop = threading.Event()
+    workers = [start_worker_thread(InProcTransport(hub), r, None, stop,
+                                   ServingWorkerConfig(micro_batch=4), engine=e)
+               for r, e in enumerate(engines)]
+    rt = threading.Thread(target=router.run, args=(stop,), daemon=True)
+    rt.start()
+    build.reset_launch_counts()
+    try:
+        rids = [router.submit(p) for p in prompts]
+        assert router.wait_idle(60.0), router.audit()
+        got = [router.result(rid)["result"] for rid in rids]
+    finally:
+        verdict = router.close()
+        stop.set()
+        for t, _ in workers:
+            t.join(10.0)
+        rt.join(10.0)
+    assert verdict["exactly_once"] and build.launches["paged_attention"] > 0
+    with plain_kernels():
+        lone = engines[0]
+        lone.note_lever("latency")
+        for i, p in enumerate(prompts):
+            lone.submit(i, p)
+        want = {d["rid"]: d["tokens"] for d in lone.drain()}
+    assert got == [want[i] for i in range(len(prompts))]
 
 
 # ---------------------------------------------------------------------------

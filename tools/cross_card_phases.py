@@ -12,13 +12,15 @@ per rank: ``cli.lm --parallel ring`` at world 2 (``chip_smoke.run_ring_cli``),
 ``cli.part3 --ring-compress int8`` at world 2 (``chip_smoke.run_vgg_cli``)
 and ``cli.lm --parallel dp --num-nodes 4`` at the LM's full width
 (``run_dp_cli`` below); each must exit 0 on every rank, print the
-reference's protocol lines and name nccl in its banner.  With a card per
+reference's protocol lines and name nccl in its banner.  The serving
+fleet's run (a) (``run_fleet`` below): ``chip_smoke.serve_fleet``'s
+steady run with replica r's engine and models on ``cuda:r``.  With a card per
 rank the ranks choose nccl (``runtime/distributed.plan_placement``); on
 one card they share it over gloo, as ``chip_smoke.py`` runs them.  Prints
 each kernel's launches over the spawned phases (the codec's by chunk length
 and residual); exits 1 if a phase fails.
 PHASE names limit the run to those phases (``ring``, ``vgg``, ``ring cli``,
-``vgg cli``, ``dp cli``), e.g. the VGG ones alone after a change to the
+``vgg cli``, ``dp cli``, ``fleet``), e.g. the VGG ones alone after a change to the
 int8 ring codec.
 """
 
@@ -80,6 +82,53 @@ def run_dp_cli(smoke, backend: str) -> None:
                              f"{[o[-2000:] for o in outs]}")
 
 
+def run_fleet(smoke, torch, card: str) -> None:
+    """``chip_smoke.fleet_run``'s run (a) with a card per replica: the LM at
+    full width (bf16, the seed's weights) copied to ``cuda:r`` for replica
+    r with its own int8 twin and pool; 2 live and 1 spare, FLEET_REQUESTS
+    requests, the latency lever.  Gates: exactly once with no eviction,
+    every request well formed, first tokens against the plain path, K1 and
+    K5 launched.
+    Reports tokens/s beside one engine's drain of the same requests on
+    ``cuda:0``."""
+    import copy
+
+    import distributed_machine_learning_tpu_torch as pkg
+    from distributed_machine_learning_tpu_torch.ops import build
+
+    world = smoke.FLEET["replicas"] + smoke.FLEET["spares"]
+    models, _ = smoke.make_models(torch, pkg)
+    base = models.pop("bf16")
+    del models
+    engines = []
+    for r in range(world):
+        model = base if r == 0 else copy.deepcopy(base).to(f"cuda:{r}")
+        with torch.cuda.device(r):
+            engines += smoke.fleet_engines(torch, model, 1)
+    prompts, news = smoke.engine_traffic(torch, smoke.FLEET_REQUESTS)
+    lone, seconds = smoke.drain_engine(torch, engines[0], prompts, news)
+    smoke.log(f"fleet, a card per replica: one engine's drain of the same requests on "
+              f"cuda:0 [{card}]: {seconds:.3f} s -> {sum(news) / seconds:.1f} generated tok/s")
+    build.reset_launch_counts()
+    a = smoke.fleet_run(torch, engines, prompts, news)
+    launches = dict(build.launches)
+    smoke.log_fleet_run("a, a card per replica", a, news, card)
+    smoke.log(f"fleet run (a), a card per replica: launches {launches}")
+    v = a["verdict"]
+    if not (v["exactly_once"] and v["admitted"] == v["completed"] == smoke.FLEET_REQUESTS
+            and v["evictions"] == 0):
+        raise AssertionError(f"fleet, a card per replica: not exactly once, or an eviction: {v}")
+    for name in ("flash_fwd", "paged_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"fleet, a card per replica: {name} never launched")
+    smoke.check_completions(a["done"], prompts, news, "fleet, a card per replica")
+    same = sum(a["done"][i]["tokens"] == lone[i]["tokens"] for i in range(len(prompts)))
+    smoke.log(f"fleet, a card per replica vs the lone engine: {same}/{len(prompts)} "
+              f"requests equal token for token")
+    smoke.check_first_tokens(torch, engines[0], a["done"], prompts,
+                             "fleet, a card per replica")
+
+
 if __name__ == "__main__":  # the phases spawn ranks that import this module
     import torch
 
@@ -92,7 +141,8 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
     cards = torch.cuda.device_count()
-    print(f"card: {smoke.card_line()}; {cards} cards", flush=True)
+    card = smoke.card_line()
+    print(f"card: {card}; {cards} cards", flush=True)
     build.build_all()
     rows = {name: {} for name in build.KERNELS}
     rows.update({smoke.codec_row(k, n, r): {} for k in smoke.CODEC_KERNELS
@@ -105,7 +155,8 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
               ("vgg", lambda: smoke.run_vgg(torch, rows)),
               ("ring cli", lambda: smoke.run_ring_cli(torch, backend)),
               ("vgg cli", lambda: smoke.run_vgg_cli(torch, backend)),
-              ("dp cli", lambda: run_dp_cli(smoke, backend))]
+              ("dp cli", lambda: run_dp_cli(smoke, backend)),
+              ("fleet", lambda: run_fleet(smoke, torch, card))]
     chosen = sys.argv[1:] or [name for name, _ in phases]
     unknown = set(chosen) - {name for name, _ in phases}
     if unknown:
