@@ -97,6 +97,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    after the update).  K2, K3 and K7 are timed beside their bounds, plain
    versions and one library call each (SDPA's backward, the fastest
    pinned backend; torch's fused AdamW over the same 117 tensors).
+6b. Checkpoints at full width, in a temporary directory under ``build/``
+   (two checkpoints of 5.8 GB each; removed at the end, pass or fail).
+   Save: ``cli.lm``'s run, 2 steps with ``--ckpt-dir`` (K1-K3 8 × 2, K7
+   117 × 2), the bytes against 12 a parameter, then
+   ``tools/ckpt_verify.py`` on the directory (exit 0).  Round trip: the
+   checkpoint restored into a fresh model and state, every leaf bit for
+   bit; two steps from one snapshot of the in-memory state on one batch
+   (the baseline), then the restored state's step on it, bit for bit when
+   the baseline is (else within its noise, the op named).  Resume:
+   ``cli.lm --resume`` for 2 more steps (resumed from step 2, step 4
+   saved, the trainer kernels launched again).  Generate: ``cli.generate
+   --ckpt-dir --quant int8 --temperature 0`` with a 2048-byte prompt (K1
+   and K6 launched), its greedy tokens equal to the in-memory step-4
+   weights' through ``quantize_lm``.  Deploy: a ``DeployController``
+   rolls step 4 onto 2 + 1 engine replicas (ENGINE's config, a model each)
+   under engine_traffic, through ``load_serving_weights`` and
+   ``swap_params``: promoted once, no rollback, exactly once, one version
+   a completion, the new one after the promotion, first tokens against
+   the plain path, K1, K5 and K6 launched; then ``python -m
+   ...cli.deploy --replicas 4 --requests 300 --deploys 2``, and again with
+   ``--inject regression@2`` (one rollback), both exit 0.  Save, restore,
+   verify and load seconds and GB/s are logged with the card.
 
 7. Trains the reference-parity VGG-11 parts through ``cli.common.run_part``,
    as their ``main`` runs it, each rank a process sharing the card (gloo
@@ -2192,8 +2214,12 @@ def fleet_run(torch, engines, prompts, news, *, scheduler=None, drain_after: int
     replica 0 after that many completions; ``kill_after``: then stop another
     live replica's worker (its own stop event) and wait for its eviction.
     Returns the verdict, the completions by request index, the wall seconds
-    from the first submit to idle, each rank's beat times and, with
-    ``profile``, the run's device busy share (torch.profiler, CUDA only)."""
+    from the first submit to idle, each rank's beat times, the router's
+    eviction records and, with ``profile``, the run's device busy share
+    (torch.profiler, CUDA only).  The tracer is stopped only once the router
+    is closed and every worker has joined: its stop turns the run's device
+    events into host records and holds every thread a while, as its start
+    does, and a router that outlived it read that hold as dead replicas."""
     import threading
 
     from distributed_machine_learning_tpu_torch.runtime import serving, serving_worker
@@ -2272,9 +2298,7 @@ def fleet_run(torch, engines, prompts, news, *, scheduler=None, drain_after: int
         sync()
         result["seconds"] = time.perf_counter() - t0
         result["span"] = (live_mono, time.monotonic())
-        if prof is not None:
-            prof.__exit__(None, None, None)
-            result["busy"], prof = device_busy(torch, prof), None
+        result["idle_wall"] = time.time()
         if victim is not None:  # the kill's eviction comes a beat timeout later
             while router.evictions < 1 and time.monotonic() < deadline:
                 time.sleep(0.01)
@@ -2287,17 +2311,31 @@ def fleet_run(torch, engines, prompts, news, *, scheduler=None, drain_after: int
                        "generated": len(entry["result"] or ()) - len(prompts[i])}
         result["done"] = done
     finally:
-        if prof is not None:
-            prof.__exit__(None, None, None)
-        result["verdict"] = router.close()
-        stop_router.set()
-        for stop in stops:
-            stop.set()
-        for t, _ in workers:
-            t.join(timeout=30)
-        rt.join(timeout=10)
+        try:
+            result["verdict"] = router.close()
+            result["evicted"] = [e for e in hub_health(hub) if e["kind"] == "serve_evict"]
+            stop_router.set()
+            for stop in stops:
+                stop.set()
+            for t, _ in workers:
+                t.join(timeout=30)
+            rt.join(timeout=10)
+        finally:
+            if prof is not None:
+                t_stop = time.perf_counter()
+                prof.__exit__(None, None, None)
+                result["tracer_stop_s"] = time.perf_counter() - t_stop
+    if prof is not None:
+        result["busy"] = device_busy(torch, prof)
     result["beats"], result["victim"] = beats, victim
     return result
+
+
+def hub_health(hub) -> list:
+    """The health records (promote, evict, demote) an in-process hub holds."""
+    from distributed_machine_learning_tpu_torch.runtime import transport as tr
+
+    return tr.InProcTransport(hub).read_health_events()
 
 
 def log_fleet_run(run: str, r: dict, news, card: str) -> None:
@@ -2355,6 +2393,9 @@ def serve_fleet(torch, build, model, rows: dict, card: str) -> None:
         gap, rank = max(gaps)
         log(f"fleet run (a): longest beat gap of a live replica {gap * 1e3:.1f} ms "
             f"(replica {rank}; beat interval 50 ms, eviction at 2000 ms) [{card}]")
+    if "tracer_stop_s" in a:
+        log(f"fleet run (a): the tracer's stop took {a['tracer_stop_s']:.3f} s, after the "
+            f"router closed [{card}]")
     if a["busy"] is None:
         log("fleet run (a) profiler: not measured (no device events traced)")
     else:
@@ -2368,8 +2409,11 @@ def serve_fleet(torch, build, model, rows: dict, card: str) -> None:
     if not (v["exactly_once"] and v["admitted"] == v["completed"] == FLEET_REQUESTS):
         raise AssertionError(f"fleet run (a): not exactly once: {v}")
     if v["evictions"] or v["promotions"] != FLEET["replicas"]:
+        why = [(e.get("rank"), e.get("why"), round(e["time"] - a["idle_wall"], 3))
+               for e in a["evicted"]]
         raise AssertionError(f"fleet run (a): a healthy replica was evicted: {v['evictions']} "
-                             f"evictions, {v['promotions']} promotions")
+                             f"evictions, {v['promotions']} promotions; (rank, why, s after "
+                             f"the last request finished) {why}")
     for name in ("flash_fwd", "paged_attention"):
         if launches_a[name] == 0:
             raise AssertionError(f"fleet run (a): {name} never launched")
@@ -2629,6 +2673,526 @@ def train(torch, build, rows: dict) -> None:
     check_remat(torch, build, out["losses"][0])
     check_train_step(torch)
     log(f"trainer phases: {time.perf_counter() - t0:.1f} s")
+
+
+# The checkpoint phase (step 6b): cli.lm's path for CKPT_STEPS steps, saved;
+# resumed for CKPT_STEPS more; generated from and deployed.  The generate
+# leg's prompt is 2048 bytes (a flash prefill, K1) at the 32k vocab.
+CKPT_STEPS = 2
+CKPT_PROMPT = "The " * 512
+CKPT_NEW_TOKENS = 32
+DEPLOY_REQUESTS_AFTER = 8  # requests submitted after the promotion
+DEPLOY_WINDOW = 8  # canary completions before the judgement
+# A full-width swap holds the worker's loop for seconds (1.93 GB of f32
+# weights to the card, the int8 twin rebuilt, after the drain): beats stop
+# meanwhile, so the router's eviction timeout and the commit wait are longer.
+DEPLOY_REPLICA_TIMEOUT_S = 20.0
+DEPLOY_COMMIT_TIMEOUT_S = 120.0
+# The restored state's next step against the in-memory state's, when two
+# steps from one snapshot are not bit for bit: each leaf's difference
+# relative to its update, within max(0.1, 2.5 × that baseline noise), as the
+# ring step gate does.
+CKPT_NOISE_FLOOR, CKPT_NOISE_FACTOR = 0.1, 2.5
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """Record the wall seconds (host clock: the checkpoint work is disk,
+    sha256 and pageable copies) of every call of ``module``'s functions
+    ``names`` while the block runs; yields {name: [seconds, ...]}."""
+    times = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                times[name].append(time.perf_counter() - t0)
+        return run
+
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, timed(name, fn))
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def check_trainer_launches(launches: dict, n_leaves: int, steps: int, label: str) -> None:
+    layers = MODEL["n_layers"]
+    want = {"flash_fwd": layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps, "fused_adamw": n_leaves * steps}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
+                                 f"want {count}")
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def ckpt_save_leg(torch, build, ckdir: str, ctx, times: dict, card: str):
+    """cli.lm's run (trainer_args, CKPT_STEPS steps, --ckpt-dir): launches
+    gated, the bytes written against 12 bytes a parameter, the save's
+    seconds, the free disk, then tools/ckpt_verify.py on the directory (exit
+    0).  Returns (state, args, launches)."""
+    import shutil
+
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+
+    args = trainer_args("--ckpt-dir", ckdir, iters=CKPT_STEPS)
+    free0 = shutil.disk_usage(ckdir).free
+    build.reset_launch_counts()
+    state, lines = captured(lm.run, args, ctx)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    for line in lines:
+        log(f"  cli.lm: {line}")
+    path = f"{ckdir}/step_{CKPT_STEPS}"
+    if f"Saved checkpoint to {path}" not in lines or state.step != CKPT_STEPS:
+        raise AssertionError(f"checkpoint save leg: no save at step {CKPT_STEPS}: {lines}")
+    n_leaves = sum(1 for _ in state.model.parameters())
+    n_params = sum(p.numel() for p in state.model.parameters())
+    check_trainer_launches(launches, n_leaves, CKPT_STEPS, "checkpoint save leg")
+    leaf_bytes = sum(e["bytes"] for e in ck.checkpoint_manifest(path)["leaves"].values())
+    on_disk = dir_bytes(path)
+    save_s = times["save_checkpoint"][-1]
+    log(f"checkpoint save [{card}]: {on_disk} bytes on disk ({leaf_bytes} of leaves: f32 "
+        f"params, mu, nu of {n_params} parameters and the step) in {save_s:.3f} s -> "
+        f"{on_disk / save_s / 1e9:.3f} GB/s; free disk {free0 / 1e9:.1f} -> "
+        f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB; launches {launches}")
+    if leaf_bytes != 12 * n_params + 4:
+        raise AssertionError(f"checkpoint holds {leaf_bytes} bytes of leaves, want "
+                             f"{12 * n_params + 4}")
+    tool = Path(__file__).resolve().parent / "tools" / "ckpt_verify.py"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(tool), ckdir, "--quiet"], capture_output=True,
+                         text=True, timeout=600)
+    verify_s = time.perf_counter() - t0
+    log(f"tools/ckpt_verify.py [{card}]: exit code {res.returncode} in {verify_s:.3f} s "
+        f"({on_disk / verify_s / 1e9:.3f} GB/s, process start included): "
+        f"{res.stdout.strip()[-300:]}")
+    if res.returncode != 0:
+        raise AssertionError(f"tools/ckpt_verify.py failed: {(res.stdout + res.stderr)[-2000:]}")
+    return state, args, launches
+
+
+def ckpt_round_trip(torch, state, args, path: str, card: str) -> None:
+    """Restore ``path`` into a freshly built model and state: every leaf bit
+    for bit equal to the in-memory state.  Then the next step: first two
+    steps from one snapshot of the in-memory state on one batch (the
+    baseline), then the restored state's step on the same batch, held bit
+    for bit when the baseline is, else per leaf within
+    max(CKPT_NOISE_FLOOR, CKPT_NOISE_FACTOR × the baseline's noise)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+    from distributed_machine_learning_tpu_torch.train.lm_step import make_lm_train_step
+
+    _, fresh, place, _ = lm.build(args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ck.restore_checkpoint(path, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = dir_bytes(path)
+    want = {k: v for k, v in ck._state_leaves(state).items() if k != "step"}
+    got = {k: v for k, v in ck._state_leaves(restored).items() if k != "step"}
+    differ = [k for k in want if got[k].device != want[k].device
+              or not torch.equal(got[k], want[k])]
+    log(f"checkpoint restore (files and leaves verified) into a fresh state [{card}]: "
+        f"{restore_s:.3f} s -> {nbytes / restore_s / 1e9:.3f} GB/s; {len(want)} leaves, "
+        f"{len(differ)} differ from the in-memory state; step {restored.step}")
+    if differ or restored.step != state.step or restored.config != state.config:
+        raise AssertionError(f"restored state differs: leaves {differ[:5]}, step "
+                             f"{restored.step} vs {state.step}")
+
+    tokens, targets = place(*next(lm.synthetic_batches(args, seed=SEED + 2, count=1)))
+    snap = {k: v.detach().clone() for k, v in want.items()}
+
+    def run(st):
+        loss = float(make_lm_train_step(st.model)(st, tokens, targets)[1])
+        leaves = {k: v.detach().clone() for k, v in ck._state_leaves(st).items()
+                  if k != "step"}
+        grads = {k: p.grad.detach().clone() for k, p in st.model.named_parameters()}
+        return loss, leaves, grads
+
+    loss1, r1, g1 = run(state)
+    with torch.no_grad():
+        for k, t in want.items():
+            t.copy_(snap[k])
+    state.step = restored.step
+    loss2, r2, g2 = run(state)
+    bitwise = loss1 == loss2 and all(torch.equal(r1[k], r2[k]) for k in r1)
+    if bitwise:
+        del r2, g1, g2, snap
+        loss3, r3, _ = run(restored)
+        same = loss3 == loss1 and all(torch.equal(r3[k], r1[k]) for k in r1)
+        log(f"restored step vs in-memory step on one batch [{card}]: the baseline (two "
+            f"steps from one snapshot) is bit for bit (loss {loss1!r}); the restored "
+            f"step {'is bit for bit too' if same else 'DIFFERS'} (loss {loss3!r})")
+        if not same:
+            bad = [k for k in r1 if not torch.equal(r3[k], r1[k])]
+            raise AssertionError(f"the restored state's step differs: loss {loss3!r} vs "
+                                 f"{loss1!r}, leaves {bad[:5]}")
+        return
+    # Not repeatable: name where the two runs part.
+    def rel(a, k):  # difference relative to the step's update of the leaf
+        return float((a[k] - r1[k]).float().norm()
+                     / (r1[k] - snap[k]).float().norm().clamp_min(1e-30))
+
+    noise = {k: rel(r2, k) for k in r1}
+    del r2
+    loss3, r3, _ = run(restored)
+    grad_differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    op = ("the forward (the loss differs)" if loss1 != loss2 else
+          f"the backward of {grad_differ[:3]}'s layers (their gradients differ)"
+          if grad_differ else "the update (K7: equal gradients, different parameters)")
+    limits = {k: max(CKPT_NOISE_FLOOR, CKPT_NOISE_FACTOR * noise[k]) for k in r1}
+    errs = {k: rel(r3, k) for k in r1}
+    worst = max(errs, key=lambda k: errs[k] / limits[k])
+    log(f"restored step vs in-memory step [{card}]: the baseline is NOT bit for bit: "
+        f"{op}; loss {loss1!r} / {loss2!r} / restored {loss3!r}; worst leaf {worst}: "
+        f"{errs[worst]:.3e} of its update (limit {limits[worst]:.3e})")
+    if any(errs[k] > limits[k] for k in r1) or not math.isfinite(loss3):
+        raise AssertionError(f"the restored state's step exceeds the baseline noise at "
+                             f"{worst}")
+
+
+def ckpt_resume_leg(torch, build, ckdir: str, ctx, times: dict, card: str):
+    """cli.lm --resume for CKPT_STEPS more steps: it must resume from
+    step_CKPT_STEPS, end at step 2·CKPT_STEPS, save it and launch the trainer
+    kernels again.  Returns (state, launches)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    args = trainer_args("--ckpt-dir", ckdir, "--resume", iters=CKPT_STEPS)
+    for name in times:
+        times[name].clear()
+    build.reset_launch_counts()
+    state, lines = captured(lm.run, args, ctx)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    for line in lines:
+        log(f"  cli.lm --resume: {line}")
+    end = 2 * CKPT_STEPS
+    want = [f"Resumed from {ckdir}/step_{CKPT_STEPS} (step {CKPT_STEPS})",
+            f"Saved checkpoint to {ckdir}/step_{end}"]
+    if any(w not in lines for w in want) or state.step != end:
+        raise AssertionError(f"resume leg: want {want} and step {end}, got step "
+                             f"{state.step}: {lines}")
+    check_trainer_launches(launches, sum(1 for _ in state.model.parameters()), CKPT_STEPS,
+                           "checkpoint resume leg")
+    chain, restore, save = (times[k][0] for k in ("latest_checkpoint", "restore_checkpoint",
+                                                  "save_checkpoint"))
+    nbytes = dir_bytes(f"{ckdir}/step_{end}")
+    log(f"checkpoint resume [{card}]: chain walk (sha256 of every file) {chain:.3f} s, "
+        f"restore (leaves verified) {restore:.3f} s -> {nbytes / restore / 1e9:.3f} GB/s, "
+        f"save of step_{end} {save:.3f} s -> {nbytes / save / 1e9:.3f} GB/s; launches "
+        f"{launches}")
+    return state, launches
+
+
+def ckpt_generate_leg(torch, build, ckdir: str, state, times: dict, card: str) -> dict:
+    """``cli.generate --ckpt-dir --quant int8 --temperature 0`` in this
+    process (it must return, K1 and K6 launched); its greedy tokens must
+    equal the same prompt's from the in-memory weights, quantized by
+    quantize_lm, in the CLI's model.  Returns the leg's launches."""
+    from distributed_machine_learning_tpu_torch.cli import generate
+    from distributed_machine_learning_tpu_torch.data.text import encode_prompt
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm
+
+    flags = ["--ckpt-dir", ckdir, "--quant", "int8", "--temperature", "0",
+             "--prompt", CKPT_PROMPT, "--max-new-tokens", str(CKPT_NEW_TOKENS),
+             "--d-model", str(MODEL["d_model"]), "--n-layers", str(MODEL["n_layers"]),
+             "--n-heads", str(MODEL["n_heads"]), "--n-kv-heads", str(MODEL["n_kv_heads"]),
+             "--vocab", str(MODEL["vocab_size"]), "--device", str(state.model.device)]
+    for name in times:
+        times[name].clear()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, lines = captured(generate.main, flags)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.launches)
+    path = f"{ckdir}/step_{2 * CKPT_STEPS}"
+    log(f"cli.generate --ckpt-dir --quant int8 [{card}]: {seconds:.3f} s (chain walk "
+        f"{times['latest_checkpoint'][0]:.3f} s, restore {times['restore_checkpoint'][0]:.3f}"
+        f" s); {lines[0]!r}; launches {launches}")
+    if lines[0] != f"restored {path}" or len(tokens) != CKPT_NEW_TOKENS:
+        raise AssertionError(f"cli.generate --ckpt-dir: {lines[:1]}, {len(tokens)} tokens")
+    for name in ("flash_fwd", "quant_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"cli.generate --ckpt-dir: {name} never launched")
+    device = state.model.device
+    model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16, device=device)
+    model.load_state_dict(state.model.state_dict())
+    model = quantize_lm(model).eval()
+    prompt = torch.tensor([encode_prompt(CKPT_PROMPT, MODEL["vocab_size"])])
+    fn = make_generate_fn(model, CKPT_NEW_TOKENS, temperature=0.0, quantize="int8")
+    want = fn(prompt, torch.Generator(device=device).manual_seed(0))[0, prompt.shape[1]:]
+    want = want.tolist()
+    log(f"cli.generate --ckpt-dir vs the in-memory step-{2 * CKPT_STEPS} weights: "
+        f"{sum(a == b for a, b in zip(tokens, want))}/{CKPT_NEW_TOKENS} greedy tokens equal")
+    if tokens != want:
+        raise AssertionError(f"cli.generate --ckpt-dir tokens {tokens} != the in-memory "
+                             f"weights' {want}")
+    return launches
+
+
+def deploy_engines(torch, n: int, device) -> list:
+    """``n`` engine replicas at ENGINE's config, each over its own bf16 model
+    (a swap on one must not touch another) holding the seeded random weights
+    the serving phases use (version 0), each with its own int8 twin, warmed
+    on both prefill paths and both levers; and version 0's f32 state_dict."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.inference.continuous import (
+        ContinuousEngine,
+        EngineConfig,
+    )
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+
+    engines, weights = [], None
+    for _ in range(n):  # the first model's f32 init stays in ``weights``
+        model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16, device=device)
+        if weights is None:
+            init_params(model, seed=SEED)
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        engine = ContinuousEngine(model.to(torch.bfloat16).eval(), EngineConfig(**ENGINE),
+                                  device=model.device)
+        engine.warmup(prompt_lens=(300, 2048))
+        engines.append(engine)
+    torch.cuda.synchronize()
+    return engines, weights
+
+
+def ckpt_deploy_leg(torch, build, ckdir: str, device, card: str) -> dict:
+    """A DeployController deploys step_2·CKPT_STEPS onto FLEET's engine
+    replicas (2 live + 1 spare, a RegimeScheduler on the router) while
+    engine_traffic's requests flow: load_serving_weights, then each
+    replica's on_swap calls engine.swap_params with the controller's loaded
+    weights.  Gates: promoted once, no rollback; exactly once; every
+    completion carries one version; every request submitted after the
+    promotion carries the new one; their first tokens against the plain
+    path under the new weights; K1, K5 and K6 launched.  Returns the leg's
+    launches."""
+    import threading
+
+    from distributed_machine_learning_tpu_torch.runtime import deploy as deploy_mod
+    from distributed_machine_learning_tpu_torch.runtime import serving, serving_worker
+    from distributed_machine_learning_tpu_torch.runtime import transport as tr
+    from distributed_machine_learning_tpu_torch.runtime.deploy import (
+        DeployConfig,
+        DeployController,
+    )
+    from distributed_machine_learning_tpu_torch.runtime.faults import FaultEvents
+    from distributed_machine_learning_tpu_torch.runtime.scheduler import RegimeScheduler
+
+    prompts, news = engine_traffic(torch, FLEET_REQUESTS)
+    engines, v0 = deploy_engines(torch, FLEET["replicas"] + FLEET["spares"], device)
+    hub, events = tr.InProcHub(), FaultEvents()
+    router = serving.ServingRouter(
+        tr.InProcTransport(hub),
+        serving.ServingConfig(replicas=FLEET["replicas"], max_queue=FLEET_REQUESTS,
+                              micro_batch=ENGINE["max_lanes"],
+                              max_outstanding=ENGINE["max_lanes"], poll_s=0.005,
+                              replica_timeout_s=DEPLOY_REPLICA_TIMEOUT_S),
+        scheduler=RegimeScheduler(), events=events)
+    controller = DeployController(
+        tr.InProcTransport(hub), router,
+        DeployConfig(checkpoint_dir=ckdir, canary_replicas=1,
+                     canary_every_n=FLEET["replicas"], canary_window=DEPLOY_WINDOW,
+                     commit_timeout_s=DEPLOY_COMMIT_TIMEOUT_S, judge_timeout_s=300.0,
+                     poll_s=0.01),
+        events=events)
+    swaps = []
+
+    def on_swap_for(engine):
+        def on_swap(version, rec):
+            t0 = time.perf_counter()
+            weights = v0 if version == 0 else controller.loaded[version]["params"]
+            engine.swap_params(weights, version=version)
+            torch.cuda.synchronize(engine.device)
+            swaps.append((version, time.perf_counter() - t0))
+        return on_swap
+
+    stops = [threading.Event() for _ in engines]
+    build.reset_launch_counts()
+    workers = [serving_worker.start_worker_thread(
+        tr.InProcTransport(hub), rank, None, stops[rank],
+        serving_worker.ServingWorkerConfig(micro_batch=ENGINE["max_lanes"]),
+        on_swap=on_swap_for(engine), engine=engine) for rank, engine in enumerate(engines)]
+    stop_router = threading.Event()
+    rt = threading.Thread(target=router.run, args=(stop_router,), daemon=True)
+    rt.start()
+    submitted, done_loading = [], threading.Event()
+
+    def submit(i):
+        while True:
+            try:
+                return router.submit(prompts[i % len(prompts)], max_new=news[i % len(news)])
+            except serving.Overloaded:
+                time.sleep(0.005)
+
+    def load():
+        i = 0
+        while not done_loading.is_set():
+            submitted.append((submit(i), i % len(prompts)))
+            i += 1
+
+    loader = threading.Thread(target=load, daemon=True)
+    try:
+        deadline = time.monotonic() + 60.0
+        while len(router._replicas) < FLEET["replicas"]:
+            if time.monotonic() > deadline:
+                raise AssertionError("deploy leg: replicas never went live")
+            time.sleep(0.005)
+        loader.start()
+        t0 = time.perf_counter()
+        with timed_calls(deploy_mod, ("latest_checkpoint", "load_serving_weights")) as times:
+            out = controller.poll_once()
+        deploy_s = time.perf_counter() - t0
+        done_loading.set()
+        loader.join(timeout=60)
+        if not router.wait_idle(300.0):
+            raise AssertionError(f"deploy leg: not idle: {router.audit()}")
+        after = [(submit(i), i) for i in range(DEPLOY_REQUESTS_AFTER)]
+        if not router.wait_idle(300.0):
+            raise AssertionError(f"deploy leg: not idle after the promotion: {router.audit()}")
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        live = sorted(router.audit()["weight_versions"])
+        results = {rid: router.result(rid) for rid, _ in submitted + after}
+    finally:
+        verdict = router.close()
+        stop_router.set()
+        for stop in stops:
+            stop.set()
+        for t, _ in workers:
+            t.join(timeout=30)
+        rt.join(timeout=10)
+    summary = controller.summary()
+    log(f"deploy leg [{card}]: {out and out['outcome']} in {deploy_s:.3f} s (chain walk "
+        f"{times['latest_checkpoint'][0]:.3f} s, load_serving_weights "
+        f"{times['load_serving_weights'][0]:.3f} s, a canary window of {DEPLOY_WINDOW}, the "
+        f"promotion); swaps (version, s) {swaps}; "
+        f"{verdict['completed']}/{verdict['admitted']} completed, exactly_once "
+        f"{verdict['exactly_once']}; {len(submitted)} requests during the deploy, "
+        f"{len(after)} after; versions by request "
+        f"{[results[rid]['version'] for rid, _ in submitted + after]}; history "
+        f"{[(h['rank'], h['version'], h['why']) for h in summary['history']]}; launches "
+        f"{launches}")
+    if out is None or out["outcome"] != "promoted" or out["step"] != 2 * CKPT_STEPS:
+        raise AssertionError(f"deploy leg: {out}")
+    if (events.canary_promotions, events.canary_rollbacks) != (1, 0):
+        raise AssertionError(f"deploy leg: {events.canary_promotions} promotions, "
+                             f"{events.canary_rollbacks} rollbacks")
+    if not (verdict["exactly_once"] and verdict["admitted"] == verdict["completed"]):
+        raise AssertionError(f"deploy leg: not exactly once: {verdict}")
+    if any(results[rid]["version"] not in (0, 1) for rid, _ in submitted + after):
+        raise AssertionError("deploy leg: a completion without a single weights version")
+    if any(results[rid]["version"] != 1 for rid, _ in after):
+        raise AssertionError("deploy leg: a request after the promotion served the old "
+                             "weights")
+    for name in ("flash_fwd", "paged_attention", "quant_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"deploy leg: {name} never launched")
+    done, after_prompts = {}, {}
+    for rid, i in after:
+        entry = results[rid]
+        levers = [ev.get("lever") for ev in entry["events"] if ev.get("stage") == "decode"]
+        done[len(done)] = {"tokens": entry["result"], "lever": levers[-1] if levers else None}
+        after_prompts[len(after_prompts)] = prompts[i]
+    # The plain path is swapped in module-wide: only with every fleet thread gone.
+    check_first_tokens(torch, engines[live[0]], done, after_prompts,
+                       "deploy leg, requests after the promotion (new weights)")
+    del engines, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_deploy_cli(ckdir: str, device, card: str) -> None:
+    """The real ``cli.deploy``: 4 replicas, 300 requests, 2 deploys, then again
+    with a regression injected into deploy 2; both must exit 0, the second
+    with one rollback."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    for n, extra in enumerate(([], ["--inject", "regression@2"])):
+        cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.deploy",
+               "--replicas", "4", "--requests", "300", "--deploys", "2",
+               "--checkpoint-dir", f"{ckdir}/deploy_cli_{n}", "--device", str(device), *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith(("deploy ", "requests:", "deploys:", "exactly-once"))]
+        log(f"cli.deploy {' '.join(extra)} [{card}] ({time.perf_counter() - t0:.1f} s): "
+            f"exit code {res.returncode}; " + " | ".join(lines))
+        want = "(1 promoted, 1 rolled back" if extra else "(2 promoted, 0 rolled back"
+        if res.returncode != 0 or "exactly-once audit: PASS" not in res.stdout \
+                or want not in res.stdout:
+            raise AssertionError(f"cli.deploy {extra}: exit code {res.returncode}; output "
+                                 f"tail {(res.stdout + res.stderr)[-2000:]}")
+
+
+def checkpoint_phase(torch, build, rows: dict, card: str) -> None:
+    """Step 6b: save, round trip, resume, generate and deploy at full width
+    in a temporary directory under build/ (two checkpoints of ~5.8 GB),
+    removed at the end whatever happens; every row of the kernels line gets
+    the launches of the save, resume, generate and deploy legs."""
+    import shutil
+    import tempfile
+
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="ckpt_phase_", dir=build_dir)
+    ctx = initialize_from_flags(device=trainer_args().device)
+    try:
+        with timed_calls(ck, ("save_checkpoint", "restore_checkpoint",
+                              "latest_checkpoint")) as times:
+            state, args, l_save = ckpt_save_leg(torch, build, ckdir, ctx, times, card)
+            ckpt_round_trip(torch, state, args, f"{ckdir}/step_{CKPT_STEPS}", card)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            state, l_resume = ckpt_resume_leg(torch, build, ckdir, ctx, times, card)
+            l_gen = ckpt_generate_leg(torch, build, ckdir, state, times, card)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        l_deploy = ckpt_deploy_leg(torch, build, ckdir, ctx.device, card)
+        run_deploy_cli(ckdir, ctx.device, card)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["ckpt_launches"] = sum(leg.get(name, 0) for leg in (l_save, l_resume, l_gen,
+                                                                 l_deploy))
+    log(f"checkpoint phases: {time.perf_counter() - t_phase:.1f} s")
 
 
 # The reference-parity VGG-11 parts (step 7), at the reference's widths:
@@ -3559,6 +4123,9 @@ def main(argv=None) -> int:
     train(torch, build, rows)
     gc.collect()
     torch.cuda.empty_cache()
+    checkpoint_phase(torch, build, rows, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     run_vgg(torch, rows)
     run_vgg_cli(torch)
@@ -3598,7 +4165,8 @@ def main(argv=None) -> int:
             "context_ms": row.get("context_ms"), "kv_int8_launches": row["kv_int8_launches"],
             "engine_launches": row["engine_launches"],
             "fleet_launches": row["fleet_launches"],
-            "train_launches": row["train_launches"], "vgg_launches": row["vgg_launches"],
+            "train_launches": row["train_launches"], "ckpt_launches": row["ckpt_launches"],
+            "vgg_launches": row["vgg_launches"],
             "ring_launches": row["ring_launches"], "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

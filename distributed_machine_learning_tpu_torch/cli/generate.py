@@ -1,20 +1,21 @@
 """Text generation entry point of the port: serve a TransformerLM.
 
-Counterpart of ``distributed_machine_learning_tpu/cli/generate.py`` for
-randomly initialized weights: the byte-level prompt encoding, the
-sampling flags, ``--compute-dtype``, ``--kv-cache-dtype`` (``int8``: int8
-rows plus f32 scales per slot) and ``--quant int8``.  Runs on the GPU
-unless ``--device cpu`` is given.
+Counterpart of ``distributed_machine_learning_tpu/cli/generate.py``: the
+weights of a ``cli.lm`` checkpoint (``--ckpt-dir``: the newest valid one,
+verified) or random ones from ``--seed`` (``--random-init``), the
+byte-level prompt encoding, the sampling flags, ``--compute-dtype``,
+``--kv-cache-dtype`` (``int8``: int8 rows plus f32 scales per slot) and
+``--quant int8``.  Runs on the GPU unless ``--device cpu`` is given.
 
 Usage::
 
     python -m distributed_machine_learning_tpu_torch.cli.generate \
-        --random-init --prompt "The " --max-new-tokens 32 --temperature 0 \
+        --ckpt-dir ckpts --prompt "The " --max-new-tokens 32 --temperature 0 \
         --d-model 2048 --n-layers 8 --n-heads 16 --n-kv-heads 4 --vocab 32000
 
-Restoring a ``cli.lm`` checkpoint (``--ckpt-dir``) needs the reference's
-orbax format and is not ported yet; so are ``--moe``, ``--tp`` and
-speculative decoding.
+The model flags must describe the checkpoint's model.  Pipeline-layout
+checkpoints (stacked blocks) are not ported yet (ROADMAP A5c); neither are
+``--moe``, ``--tp`` and speculative decoding (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--ckpt-dir", default=None,
-                   help="a cli.lm checkpoint (not ported yet: raises)")
+                   help="serve the newest valid cli.lm checkpoint under this directory")
     p.add_argument("--random-init", action="store_true",
                    help="serve freshly initialized weights (from --seed)")
     p.add_argument("--prompt", default="The ")
@@ -74,14 +75,34 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> None:
-    args = make_parser().parse_args(argv)
-    if args.ckpt_dir:
+def restore_lm_params(ckpt_dir: str) -> dict:
+    """The parameters of the newest valid checkpoint under ``ckpt_dir``, as
+    CPU tensors by state_dict name (its files verified by the fallback
+    chain, its leaves by the restore)."""
+    from distributed_machine_learning_tpu_torch.train.checkpoint import (
+        checkpoint_layout,
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+
+    latest = latest_checkpoint(ckpt_dir)
+    if latest is None:
+        raise FileNotFoundError(f"no complete checkpoint under {ckpt_dir}")
+    if checkpoint_layout(latest) is not None:
         raise NotImplementedError(
-            "--ckpt-dir: restoring a cli.lm checkpoint is not ported yet "
-            "(ROADMAP A3 '--ckpt-dir'); use --random-init")
-    if not args.random_init:
-        raise ValueError("pass --random-init (checkpoints are not ported yet)")
+            f"checkpoint {latest} holds a pipeline layout "
+            f"({checkpoint_layout(latest)!r}); unstacking it is not ported yet: "
+            "ROADMAP A5c")
+    params = restore_checkpoint(latest, files_verified=True).params
+    print(f"restored {latest}")
+    return params
+
+
+def main(argv=None) -> list[int]:
+    """Generate and print; returns the generated token ids."""
+    args = make_parser().parse_args(argv)
+    if not args.ckpt_dir and not args.random_init:
+        raise ValueError("pass --ckpt-dir (a cli.lm checkpoint) or --random-init")
     device = resolve_device(args.device)
     vocab = args.vocab or VOCAB_SIZE
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -90,8 +111,11 @@ def main(argv=None) -> None:
                           n_layers=args.n_layers, n_heads=args.n_heads,
                           n_kv_heads=args.n_kv_heads, compute_dtype=dtype,
                           kv_cache_dtype=kv_dtype, device=device)
-    init_params(model, seed=args.seed)
-    print("WARNING: --random-init weights (untrained output)")
+    if args.ckpt_dir:
+        model.load_state_dict(restore_lm_params(args.ckpt_dir))
+    else:
+        init_params(model, seed=args.seed)
+        print("WARNING: --random-init weights (untrained output)")
     # Serving configuration: quantize from the f32 weights, or store the
     # weights in the compute dtype once (decode reads them every step).
     model = quantize_lm(model) if args.quant == "int8" else model.to(dtype)
@@ -104,6 +128,7 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     out = fn(prompt, gen)[0, prompt.shape[1]:].tolist()
     print(args.prompt + decode_tokens(out, vocab))
+    return out
 
 
 if __name__ == "__main__":

@@ -32,9 +32,22 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
         --parallel ring --num-nodes 2 --rank $r --master-ip 127.0.0.1:29500 \\
         --seq-len 8192 --batch-size 1 ... & done; wait
 
+    # save after 2 steps, then resume from the newest valid checkpoint
+    python -m distributed_machine_learning_tpu_torch.cli.lm ... --max-iters 2 \\
+        --ckpt-dir ckpts
+    python -m distributed_machine_learning_tpu_torch.cli.lm ... --max-iters 2 \\
+        --ckpt-dir ckpts --resume
+
+``--ckpt-dir`` saves the state after training (``train/checkpoint.py``:
+rank 0 writes, every rank restores); ``--resume`` first restores the
+newest valid checkpoint there (this run's optimizer hyperparameters win,
+so ``--lr`` may change), ``--resume auto`` also restarts a failed run from
+it, up to ``--max-restarts`` times.  The synthetic stream starts from its
+seed in every process, as the reference's does.
+
 Every flag of the reference that this port does not carry yet raises
 NotImplementedError naming its ROADMAP item (other ``--parallel`` schemes,
-checkpoints, a text corpus, the fused head+loss, telemetry).
+a text corpus, the fused head+loss, telemetry).
 """
 
 from __future__ import annotations
@@ -74,11 +87,8 @@ PARALLEL = ["dp", "ring", "ulysses", "fsdp", "fsdp_pl", "tp", "pp", "3d", "ep"]
 # Flags of the reference CLI that this slice does not carry: (dest, the
 # value that means "not asked for", the ROADMAP item).
 _NOT_PORTED = [
-    ("ckpt_dir", None, "A3 'train/checkpoint.py'"),
-    ("resume", None, "A3 'train/checkpoint.py'"),
-    ("max_restarts", 3, "A3 'train/checkpoint.py' (--resume auto)"),
-    ("data_dir", None, "A3 \"data/text.py's corpus loader\""),
-    ("fused_ce_chunks", None, "A3 'ops/fused_ce.py'"),
+    ("data_dir", None, "A3b \"data/text.py's corpus loader\""),
+    ("fused_ce_chunks", None, "A3b 'ops/fused_ce.py'"),
     ("telemetry_dir", None, "A6 'telemetry'"),
     ("telemetry_flush_every", 20, "A6 'telemetry'"),
     ("momentum_dtype", None, "A4 (SGD)"),
@@ -280,6 +290,104 @@ def build(args, ctx: DistributedContext | None = None):
     return step, state, place, model
 
 
+def resume(args, state):
+    """``state`` from the newest valid checkpoint under ``--ckpt-dir``
+    (restored into its tensors in place), or unchanged when there is none.
+    Refuses a checkpoint of another parameter layout or optimizer; this
+    run's optimizer config wins over the saved one."""
+    from distributed_machine_learning_tpu_torch.train.checkpoint import (
+        checkpoint_config,
+        checkpoint_layout,
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+
+    if not args.ckpt_dir:
+        raise ValueError("--resume requires --ckpt-dir")
+    latest = latest_checkpoint(args.ckpt_dir)
+    if latest is None:
+        rank0_print(f"No checkpoint under {args.ckpt_dir}; starting from scratch.")
+        return state
+    saved_layout = checkpoint_layout(latest)
+    if saved_layout is not None:  # dp and ring save plain layouts
+        raise ValueError(f"checkpoint parameter layout {saved_layout!r} does not match "
+                         "this run's None (same tree structure, permuted layers — resume "
+                         "with the schedule/chunks/device-count it was saved under)")
+    saved_cfg = checkpoint_config(latest)
+    if type(saved_cfg) is not type(state.config):
+        raise ValueError(f"checkpoint was trained with {type(saved_cfg).__name__} but "
+                         f"this run uses --optimizer {args.optimizer}; the LM resume path "
+                         "requires a matching optimizer")
+    config = state.config
+    state = restore_checkpoint(latest, state, files_verified=True)
+    state.config = config
+    rank0_print(f"Resumed from {latest} (step {state.step})")
+    return state
+
+
+def run(args, ctx: DistributedContext):
+    """Train this rank as ``main`` does, after the group is up; returns the
+    final TrainState (saved under ``--ckpt-dir`` when given)."""
+    step, state, place, model = build(args, ctx)
+    rank0_print(f"lm parallel={args.parallel} devices={ctx.num_nodes} ({model.device}) "
+                f"d_model={args.d_model} layers={args.n_layers} "
+                f"seq_len={args.seq_len} batch={args.batch_size} "
+                f"attn={model.attn_impl} backend={ctx.backend or 'none'} "
+                f"wire={ctx.comm.wire}")
+    # One stream for the whole run, as the reference's: a restart within the
+    # process continues it; a new process starts it from its seed.
+    rng = np.random.default_rng(SEED)
+
+    def batches():
+        for _ in range(args.max_iters):
+            block = synthetic_tokens(rng, args.batch_size, args.seq_len, args.vocab)
+            yield block[:, :-1], block[:, 1:]
+
+    if args.resume:
+        state = resume(args, state)
+
+    def run_once(s):
+        """Train, then save: the unit a supervised restart retries."""
+        if args.loss_scale == "dynamic":
+            s = with_dynamic_scale(s)
+        s, _ = train_epoch(step, s, batches(), place_batch=place, max_iters=args.max_iters)
+        s = unwrap_dynamic_scale(s)
+        if args.ckpt_dir:
+            from distributed_machine_learning_tpu_torch.train.checkpoint import (
+                save_checkpoint,
+            )
+
+            path = save_checkpoint(args.ckpt_dir, s)
+            rank0_print(f"Saved checkpoint to {path}")
+        return s
+
+    if args.resume == "auto":
+        # On any failure: a fresh state, restored from the newest valid
+        # checkpoint (or none), trained again, up to --max-restarts times.
+        from distributed_machine_learning_tpu_torch.runtime.supervisor import run_attempts
+
+        def attempt(restart_idx):
+            nonlocal step, place, model
+            s = state
+            if restart_idx > 0:
+                step, fresh, place, model = build(args, ctx)
+                s = resume(args, fresh)
+            return run_once(s)
+
+        state = run_attempts(attempt, max_restarts=args.max_restarts)
+    else:
+        state = run_once(state)
+    if args.eval_batches:
+        # Every rank evaluates the whole held-out batches on its own
+        # (dense, one program: the reference's eval); rank 0 prints.
+        dev = model.device
+        held_out = ((torch.from_numpy(x).to(dev, torch.long),
+                     torch.from_numpy(y).to(dev, torch.long))
+                    for x, y in synthetic_batches(args, SEED + 1, args.eval_batches))
+        evaluate_lm(make_lm_eval_step(model), state.params, held_out)
+    return state
+
+
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
     # Refuse before joining the group, so a refusal never waits for peers.
@@ -287,25 +395,7 @@ def main(argv=None) -> None:
     _check_layout(args)
     ctx = initialize_from_flags(args.master_ip, args.rank, args.num_nodes, device=args.device)
     try:
-        step, state, place, model = build(args, ctx)
-        rank0_print(f"lm parallel={args.parallel} devices={ctx.num_nodes} ({model.device}) "
-                    f"d_model={args.d_model} layers={args.n_layers} "
-                    f"seq_len={args.seq_len} batch={args.batch_size} "
-                    f"attn={model.attn_impl} backend={ctx.backend or 'none'} "
-                    f"wire={ctx.comm.wire}")
-        if args.loss_scale == "dynamic":
-            state = with_dynamic_scale(state)
-        state, _ = train_epoch(step, state, synthetic_batches(args), place_batch=place,
-                               max_iters=args.max_iters)
-        state = unwrap_dynamic_scale(state)
-        if args.eval_batches:
-            # Every rank evaluates the whole held-out batches on its own
-            # (dense, one program: the reference's eval); rank 0 prints.
-            dev = model.device
-            batches = ((torch.from_numpy(x).to(dev, torch.long),
-                        torch.from_numpy(y).to(dev, torch.long))
-                       for x, y in synthetic_batches(args, SEED + 1, args.eval_batches))
-            evaluate_lm(make_lm_eval_step(model), state.params, batches)
+        run(args, ctx)
     finally:
         ctx.shutdown()
 

@@ -1,11 +1,9 @@
 """Gang coordination: heartbeats, peer-failure detection, coordinated
 abort, and the restore-point election.
 
-A copy of ``distributed_machine_learning_tpu/runtime/coordinator.py``.
-The checkpoint side of the election (``ckpt_dirs`` given to
-:func:`elect_restore_step`, and :func:`enforce_restore_point`) needs
-the port's checkpoints, which are not ported yet (ROADMAP A3a): those
-calls raise.
+A copy of ``distributed_machine_learning_tpu/runtime/coordinator.py``;
+the checkpoint side of the election reads the port's checkpoints
+(``train/checkpoint.py``).
 
 The supervisor heals a *single* process; a real data-parallel gang
 (``runtime/distributed.py``, the reference's 4-node gloo cluster) fails
@@ -359,10 +357,6 @@ def elect_restore_step(gang_dir: str | os.PathLike, world: int,
     the records through (the pluggable control plane); None keeps the
     historical direct-file read of ``gang_dir``.
     """
-    if _as_dirs(ckpt_dirs):
-        raise NotImplementedError(
-            "electing a restore step against checkpoint directories needs "
-            "the port's checkpoints, not ported yet: ROADMAP A3a")
     gang_dir = os.fspath(gang_dir) if gang_dir is not None else None
     common: set[int] | None = None
     for rank in (range(world) if ranks is None else ranks):
@@ -372,7 +366,21 @@ def elect_restore_step(gang_dir: str | os.PathLike, world: int,
         if steps is None:
             return None  # a rank with no record can't agree on anything
         common = steps if common is None else (common & steps)
-    return max(common) if common else None
+    if not common:
+        return None
+    dirs = _as_dirs(ckpt_dirs)
+    if not dirs:
+        return max(common)
+    from distributed_machine_learning_tpu_torch.train.checkpoint import (
+        validate_checkpoint,
+    )
+
+    # Highest first, stopping at the winner: validate_checkpoint hashes a
+    # whole checkpoint, and only the winner matters on the restart path.
+    for s in sorted(common, reverse=True):
+        if all(not validate_checkpoint(os.path.join(d, f"step_{s}")) for d in dirs):
+            return s
+    return None
 
 
 def enforce_restore_point(ckpt_dirs, step: int | None) -> list[str]:
@@ -383,11 +391,30 @@ def enforce_restore_point(ckpt_dirs, step: int | None) -> list[str]:
     may be torn on some host — restoring it would diverge the gang.
     ``step=None`` quarantines nothing (no agreement ⇒ the fallback
     chain decides)."""
-    if not _as_dirs(ckpt_dirs):
+    from distributed_machine_learning_tpu_torch.train.checkpoint import (
+        _is_complete,
+        quarantine_checkpoint,
+        quarantine_reason,
+    )
+
+    if step is None:
         return []
-    raise NotImplementedError(
-        "enforcing a restore point on checkpoint directories needs the "
-        "port's checkpoints, not ported yet: ROADMAP A3a")
+    quarantined = []
+    for ckpt_dir in _as_dirs(ckpt_dirs):
+        if not os.path.isdir(ckpt_dir):
+            continue
+        for name in os.listdir(ckpt_dir):
+            if not (name.startswith("step_") and name[5:].isdigit()):
+                continue
+            s = int(name[5:])
+            path = os.path.join(ckpt_dir, name)
+            if s <= step or not _is_complete(path) or quarantine_reason(path) is not None:
+                continue
+            quarantine_checkpoint(
+                path, f"gang restore-point election: step {s} is newer than the "
+                      f"agreed restore point {step}")
+            quarantined.append(path)
+    return quarantined
 
 
 class GangCoordinator:

@@ -14,8 +14,8 @@ targets)`` returns the same state object and the loss tensor (the caller
 syncs on it).  The gradients stay on the parameters (``p.grad``) until
 the next step clears them.
 
-The fused head+loss (``fused_ce_chunks``) and Ulysses attention are not
-ported yet: ROADMAP A3/A5; ``cli/lm.py`` refuses their flags.
+The fused head+loss (``fused_ce_chunks``, ROADMAP A3b) and Ulysses
+attention (A5a) are not ported yet; ``cli/lm.py`` refuses their flags.
 """
 
 from __future__ import annotations

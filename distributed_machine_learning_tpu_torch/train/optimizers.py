@@ -47,6 +47,17 @@ def _entry_for_config(config):
                      f"{type(config).__name__} (registered: {sorted(OPTIMIZERS)})")
 
 
+def config_class_by_name(class_name: str):
+    """Config class by its ``__name__`` (a checkpoint's ``__class__``)."""
+    if class_name == "LARSConfig":
+        raise NotImplementedError(
+            "a LARS checkpoint needs train/lars.py, not ported yet: ROADMAP A4")
+    for cfg_cls, _init, _update in OPTIMIZERS.values():
+        if cfg_cls.__name__ == class_name:
+            return cfg_cls
+    raise ValueError(f"unknown optimizer config class in checkpoint: {class_name!r}")
+
+
 def init_for_config(config):
     """Moments init fn for a config instance, with the config bound in."""
     init = _entry_for_config(config)[1]

@@ -334,6 +334,42 @@ def test_trainer_on_the_card_matches_plain_path(cuda):
     assert all(abs(g - w) <= 2e-2 for g, w in zip(got, want)), (got, want)
 
 
+def test_checkpoint_round_trip_of_a_card_state(cuda, tmp_path):
+    """A TrainState on the card after a flash + fused-AdamW step, saved and
+    restored into a fresh card state: every leaf bit for bit, on the state's
+    device; restored without a template, the same bits on the host."""
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+    from distributed_machine_learning_tpu_torch.train.lm_step import (
+        init_lm_state,
+        make_lm_train_step,
+    )
+
+    def state(seed):
+        model = TransformerLM(vocab_size=257, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, attn_impl="flash",
+                              compute_dtype=torch.bfloat16, device="cuda")
+        return init_lm_state(model, seed=seed, config=AdamWConfig(fused=True))
+
+    trained = state(0)
+    tokens = torch.randint(0, 257, (2, 1025), device="cuda", generator=cuda)
+    make_lm_train_step(trained.model)(trained, tokens[:, :-1], tokens[:, 1:])
+    path = ck.save_checkpoint(tmp_path, trained)
+    restored = ck.restore_checkpoint(path, state(1))
+    host = ck.restore_checkpoint(path)
+    want = ck._state_leaves(trained)
+    got = ck._state_leaves(restored)
+    assert restored.step == host.step == 1 and restored.config == trained.config
+    assert got.keys() == want.keys() == ck._state_leaves(host).keys()
+    for name, t in want.items():
+        if name == "step":
+            continue
+        assert got[name].device == t.device and got[name].dtype == t.dtype, name
+        assert torch.equal(got[name], t), name
+        assert torch.equal(ck._state_leaves(host)[name], t.cpu()), name
+
+
 @pytest.mark.parametrize("D", [32, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("pos", [0, 1, 200, 511, 4095])

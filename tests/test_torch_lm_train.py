@@ -230,7 +230,7 @@ def test_cli_prints_the_protocol_lines(capsys):
 def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_lm.main(["--max-iters", "1"])
-    for flags, item in ((["--parallel", "fsdp"], "A5"), (["--ckpt-dir", "x"], "A3"),
+    for flags, item in ((["--parallel", "fsdp"], "A5"),
                         (["--data-dir", "x"], "A3"), (["--fused-ce-chunks", "2"], "A3"),
                         (["--telemetry-dir", "x"], "A6"), (["--parallel", "ulysses"], "A5"),
                         (["--optimizer", "sgd"], "A4")):
@@ -240,7 +240,10 @@ def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
 
 def test_trainer_imports_no_jax():
     code = ("import sys, distributed_machine_learning_tpu_torch.cli.lm, "
-            "distributed_machine_learning_tpu_torch.train.lm_step; "
+            "distributed_machine_learning_tpu_torch.train.lm_step, "
+            "distributed_machine_learning_tpu_torch.train.checkpoint, "
+            "distributed_machine_learning_tpu_torch.runtime.deploy, "
+            "distributed_machine_learning_tpu_torch.cli.deploy; "
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('distributed_machine_learning_tpu.') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

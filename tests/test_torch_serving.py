@@ -744,16 +744,60 @@ def test_restore_election_matches_jax(tmp_path):
 
 
 def test_unported_parts_raise_naming_their_items(tmp_path):
-    from distributed_machine_learning_tpu_torch.runtime import coordinator, faults
+    from distributed_machine_learning_tpu_torch.runtime import faults
 
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         faults.FaultInjector([])
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         faults.FaultInjector.parse("kill_rank@1:3")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3a"):
-        coordinator.elect_restore_step(str(tmp_path), 2, ckpt_dirs=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3a"):
-        coordinator.enforce_restore_point([str(tmp_path)], 3)
+
+
+def _election_on_checkpoints(a, root):
+    """Two ranks' checkpoint directories (written by the port) with steps 2,
+    4 and 6 recorded by both ranks; step 6 corrupted in rank 1's directory:
+    the election skips it, and enforcing the elected step quarantines every
+    newer complete checkpoint in both directories."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+    from distributed_machine_learning_tpu_torch.train.state import TrainState
+
+    coord = importlib.import_module(f"{a.pkg}.runtime.coordinator")
+    gang, dirs = root / a.pkg / "gang", [str(root / a.pkg / f"rank{r}") for r in (0, 1)]
+    gang.mkdir(parents=True)
+    model = TransformerLM(vocab_size=32, d_model=16, n_layers=1, n_heads=2, device="cpu")
+    init_params(model, seed=0)
+    state = TrainState.create(model)
+    for d in dirs:
+        for step in (2, 4, 6, 8):
+            state.step = step
+            ck.save_checkpoint(d, state)
+    state.step = 8
+    os.remove(os.path.join(dirs[0], "step_8", "sgd_config.json"))  # torn on rank 0
+    with open(os.path.join(dirs[1], "step_6", "state", "params", "embed.weight.bin"),
+              "r+b") as f:
+        first = f.read(1)
+        f.seek(0)
+        f.write(bytes([first[0] ^ 0xFF]))
+    ck.forget_validated(os.path.join(dirs[1], "step_6"))
+    tx = a.Tx(a.Hub())
+    for rank in (0, 1):
+        tx.write_restore_record(rank, [2, 4, 6])
+    elected = coord.elect_restore_step(str(gang), 2, ckpt_dirs=dirs, transport=tx)
+    quarantined = coord.enforce_restore_point(dirs, elected)
+    return elected, sorted(os.path.relpath(p, root / a.pkg) for p in quarantined), [
+        sorted(s for s in os.listdir(d) if ck.quarantine_reason(os.path.join(d, s)))
+        for d in dirs]
+
+
+def test_restore_election_on_checkpoints_matches_jax(tmp_path):
+    """The checkpoint side of the election, each package on its own copy of
+    the same port-written directories: the same step elected past the
+    corrupted one, the same checkpoints quarantined."""
+    ref, port = _both(_election_on_checkpoints, tmp_path)
+    assert port == ref
+    assert port == (4, ["rank0/step_6", "rank1/step_6", "rank1/step_8"],
+                    [["step_6"], ["step_6", "step_8"]])
 
 
 def test_router_carries_a_request_max_new():
