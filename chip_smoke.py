@@ -254,7 +254,8 @@ GRAD_ROW_FLOOR = 1e-3
 # b1 m + (1 - b1) g once where the plain chain rounds twice).  An ulp is
 # taken at the larger of the result and the terms it sums: where b1 m and
 # (1 - b1) g cancel, one rounding of a term is hundreds of ulps of the
-# result (455 measured between XLA's chain and the port's on the CPU).
+# result (455 measured between XLA's chain and the port's on the CPU); p's
+# terms include the Adam step at m's terms' scale (adamw_ulp_errs).
 ADAMW_ULP_TOL = 8
 
 # Faults for ``--perturb``: (kernel, source text, replacement[, file]),
@@ -482,15 +483,16 @@ def plain_decode_rows(qs, scales, dsts, length: int) -> None:
 
 
 @contextlib.contextmanager
-def plain_kernels(ring_block: int | None = None):
+def plain_kernels(block: int | None = None):
     """Route the model's, the trainers', the ring codec's and the ring
     attention's kernel entry points to their plain PyTorch versions, on the
     card too: the reference the kernel path is held to.  Attention without
     a gradient (serving) takes the plain forward directly; with one
     (training) it takes the port's autograd Function with its forward and
     backward launchers swapped for the plain versions, so the backward
-    never runs through the forward's loop.  ``ring_block``: the tile of the
-    ring chunk steps' plain versions (default: the reference's)."""
+    never runs through the forward's loop.  ``block``: the tile of the
+    training attention's plain versions (the ring chunk steps and the flash
+    forward and backward; default: the reference's)."""
     import torch
 
     from distributed_machine_learning_tpu_torch.models import transformer
@@ -508,7 +510,7 @@ def plain_kernels(ring_block: int | None = None):
         """A ring chunk step's plain version, writing into its accumulators
         (the last ``n_out`` tensor arguments) as the kernel does."""
         def run(*args):
-            outs = plain(*args, block=ring_block)
+            outs = plain(*args, block=block)
             for t, new in zip(args[-1 - n_out:-1], outs if n_out > 1 else (outs,)):
                 t.copy_(new)
         return run
@@ -520,8 +522,9 @@ def plain_kernels(ring_block: int | None = None):
 
     swaps = [(transformer, "flash_self_attention", plain_flash),
              (fa, "_launch", lambda q, k, v: fa.flash_attention_reference(
-                 q, k, v, return_lse=True)),
-             (fa, "_launch_bwd", fa.flash_attention_backward_reference),
+                 q, k, v, block=block, return_lse=True)),
+             (fa, "_launch_bwd", lambda *args: fa.flash_attention_backward_reference(
+                 *args, block=block)),
              (fadam, "_launch", fadam.fused_adamw_reference),
              (transformer, "cached_flash_attention", da.cached_attention_reference),
              (transformer, "paged_flash_attention", da.paged_attention_reference),
@@ -697,12 +700,22 @@ def ulp_err(got, want, *terms) -> float:
     return float(((got.float() - want.float()).abs() / ulp).max())
 
 
-def adamw_ulp_errs(got, want, old, cfg) -> list:
-    """ulp errors of (p, mu, nu) after one update from ``old`` (p, mu, nu,
-    g), each at the scale of the terms the update sums."""
+def adamw_ulp_errs(got, want, old, cfg, step: int = 10) -> list:
+    """ulp errors of (p, mu, nu) after one update at ``step`` from ``old``
+    (p, mu, nu, g), each at the scale of the terms the update sums.  p sums
+    p and lr·m̂/(√n̂ + eps), and m̂ carries the rounding of m's terms (the
+    one place FMA contraction may round differently), so that term is
+    taken at the scale of m's terms: lr·(|b1·mu| + |(1−b1)·g|)/bc1/(√n̂ +
+    eps).  Where n̂ is near 0 it magnifies m's one rounding: over 250M
+    elements drawn as below, contraction alone reads 41 ulp of p at p's
+    own scale and 4 at this one (a CPU model of the two roundings)."""
+    import torch
+
+    lr, bc1, bc2 = adamw_scalars(step, cfg)
     p, mu, nu, g = (t.float() for t in old)
-    terms = ([p], [cfg.beta1 * mu, (1 - cfg.beta1) * g],
-             [cfg.beta2 * nu, (1 - cfg.beta2) * g * g])
+    b1_mu, g_mu = (cfg.beta1 * mu).abs(), ((1 - cfg.beta1) * g).abs()
+    adam = lr * (b1_mu + g_mu) / bc1 / (torch.sqrt(want[2].float() / bc2) + cfg.eps)
+    terms = ([p, adam], [b1_mu, g_mu], [cfg.beta2 * nu, (1 - cfg.beta2) * g * g])
     return [ulp_err(got[i], want[i], *terms[i]) for i in range(3)]
 
 
@@ -778,6 +791,137 @@ def check_adamw(torch, fadam, rows: dict, timing: bool) -> None:
               "leaf; library: torch.optim.AdamW(fused=True).step() over the same tensors")
     log(f"  fused_adamw, {len(leaves)} leaves, {n} params: {ms:.3f} ms "
         f"({28 * n / ms / 1e9:.2f} TB/s), bound {rows['fused_adamw']['bound_ms']:.3f}, plain "
+        f"{plain_ms:.2f}, torch fused AdamW {library_ms:.3f}")
+
+
+# The Ulysses path's local attention (step 8): K1 forward and K2/K3 backward
+# over the FULL sequence on H/W query heads and Hkv/W KV heads (the GQA
+# narrow path: 1 KV head a rank at W 4).
+ULYSSES_SHAPE = (1, 16384, 4, 1, 128)
+
+
+def check_ulysses_shapes(torch, fa, rows: dict, timing: bool) -> None:
+    """K1, K2 and K3 at the Ulysses shape against their plain versions (the
+    row gates; the gradients with GRAD_ROW_FLOOR), and K1's lse; timed
+    beside their bounds, the plain versions and SDPA (forward, and its
+    fastest pinned backward)."""
+    B, L, H, Hkv, D = ULYSSES_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    label = f"B={B} L={L} H={H} Hkv={Hkv} D={D} bf16 (Ulysses, W {RING['world']})"
+    failed: list = []
+    q, k, v, do, lse_p, delta = bwd_inputs(torch, fa, B, L, H, Hkv, D, "bfloat16", gen)
+    out, lse = fa._launch(q, k, v)
+    want = fa.flash_attention_reference(q, k, v)
+    rows["flash_fwd:ulysses"] = {"max_abs_err": compare(f"flash_fwd {label}", out, want,
+                                                        failed)}
+    lse_err = float((lse - lse_p).abs().max())
+    log(f"  flash_fwd lse ({label}): max_abs_err={lse_err:.3e} (tol {LSE_TOL:g})")
+    if not lse_err <= LSE_TOL:
+        failed.append("flash_fwd lse at the Ulysses shape")
+    args = (q, k, v, do, lse_p, delta)
+    dq = fa._launch_dq(*args)
+    dk, dv = fa._launch_dkv(*args)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_backward_reference(*args)
+    rows["flash_bwd_dq:ulysses"] = {"max_abs_err": compare(
+        f"flash_bwd_dq {label}", dq, ref[0], failed, GRAD_ROW_FLOOR)}
+    rows["flash_bwd_dkv:ulysses"] = {"max_abs_err": max(
+        compare(f"flash_bwd_dkv {name} {label}", got, r, failed, GRAD_ROW_FLOOR)
+        for name, got, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])))}
+    raise_failed(failed)
+    if not timing:
+        return
+    pairs = B * H * L * (L + 1) / 2.0
+    qo, kv, row_bytes = 2 * B * L * H * D, 2 * B * L * Hkv * D, 2 * 4 * B * H * L
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
+                  (q, k.repeat_interleave(H // Hkv, 2), v.repeat_interleave(H // Hkv, 2)))
+    shape = f"{label}, one call per layer per step"
+    rows["flash_fwd:ulysses"].update(
+        ms=time_ms(lambda: fa._launch(q, k, v)),
+        plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=2, warmup=1),
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        **bound(4.0 * D * pairs, BF16_FLOPS, 2 * qo + 2 * kv + row_bytes // 2),
+        shape=shape + "; library: SDPA causal")
+    log_rate("flash_fwd (Ulysses shape)", rows["flash_fwd:ulysses"], 4.0 * D * pairs,
+             "SDPA causal")
+    plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(*args), iters=2,
+                       warmup=1)
+    library_ms, backend = sdpa_backward_ms(torch, q, k, v, do, True, "Ulysses shape")
+    shape += ("; plain and library ms are of the whole backward (dq, dk, dv); library: "
+              f"SDPA backward, causal, {backend}")
+    rows["flash_bwd_dq:ulysses"].update(
+        ms=time_ms(lambda: fa._launch_dq(*args)), plain_ms=plain_ms, library_ms=library_ms,
+        **bound(6.0 * D * pairs, BF16_FLOPS, 3 * qo + 2 * kv + row_bytes), shape=shape)
+    rows["flash_bwd_dkv:ulysses"].update(
+        ms=time_ms(lambda: fa._launch_dkv(*args)), plain_ms=plain_ms, library_ms=library_ms,
+        **bound(8.0 * D * pairs, BF16_FLOPS, 2 * qo + 4 * kv + row_bytes), shape=shape)
+    for name, flops in (("flash_bwd_dq", 6.0 * D * pairs), ("flash_bwd_dkv", 8.0 * D * pairs)):
+        r = rows[f"{name}:ulysses"]
+        log(f"  {name} (Ulysses shape): {r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} "
+            f"TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of its {r['bound_ms']:.4f} ms bound), "
+            f"plain backward {plain_ms:.2f}, SDPA backward {library_ms:.4f} ({backend})")
+    pair = rows["flash_bwd_dq:ulysses"]["ms"] + rows["flash_bwd_dkv:ulysses"]["ms"]
+    log(f"  K2 + K3 (Ulysses shape): {pair:.4f} ms, {pair / library_ms:.2f}x SDPA's backward")
+
+
+def fsdp_shard_len(world: int) -> int:
+    """Elements of one rank's flat shard of the model under fsdp at ``world``."""
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.runtime.mesh import padded_len
+
+    n = sum(p.numel() for p in TransformerLM(**MODEL, device="meta").parameters())
+    return padded_len(n, world) // world
+
+
+def check_flat_adamw(torch, fadam, rows: dict, timing: bool) -> None:
+    """K7 on the fsdp path's one flat f32 shard (FSDP["world"] ranks): the
+    8-ulp gate against its plain version, then timed beside its bound (16
+    bytes an element read, 12 written), the plain version and
+    torch.optim.AdamW(fused=True) on the same tensor."""
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+
+    cfg = AdamWConfig()
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    n = fsdp_shard_len(FSDP["world"])
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    state = [0.02 * torch.randn(n, device="cuda", generator=gen),
+             1e-3 * torch.randn(n, device="cuda", generator=gen),
+             1e-6 * torch.rand(n, device="cuda", generator=gen),
+             1e-3 * torch.randn(n, device="cuda", generator=gen)]
+    got = [t.clone() for t in state[:3]]
+    fadam.fused_adamw_leaf(*got, state[3], *adamw_scalars(10, cfg), **hyper)
+    want = [t.clone() for t in state[:3]]
+    fadam.fused_adamw_reference(*want, state[3], *adamw_scalars(10, cfg), **hyper)
+    torch.cuda.synchronize()
+    errs = adamw_ulp_errs(got, want, state, cfg)
+    ok = max(errs) <= ADAMW_ULP_TOL and all(bool(torch.isfinite(t).all()) for t in got)
+    log(f"  fused_adamw on the fsdp flat shard (n={n} f32, W {FSDP['world']}): ulp error "
+        f"p/mu/nu {errs[0]:.0f}/{errs[1]:.0f}/{errs[2]:.0f} (tol {ADAMW_ULP_TOL}) -> "
+        f"{'ok' if ok else 'BAD'}")
+    rows["fused_adamw:fsdp"] = {"max_abs_err": max(
+        float((g - w).abs().max()) for g, w in zip(got, want)), "max_ulp_err": max(errs)}
+    del got, want
+    if not ok:
+        raise AssertionError("fused_adamw on the fsdp flat shard")
+    if not timing:
+        return
+    lr, bc1, bc2 = adamw_scalars(10, cfg)
+    ms = time_ms(lambda: fadam.fused_adamw_leaf(*state, lr, bc1, bc2, **hyper), iters=10)
+    plain_ms = time_ms(lambda: fadam.fused_adamw_reference(*state, lr, bc1, bc2, **hyper),
+                       iters=2, warmup=1)
+    p = state[0].clone().requires_grad_()
+    p.grad = state[3]
+    opt = torch.optim.AdamW([p], lr=lr, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
+                            weight_decay=cfg.weight_decay, fused=True)
+    library_ms = eager_ms(torch, opt.step, iters=5)
+    rows["fused_adamw:fsdp"].update(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(15.0 * n, F32_FLOPS, 28 * n),
+        shape=f"one flat f32 shard of {n} elements (fsdp, W {FSDP['world']}), one launch a "
+              "step; library: torch.optim.AdamW(fused=True).step() on the same tensor")
+    r = rows["fused_adamw:fsdp"]
+    log(f"  fused_adamw flat shard: {ms:.3f} ms ({28 * n / ms / 1e9:.2f} TB/s, "
+        f"{r['bound_ms'] / ms:.1%} of its {r['bound_ms']:.3f} ms bound), plain "
         f"{plain_ms:.2f}, torch fused AdamW {library_ms:.3f}")
 
 
@@ -2665,13 +2809,148 @@ def check_train_step(torch, label: str = "trainer") -> None:
         raise AssertionError(f"{label} step, kernel vs plain: {', '.join(failed)} disagree")
 
 
+# The fused head+loss leg (step 6): the fused loss against the unfused one
+# on one batch at the trainer's shape.  Both run the head's product in bf16
+# with f32 logits and f32 logsumexp bookkeeping; they differ in the order of
+# the vocab reductions (8 chunks of 4000 vs one pass), ~1e-7 relative on a
+# loss of ~10.4.  The gradients are held to the trainer's kernel-vs-plain
+# limit (TRAIN_GRAD_TOL, relative L2 per leaf).
+FUSED_CE_CHUNKS = 8
+FUSED_LOSS_TOL = 1e-4
+# The corpus leg trains on the repo's own JAX package sources (a byte
+# corpus; --data-dir needs no download) and evaluates on its held-out 10 %.
+CORPUS_DIR = "distributed_machine_learning_tpu"
+CORPUS_STEPS, CORPUS_EVAL_BATCHES = 3, 2
+
+
+def check_fused_ce(torch, build) -> None:
+    """The fused head+loss on the trainer's first batch and seeded weights:
+    the loss within FUSED_LOSS_TOL of the unfused loss, every leaf's
+    gradient within TRAIN_GRAD_TOL (relative L2), and the peak memory of
+    each forward+backward above what was allocated before it."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train.lm_step import lm_loss
+
+    args = trainer_args(iters=1)
+    _, _, place, model = lm.build(args)
+    x, y = place(*next(lm.synthetic_batches(args)))
+    out = {}
+    for chunks in (None, FUSED_CE_CHUNKS):
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = lm_loss(model, x, y, chunks)
+        loss.backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        out[chunks] = (float(loss.detach()), grads, peak, seconds)
+        del loss
+    (loss_u, grads_u, peak_u, sec_u), (loss_f, grads_f, peak_f, sec_f) = out[None], out[
+        FUSED_CE_CHUNKS]
+    err = {k: rel_l2(grads_f[k], g) for k, g in grads_u.items()}
+    worst = max(err, key=err.get)
+    diff = abs(loss_f - loss_u)
+    log(f"fused head+loss ({FUSED_CE_CHUNKS} vocab chunks) vs unfused, B "
+        f"{TRAIN['batch_size']} x L {TRAIN['seq_len']} x vocab {MODEL['vocab_size']}: loss "
+        f"{loss_f:.6f} vs {loss_u:.6f} (diff {diff:.3e}, tol {FUSED_LOSS_TOL:g}); gradient "
+        f"rel L2 worst {err[worst]:.3e} ({worst}), median "
+        f"{sorted(err.values())[len(err) // 2]:.3e} (tol {TRAIN_GRAD_TOL:g}); peak memory "
+        f"of the forward+backward above the resident state {peak_f:.2f} GB fused vs "
+        f"{peak_u:.2f} GB unfused (host clock {sec_f * 1e3:.1f} vs {sec_u * 1e3:.1f} ms, "
+        "first calls)")
+    if not (diff <= FUSED_LOSS_TOL and err[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError("fused head+loss disagrees with the unfused loss")
+
+
+def run_fused_ce_paths(torch, build) -> None:
+    """cli.lm dp with --fused-ce-chunks, as its main runs it: on the
+    synthetic stream (build and train_epoch) and on the byte corpus of
+    CORPUS_DIR with --eval-batches (``lm.run``: the corpus split, the
+    held-out eval).  Launch counts zeroed just before and read just after
+    each: K1-K3 once per layer a step, K7 once per leaf a step (the eval
+    runs dense attention, no kernel).  Gates: losses finite, the eval's
+    perplexity finite.  Reports step ms and peak memory."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    layers = MODEL["n_layers"]
+    chunks = ("--fused-ce-chunks", str(FUSED_CE_CHUNKS))
+    args = trainer_args(*chunks, iters=CORPUS_STEPS)
+    step, state, place, model = lm.build(args)
+    n_leaves = sum(1 for _ in model.parameters())
+    losses: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    _, timer = train_epoch(recorded(step, losses), state, lm.synthetic_batches(args),
+                           place_batch=place, max_iters=args.max_iters)
+    torch.cuda.synchronize()
+    launches, peak = dict(build.launches), torch.cuda.max_memory_allocated() / 1e9
+    del step, state, place, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {name: layers * CORPUS_STEPS for name in FLASH_KERNELS}
+    want["fused_adamw"] = n_leaves * CORPUS_STEPS
+    values = [float(x) for x in losses]
+    log(f"cli.lm --fused-ce-chunks {FUSED_CE_CHUNKS}, synthetic: losses "
+        f"{[round(v, 4) for v in values]}; step ms {spread([t * 1e3 for t in timer.times])}; "
+        f"peak memory {peak:.2f} GB; launches {({k: launches[k] for k in want})} (want {want})")
+    if {k: launches[k] for k in want} != want or not all(math.isfinite(v) for v in values):
+        raise AssertionError("cli.lm --fused-ce-chunks on the synthetic stream")
+    corpus = str(Path(__file__).resolve().parent / CORPUS_DIR)
+    args = trainer_args(*chunks, "--data-dir", corpus, "--eval-batches",
+                        str(CORPUS_EVAL_BATCHES), iters=CORPUS_STEPS)
+    evals: list = []
+    evaluate = lm.evaluate_lm
+    lm.evaluate_lm = lambda *a: evals.append(evaluate(*a)) or evals[-1]
+    train_epoch_ = lm.train_epoch
+    times: list = []
+
+    def timed_epoch(*a, **kw):
+        state, timer = train_epoch_(*a, **kw)
+        times.extend(timer.times)
+        return state, timer
+
+    lm.train_epoch = timed_epoch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        lm.run(args, initialize_from_flags(device=args.device))
+        torch.cuda.synchronize()
+    finally:
+        lm.evaluate_lm, lm.train_epoch = evaluate, train_epoch_
+    launches, peak = dict(build.launches), torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    nll, ppl = evals[0] if evals else (math.nan, math.nan)
+    log(f"cli.lm --fused-ce-chunks {FUSED_CE_CHUNKS} --data-dir {CORPUS_DIR} --eval-batches "
+        f"{CORPUS_EVAL_BATCHES}: {time.perf_counter() - t0:.1f} s; step ms {spread([t * 1e3 for t in times])}; "
+        f"held-out eval nll/token {nll:.4f}, perplexity {ppl:.2f}; peak memory {peak:.2f} GB; "
+        f"launches {({k: launches[k] for k in want})} (want {want})")
+    if {k: launches[k] for k in want} != want or not math.isfinite(ppl):
+        raise AssertionError("cli.lm --data-dir --eval-batches with the fused loss")
+
+
 def train(torch, build, rows: dict) -> None:
     """The trainer phases: the main path with its counts, the remat run,
-    the kernel-vs-plain step gates."""
+    the kernel-vs-plain step gates, the fused head+loss and the corpus."""
     t0 = time.perf_counter()
     out = run_trainer(torch, build, rows)
     check_remat(torch, build, out["losses"][0])
     check_train_step(torch)
+    check_fused_ce(torch, build)
+    run_fused_ce_paths(torch, build)
     log(f"trainer phases: {time.perf_counter() - t0:.1f} s")
 
 
@@ -3572,9 +3851,10 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
         log_rate(f"{name} full step", rows[name], flops, library)
 
 
-# The context-parallel trainer (step 8): cli.lm --parallel ring at the
-# model's full width, RING["world"] ranks sharing the card (gloo over host
-# buffers), each rank a chunk of seq_len / world = 4096 tokens.
+# The context-parallel trainers (step 8): cli.lm --parallel ring and
+# --parallel ulysses at the model's full width, RING["world"] ranks sharing
+# the card (gloo over host buffers), each rank a chunk of seq_len / world =
+# 4096 tokens.
 RING = dict(world=4, seq_len=16384, batch_size=1, max_iters=6)
 # The real command: two processes of cli.lm --parallel ring, cut to 2 layers.
 RING_CLI = dict(world=2, n_layers=2, seq_len=8192, max_iters=3)
@@ -3584,8 +3864,10 @@ RING_CLI = dict(world=2, n_layers=2, seq_len=8192, max_iters=3)
 # activations rounded at other places (64-key tiles of one chunk vs of the
 # whole row); per-token differences of ~1e-3 average down over 16384
 # tokens, so 2e-3 is an order of magnitude above the expected reading.
+# Ulysses runs K1 over the whole row on H/W heads: the same limit.
 RING_DP_LOSS_TOL = 2e-3
 RING_KERNELS = ("ring_flash_fwd", "ring_flash_dq", "ring_flash_dkv")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The ring step gate holds each leaf's gradient, kernel path vs plain path,
 # to TRAIN_GRAD_TOL or to RING_NOISE_FACTOR times the distance between two
 # correct plain versions (the chunk steps tiled by 512, the reference's
@@ -3596,31 +3878,41 @@ RING_KERNELS = ("ring_flash_fwd", "ring_flash_dq", "ring_flash_dkv")
 # L 4096 is 0.0385) and the two plain tilings 0.153 on the same leaf, with
 # the loss within 8e-6 and every update within 7.5e-3.  A wrong kernel (a
 # dropped tile, chunk or head) moves gradients by O(1), far above either
-# limit.
+# limit.  The Ulysses step gate is the same rule, its plain flash forward
+# and backward tiled by 512 and by RING_NOISE_BLOCK.
 RING_NOISE_BLOCK = 256
 RING_NOISE_FACTOR = 2.5
+# Each scheme's wire call, timed by CUDA events a step: (label, Comm method).
+CP_WIRE = {"ring": ("hop", "shift"), "ulysses": ("all-to-all", "all_to_all")}
+
+
+def cp_args(parallel: str, rank: int, world: int, seq_len: int, iters: int):
+    """cli.lm's flags for a context-parallel path (full width, bf16, fused
+    AdamW, --attn flash: the ring's upgrade rule turns it into ring_flash;
+    Ulysses picks its local kernel itself)."""
+    return trainer_args("--parallel", parallel, "--num-nodes", str(world), "--rank",
+                        str(rank), "--seq-len", str(seq_len), "--batch-size",
+                        str(RING["batch_size"]), iters=iters)
 
 
 def ring_args(rank: int, world: int, seq_len: int, iters: int):
-    """cli.lm's flags for the ring path (full width, bf16, fused AdamW,
-    --attn flash, which the upgrade rule turns into ring_flash)."""
-    return trainer_args("--parallel", "ring", "--num-nodes", str(world), "--rank", str(rank),
-                        "--seq-len", str(seq_len), "--batch-size", str(RING["batch_size"]),
-                        iters=iters)
+    return cp_args("ring", rank, world, seq_len, iters)
 
 
 class WireTimer:
-    """CUDA events around every ring hop (``Comm.shift``) and every gradient
-    mean of a rank, summed per step: how long the stream waited on the
-    wire (under the host wire each call is a D2H copy, TCP and an H2D
-    copy)."""
+    """CUDA events around every call of a kind (a ring hop, ``Comm.shift``;
+    an all-to-all, ``Comm.all_to_all``; a gradient mean) of a rank, summed
+    per step: how long the stream waited on the wire (under the host wire
+    each call is a D2H copy, TCP and an H2D copy)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.events: dict = {"hop": [], "mean": []}
+        self.events: dict = {}
         self.marks: list = []
 
     def wrap(self, kind: str, fn):
+        self.events.setdefault(kind, [])
+
         def timed(*args, **kwargs):
             start = self.torch.cuda.Event(enable_timing=True)
             end = self.torch.cuda.Event(enable_timing=True)
@@ -3641,14 +3933,21 @@ class WireTimer:
         return [sum(s.elapsed_time(e) for s, e in ev[a:b]) for a, b in zip(ends, ends[1:])]
 
 
-def ring_rank(rank: int, world: int, init_method: str) -> dict:
-    """One rank of the ring path: cli.lm's build and train_epoch, as its
-    main runs them, the launch counts zeroed just before and read just
-    after; then a parameter digest, a profiled view on rank 0 (every rank
-    steps alike), and one step through the kernels and the same step through
-    the plain versions from the same state, compared leaf by leaf."""
+def param_digest(torch, tensors) -> str:
     import hashlib
 
+    digest = hashlib.sha256()
+    for p in tensors:
+        digest.update(p.detach().contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def cp_rank(rank: int, world: int, init_method: str, parallel: str = "ring") -> dict:
+    """One rank of a context-parallel path: cli.lm's build and train_epoch,
+    as its main runs them, the launch counts zeroed just before and read
+    just after; then a parameter digest, a profiled view on rank 0 (every
+    rank steps alike), and one step through the kernels and the same step
+    through the plain versions from the same state, compared leaf by leaf."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3660,13 +3959,14 @@ def ring_rank(rank: int, world: int, init_method: str) -> dict:
     from distributed_machine_learning_tpu_torch.train import lm_step
     from distributed_machine_learning_tpu_torch.train.loop import train_epoch
 
-    args = ring_args(rank, world, RING["seq_len"], RING["max_iters"])
+    args = cp_args(parallel, rank, world, RING["seq_len"], RING["max_iters"])
     ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method)
     try:
         step, state, place, model = lm.build(args, ctx)
         comm = model.comm
         wire = WireTimer(torch)
-        comm.shift = wire.wrap("hop", comm.shift)
+        kind, method = CP_WIRE[parallel]
+        setattr(comm, method, wire.wrap(kind, getattr(comm, method)))
         lm_step.mean_over_ranks_ = wire.wrap("mean", lm_step.mean_over_ranks_)
         losses: list = []
 
@@ -3683,21 +3983,18 @@ def ring_rank(rank: int, world: int, init_method: str) -> dict:
                                    max_iters=args.max_iters)
         torch.cuda.synchronize()
         out = {"launches": dict(build.launches), "losses": [float(x) for x in losses],
-               "times": timer.times, "hop_ms": wire.per_step("hop"),
+               "times": timer.times, "wire_ms": wire.per_step(kind),
                "mean_ms": wire.per_step("mean"), "steps": state.step,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "attn": model.attn_impl,
                "backend": ctx.backend, "wire": comm.wire, "device": str(ctx.device),
-               "n_leaves": sum(1 for _ in model.parameters())}
-        digest = hashlib.sha256()
-        for p in model.parameters():
-            digest.update(p.detach().view(torch.int32).cpu().numpy().tobytes())
-        out["digest"] = digest.hexdigest()
+               "n_leaves": sum(1 for _ in model.parameters()),
+               "digest": param_digest(torch, model.parameters())}
 
         def one(i):
             step(state, *place(*next(lm.synthetic_batches(args, seed=100 + i, count=1))))
 
         if rank == 0:
-            profile_steps(torch, f"ring train step, rank 0 of {world}", one, steps=2)
+            profile_steps(torch, f"{parallel} train step, rank 0 of {world}", one, steps=2)
         else:
             for i in range(2):
                 one(i)
@@ -3709,12 +4006,12 @@ def ring_rank(rank: int, world: int, init_method: str) -> dict:
 
 
 def ring_step_gate(torch, step, state, model, place, args) -> dict:
-    """One ring step through the kernels and the same step through the
-    plain versions (plain_kernels) from one state, then the plain step
-    again with the chunk steps tiled by RING_NOISE_BLOCK: the bf16 noise
-    between two correct plain versions, per leaf.  The state is kept on the
-    host in between.  Returns the loss pair, the worst and median leaf of
-    the update error, and of the gradient error against its limit
+    """One context-parallel step through the kernels and the same step
+    through the plain versions (plain_kernels) from one state, then the
+    plain step again with the attention tiled by RING_NOISE_BLOCK: the bf16
+    noise between two correct plain versions, per leaf.  The state is kept
+    on the host in between.  Returns the loss pair, the worst and median
+    leaf of the update error, and of the gradient error against its limit
     max(TRAIN_GRAD_TOL, RING_NOISE_FACTOR x that leaf's noise)."""
     from distributed_machine_learning_tpu_torch.cli import lm
 
@@ -3749,7 +4046,7 @@ def ring_step_gate(torch, step, state, model, place, args) -> dict:
     del after
     grads = {k: p.grad.detach().clone() for k, p in params.items()}  # the plain path's
     restore()
-    with plain_kernels(ring_block=RING_NOISE_BLOCK):
+    with plain_kernels(block=RING_NOISE_BLOCK):
         step(state, x, y)
     torch.cuda.synchronize()
     noise = {k: rel_l2(p.grad, grads[k]) for k, p in params.items()}
@@ -3766,7 +4063,8 @@ def ring_step_gate(torch, step, state, model, place, args) -> dict:
 
 def ring_dp_loss(torch) -> float:
     """The step-0 loss of the one-process dp path (K1 over the whole
-    sequence) on the ring path's first batch, at the same seeded weights."""
+    sequence) on the context-parallel paths' first batch, at the same
+    seeded weights."""
     from distributed_machine_learning_tpu_torch.cli import lm
     from distributed_machine_learning_tpu_torch.train.lm_step import lm_loss
 
@@ -3781,31 +4079,36 @@ def ring_dp_loss(torch) -> float:
     return loss
 
 
-def run_ring(torch, rows: dict) -> None:
-    """The ring path (RING) in its ranks; gates: K11/K12/K13 launched
-    layers x (r + 1) times a step on rank r, K1-K3 never, K7 once per leaf a
-    step; every rank's parameters bit for bit equal; losses finite and
-    falling; the step-0 loss against the dp path; one step kernel vs plain
-    on every rank.  Reports step ms, tokens/s, hop and gradient-mean ms a
-    step, peak memory per rank and the wire."""
+def run_cp(torch, rows: dict, parallel: str, dp_loss: float) -> None:
+    """A context-parallel path (RING) in its ranks.  Gates: the ring
+    launches K11/K12/K13 layers x (r + 1) times a step on rank r and K1-K3
+    never; Ulysses K1, K2 and K3 layers times a step on every rank (its
+    local attention over the full sequence) and K11-K13 never; K7 once per
+    leaf a step; every rank's parameters bit for bit equal; losses finite
+    and falling; the step-0 loss against the dp path (``dp_loss``); one
+    step kernel vs plain on every rank.  Reports step ms, tokens/s, the
+    wire calls' and the gradient mean's ms a step, peak memory per rank and
+    the wire."""
     from distributed_machine_learning_tpu_torch.runtime.launch import spawn
 
     world, layers = RING["world"], MODEL["n_layers"]
     t0 = time.perf_counter()
-    dp_loss = ring_dp_loss(torch)
-    ranks = spawn(ring_rank, world, timeout_s=900)
+    ranks = spawn(cp_rank, world, (parallel,), timeout_s=900)
     r0, n = ranks[0], RING["max_iters"]
     failed = []
-    log(f"ring: world {world} x B {RING['batch_size']} x L {RING['seq_len']} (chunk "
+    log(f"{parallel}: world {world} x B {RING['batch_size']} x L {RING['seq_len']} (chunk "
         f"{RING['seq_len'] // world}), attn {r0['attn']}, backend {r0['backend']}, wire "
         f"{r0['wire']}, {r0['device']}; {time.perf_counter() - t0:.1f} s with process start")
+    path_kernels = RING_KERNELS if parallel == "ring" else FLASH_KERNELS
     for r, out in enumerate(ranks):
-        want = {name: layers * (r + 1) * n for name in RING_KERNELS}
-        want.update(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
-                    fused_adamw=out["n_leaves"] * n)
+        each = layers * (r + 1) * n if parallel == "ring" else layers * n
+        want = {name: each for name in path_kernels}
+        want.update({name: 0 for name in (*RING_KERNELS, *FLASH_KERNELS)
+                     if name not in path_kernels})
+        want["fused_adamw"] = out["n_leaves"] * n
         got = {k: out["launches"][k] for k in want}
         ok = got == want
-        log(f"ring rank {r}: launches over {n} steps {got} (want {want}): "
+        log(f"{parallel} rank {r}: launches over {n} steps {got} (want {want}): "
             f"{'ok' if ok else 'BAD'}; peak memory {out['peak_gb']:.2f} GB")
         if not ok:
             failed.append(f"rank {r} launches")
@@ -3816,18 +4119,18 @@ def run_ring(torch, rows: dict) -> None:
             and abs(losses[0] - math.log(MODEL["vocab_size"])) < 1.5):
         failed.append(f"losses {[r['losses'] for r in ranks]}")
     diff = abs(losses[0] - dp_loss)
-    log(f"ring: losses {[round(x, 4) for x in losses]}; step-0 loss vs the one-process dp "
-        f"path {losses[0]:.6f} vs {dp_loss:.6f} (diff {diff:.3e}, tol {RING_DP_LOSS_TOL:g})")
+    log(f"{parallel}: losses {[round(x, 4) for x in losses]}; step-0 loss vs the one-process "
+        f"dp path {losses[0]:.6f} vs {dp_loss:.6f} (diff {diff:.3e}, tol {RING_DP_LOSS_TOL:g})")
     if not diff <= RING_DP_LOSS_TOL:
         failed.append("step-0 loss vs dp")
     same = len({r["digest"] for r in ranks}) == 1
-    log(f"ring: parameters bit for bit equal on all {world} ranks: {same}")
+    log(f"{parallel}: parameters bit for bit equal on all {world} ranks: {same}")
     if not same:
         failed.append("ranks' parameters differ")
     for r, out in enumerate(ranks):
         g = out["gate"]
         name, err, noise, ratio, median, name_e, err_e, noise_e = g["grad"]
-        log(f"ring rank {r} step, kernel vs plain path: loss {g['loss']:.6f} vs "
+        log(f"{parallel} rank {r} step, kernel vs plain path: loss {g['loss']:.6f} vs "
             f"{g['loss_plain']:.6f} (tol {TRAIN_LOSS_TOL:g}); gradient rel L2 median "
             f"{median:.3e}, largest {err_e:.3e} ({name_e}; plain tiled {RING_NOISE_BLOCK} vs "
             f"plain: {noise_e:.3e}); worst against its limit {err:.3e} ({name}; limit "
@@ -3839,18 +4142,25 @@ def run_ring(torch, rows: dict) -> None:
             failed.append(f"rank {r} kernel vs plain step")
     ms = [t * 1e3 for t in r0["times"]]
     tokens = RING["batch_size"] * RING["seq_len"]
-    log(f"ring: step ms (host clock to the loss sync, rank 0, iteration 0 untimed) "
+    log(f"{parallel}: step ms (host clock to the loss sync, rank 0, iteration 0 untimed) "
         f"{spread(ms)} -> {tokens / sorted(ms)[len(ms) // 2] * 1e3:.0f} tokens/s")
+    label = CP_WIRE[parallel][0]
     for r, out in enumerate(ranks):
-        log(f"ring rank {r}: hops {spread(out['hop_ms'])} ms a step, gradient mean "
+        log(f"{parallel} rank {r}: {label} {spread(out['wire_ms'])} ms a step, gradient mean "
             f"{spread(out['mean_ms'])} ms a step (CUDA events)")
     for key, row in rows.items():
         name = key.split(":")[0]
-        row["ring_launches"] = sum(r["launches"][name] for r in ranks)
-        if name in RING_KERNELS:
-            row["launches"] = row["ring_launches"]
+        row[f"{parallel}_launches"] = sum(r["launches"][name] for r in ranks)
+        if name in RING_KERNELS and parallel == "ring" or key.endswith(":ulysses") \
+                and parallel == "ulysses":
+            row["launches"] = row[f"{parallel}_launches"]
     if failed:
-        raise AssertionError("ring: " + "; ".join(failed))
+        raise AssertionError(f"{parallel}: " + "; ".join(failed))
+
+
+def run_ring(torch, rows: dict) -> None:
+    """The ring path alone, with its dp loss (``tools/cross_card_phases.py``)."""
+    run_cp(torch, rows, "ring", ring_dp_loss(torch))
 
 
 def run_ring_cli(torch, backend: str | None = None) -> None:
@@ -3899,6 +4209,183 @@ def run_ring_cli(torch, backend: str | None = None) -> None:
             or (backend and f"backend={backend}" not in lines[0]):
         raise AssertionError(f"cli.lm ring: exit codes {rcs}; output tails "
                              f"{[o[-2000:] for o in outs]}")
+
+
+# The ZeRO-3 trainer (step 9): cli.lm --parallel fsdp at the model's full
+# width, FSDP["world"] ranks sharing the card (gloo over host buffers), dense
+# attention (the reference's rule), B 4 x L 2048 (2 rows a rank): first the
+# sync step, then --overlap-update, then (rank 0) --parallel dp on one
+# process from the same seeded weights and batches.
+FSDP = dict(world=2, seq_len=2048, batch_size=4, max_iters=4)
+
+
+def fsdp_args(rank: int, world: int, *extra: str):
+    return trainer_args("--parallel", "fsdp", "--num-nodes", str(world), "--rank", str(rank),
+                        "--attn", "auto", "--seq-len", str(FSDP["seq_len"]), "--batch-size",
+                        str(FSDP["batch_size"]), *extra, iters=FSDP["max_iters"])
+
+
+def fsdp_rank(rank: int, world: int, init_method: str) -> dict:
+    """One rank of the fsdp path: cli.lm's build and train_epoch, the launch
+    counts zeroed just before and read just after, once with the sync step
+    and once with --overlap-update; the gathered parameters' digest after
+    each; then on rank 0, after its last collective, the one-process dp run
+    (dense attention) from the same seed and batches, compared leaf by leaf
+    with the gathered parameters."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.ops import build
+    from distributed_machine_learning_tpu_torch.parallel.fsdp import fsdp_memory_footprint
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method)
+    out: dict = {}
+    final = None
+    try:
+        for mode, extra in (("sync", ()), ("overlap", ("--overlap-update",))):
+            args = fsdp_args(rank, world, *extra)
+            step, state, place, model = lm.build(args, ctx)
+            losses: list = []
+            run = recorded(step, losses)
+            run.pop_gather_seconds = getattr(step, "pop_gather_seconds", None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            state, timer = train_epoch(run, state, lm.synthetic_batches(args),
+                                       place_batch=place, max_iters=args.max_iters)
+            torch.cuda.synchronize()
+            launches = dict(build.launches)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            params = step.params_fn(state)
+            if mode == "overlap":
+                step.close()
+            n_params = sum(p.numel() for p in params.values())
+            out[mode] = {
+                "launches": launches, "losses": [float(x) for x in losses],
+                "times": timer.times, "gather_s": timer.param_gather_s, "steps": state.step,
+                "peak_gb": peak_gb, "attn": model.attn_impl, "digest": param_digest(
+                    torch, params.values()),
+                "moment_bytes": sum(t.numel() * t.element_size()
+                                    for t in state.momentum_shards.values()),
+                "shard": state.param_shard.numel(),
+                "memory": fsdp_memory_footprint(n_params, world)}
+            out.update(backend=ctx.backend, wire=ctx.comm.wire, device=str(ctx.device))
+            if mode == "sync" and rank == 0:
+                final = {k: v.to("cpu", copy=True) for k, v in params.items()}
+            del step, state, place, model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        ctx.shutdown()
+    if rank == 0:
+        out["dp"] = fsdp_dp_compare(torch, final)
+    return out
+
+
+def fsdp_dp_compare(torch, final: dict) -> dict:
+    """--parallel dp on one process (dense attention, the same seeded
+    weights and batches as the fsdp path): its step-0 loss, and each leaf of
+    the fsdp run's gathered parameters ``final`` against dp's, as the
+    difference over dp's update of the leaf (from the initial weights)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    args = trainer_args("--attn", "dense", "--seq-len", str(FSDP["seq_len"]),
+                        "--batch-size", str(FSDP["batch_size"]), iters=FSDP["max_iters"])
+    step, state, place, model = lm.build(args)
+    init = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+    losses: list = []
+    train_epoch(recorded(step, losses), state, lm.synthetic_batches(args), place_batch=place,
+                max_iters=args.max_iters)
+    err = {}
+    for k, p in model.named_parameters():
+        q = p.detach().cpu()
+        err[k] = float((final[k] - q).norm() / (q - init[k]).norm().clamp_min(1e-30))
+    worst = max(err, key=err.get)
+    return {"losses": [float(x) for x in losses], "worst": (worst, err[worst]),
+            "median": sorted(err.values())[len(err) // 2]}
+
+
+def run_fsdp(torch, rows: dict) -> None:
+    """The fsdp path (FSDP) in its ranks.  Gates: on every rank and in both
+    runs K7 launched once a step (one flat shard) and K1-K3 and K11-K13
+    never (dense attention); the overlap run's gathered parameters bit for
+    bit the sync run's, and every rank's the same; losses finite and
+    falling; each rank's moments at fsdp_memory_footprint's 1/W of dp's
+    bytes; the gathered parameters against the one-process dp run (each
+    leaf's difference over dp's update within TRAIN_UPDATE_TOL, the
+    step-0 loss within TRAIN_LOSS_TOL).  Reports step ms of both runs, the
+    overlapped gathers' seconds (param_gather_s) and peak memory a rank."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    world, n = FSDP["world"], FSDP["max_iters"]
+    t0 = time.perf_counter()
+    ranks = spawn(fsdp_rank, world, timeout_s=900)
+    r0 = ranks[0]
+    failed = []
+    log(f"fsdp: world {world} x B {FSDP['batch_size']} x L {FSDP['seq_len']} (B "
+        f"{FSDP['batch_size'] // world} a rank), attn {r0['sync']['attn']}, backend "
+        f"{r0['backend']}, wire {r0['wire']}, {r0['device']}; flat shard "
+        f"{r0['sync']['shard']} f32 a rank; {time.perf_counter() - t0:.1f} s with process start")
+    for r, out in enumerate(ranks):
+        for mode in ("sync", "overlap"):
+            o = out[mode]
+            want = {name: 0 for name in (*RING_KERNELS, *FLASH_KERNELS)}
+            want["fused_adamw"] = n
+            got = {k: o["launches"][k] for k in want}
+            mem = o["memory"]
+            mem_ok = (o["moment_bytes"] == mem["fsdp"]
+                      and mem["fsdp"] * world - mem["replicated"] < 8 * world)
+            log(f"fsdp rank {r} {mode}: launches over {n} steps {got} (want {want}); moments "
+                f"{o['moment_bytes'] / 1e9:.3f} GB a rank vs dp's {mem['replicated'] / 1e9:.3f} "
+                f"(fsdp_memory_footprint {mem['fsdp'] / 1e9:.3f}); peak memory "
+                f"{o['peak_gb']:.2f} GB; step ms {spread([t * 1e3 for t in o['times']])}"
+                + (f"; param_gather_s {[round(g, 4) for g in o['gather_s']]}"
+                   if mode == "overlap" else ""))
+            if got != want:
+                failed.append(f"rank {r} {mode} launches")
+            if not mem_ok:
+                failed.append(f"rank {r} {mode} moment bytes")
+            if mode == "overlap" and len(o["gather_s"]) != n - 1:
+                failed.append(f"rank {r}: {len(o['gather_s'])} overlapped gathers reported")
+    sync, over = r0["sync"], r0["overlap"]
+    losses = sync["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and sync["steps"] == n and abs(losses[0] - math.log(MODEL["vocab_size"])) < 1.5):
+        failed.append(f"losses {losses}")
+    digests = {out[m]["digest"] for out in ranks for m in ("sync", "overlap")}
+    log(f"fsdp: losses {[round(x, 4) for x in losses]} (overlap "
+        f"{[round(x, 4) for x in over['losses']]}); gathered parameters bit for bit equal "
+        f"across ranks and between the sync and overlap runs: {len(digests) == 1}")
+    if len(digests) != 1 or over["losses"] != losses:
+        failed.append("the overlap run or a rank differs from the sync run")
+    dp = r0["dp"]
+    loss_diff = abs(dp["losses"][0] - losses[0])
+    (leaf, worst), median = dp["worst"], dp["median"]
+    log(f"fsdp vs one-process dp (dense, same weights and batches): step-0 loss "
+        f"{losses[0]:.6f} vs {dp['losses'][0]:.6f} (diff {loss_diff:.3e}, tol "
+        f"{TRAIN_LOSS_TOL:g}); params after {n} steps, diff / dp's update: worst {worst:.3e} "
+        f"({leaf}), median {median:.3e} (tol {TRAIN_UPDATE_TOL:g})")
+    if not (loss_diff <= TRAIN_LOSS_TOL and worst <= TRAIN_UPDATE_TOL):
+        failed.append("fsdp vs dp")
+    tokens = FSDP["batch_size"] * FSDP["seq_len"]
+    for mode in ("sync", "overlap"):
+        ms = [t * 1e3 for t in r0[mode]["times"]]
+        log(f"fsdp {mode}: step ms (rank 0, iteration 0 untimed) {spread(ms)} -> "
+            f"{tokens / sorted(ms)[len(ms) // 2] * 1e3:.0f} tokens/s")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["fsdp_launches"] = sum(out[m]["launches"][name] for out in ranks
+                                   for m in ("sync", "overlap"))
+        if key == "fused_adamw:fsdp":
+            row["launches"] = row["fsdp_launches"]
+    if failed:
+        raise AssertionError("fsdp: " + "; ".join(failed))
 
 
 def perturb(torch, pkg, name: str) -> int:
@@ -4098,6 +4585,8 @@ def main(argv=None) -> int:
     check_fleet_shapes(torch, da, qm)
     check_flash_bwd(torch, fa, rows, timing)
     check_adamw(torch, fadam, rows, timing)
+    check_ulysses_shapes(torch, fa, rows, timing)
+    check_flat_adamw(torch, fadam, rows, timing)
     check_codec(torch, rc, rows, timing)
     check_ring_flash(torch, rf, rows, timing)
     if args.check_only:
@@ -4131,9 +4620,16 @@ def main(argv=None) -> int:
     run_vgg_cli(torch)
     log(f"vgg phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    run_ring(torch, rows)
+    dp_loss = ring_dp_loss(torch)
+    run_cp(torch, rows, "ring", dp_loss)
     run_ring_cli(torch)
     log(f"ring phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_cp(torch, rows, "ulysses", dp_loss)
+    log(f"ulysses phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_fsdp(torch, rows)
+    log(f"fsdp phase: {time.perf_counter() - t0:.1f} s")
 
     pallas = "distributed_machine_learning_tpu/ops/pallas/"
     replaces = {  # kernel name: (source, the TPU kernel body it replaces)
@@ -4167,7 +4663,9 @@ def main(argv=None) -> int:
             "fleet_launches": row["fleet_launches"],
             "train_launches": row["train_launches"], "ckpt_launches": row["ckpt_launches"],
             "vgg_launches": row["vgg_launches"],
-            "ring_launches": row["ring_launches"], "shape": row["shape"]})
+            "ring_launches": row["ring_launches"],
+            "ulysses_launches": row["ulysses_launches"], "fsdp_launches": row["fsdp_launches"],
+            "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

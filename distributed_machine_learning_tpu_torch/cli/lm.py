@@ -1,24 +1,40 @@
-"""Language-model training entry point of the port: ``--parallel dp`` and ``ring``.
+"""Language-model training entry point of the port: ``--parallel dp``,
+``ring``, ``ulysses`` and ``fsdp``.
 
 Counterpart of ``distributed_machine_learning_tpu/cli/lm.py``.  Trains the
 decoder-only ``TransformerLM`` on the reference's deterministic synthetic
-token stream (``np.random.default_rng(69143)``): f32 master weights, the
-compute dtype of ``--compute-dtype``, AdamW (``--fused-update``: the fused
-kernel K7), flash attention with its backward kernels K2/K3 where
-``--attn`` picks flash.  The measurement protocol is the reference's:
-``--max-iters`` capped, iteration 0 left out of the timing, the loss
-printed every 20 iterations, the total/average summary at the end.  Runs
-on the GPU unless ``--device cpu`` is given.
+token stream (``np.random.default_rng(69143)``), or on a byte-level corpus
+of every text file under ``--data-dir`` (``data/text.py``; vocab raised to
+257): f32 master weights, the compute dtype of ``--compute-dtype``, AdamW
+(``--fused-update``: the fused kernel K7), flash attention with its
+backward kernels K2/K3 where ``--attn`` picks flash, and the head fused
+with the loss over ``--fused-ce-chunks`` vocab chunks (``ops/fused_ce.py``:
+the [B, L, vocab] logits never exist).  The measurement protocol is the
+reference's: ``--max-iters`` capped, iteration 0 left out of the timing,
+the loss printed every 20 iterations, the total/average summary at the
+end.  Runs on the GPU unless ``--device cpu`` is given.
 
 ``--num-nodes W`` runs W processes, one per rank (``--rank``,
 ``--master-ip``), over ``torch.distributed``: nccl when each rank has a
 card, gloo through host buffers when ranks share one (or on the CPU).
-Every rank draws the same global batch; ``--parallel dp`` gives each rank
-its rows, ``--parallel ring`` its sequence chunk of ``--seq-len / W``
-tokens, with attention as a ring over the ranks: the einsum ring, or the
-ring flash kernels K11-K13 where the reference's upgrade rule picks them
-(``--attn auto``/``flash`` and a chunk the kernels tile).  Gradients and
-loss are averaged over the ranks each step.
+Every rank draws the same global batch and takes its part:
+
+- ``--parallel dp``: its rows; gradients and loss averaged over the ranks;
+- ``--parallel ring``: its sequence chunk of ``--seq-len / W`` tokens, with
+  attention as a ring over the ranks: the einsum ring, or the ring flash
+  kernels K11-K13 where the reference's upgrade rule picks them
+  (``--attn auto``/``flash`` and a chunk the kernels tile);
+- ``--parallel ulysses``: its sequence chunk, with two all-to-alls around
+  attention over the full sequence on H/W heads (``ops/ulysses.py``; the
+  local attention is K1-K3 where ``flash_wins`` holds for the full L:
+  "ulysses owns its attention", ``--attn`` does not apply);
+- ``--parallel fsdp``: its rows, with parameters and AdamW moments sharded
+  1/W on one flat vector (ZeRO-3, ``parallel/fsdp.py``): a step gathers the
+  parameters, reduce-scatters the gradients and updates the rank's shard
+  (one K7 launch with ``--fused-update``); dense attention only (``auto``
+  resolves to dense, explicit ``flash`` is refused).  ``--overlap-update``
+  gathers the next step's parameters behind the host's work between steps
+  (``parallel/overlap.py``), bit for bit the sync trajectory.
 
 Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
@@ -27,10 +43,15 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
         --seq-len 4096 --batch-size 4 --compute-dtype bfloat16 \\
         --optimizer adamw --fused-update --attn flash --max-iters 8
 
-    # context parallel over 2 ranks (one process each)
+    # context parallel over 2 ranks (one process each); ring or ulysses
     for r in 0 1; do python -m distributed_machine_learning_tpu_torch.cli.lm \\
         --parallel ring --num-nodes 2 --rank $r --master-ip 127.0.0.1:29500 \\
         --seq-len 8192 --batch-size 1 ... & done; wait
+
+    # byte-level text with a held-out eval, the head fused with the loss
+    python -m distributed_machine_learning_tpu_torch.cli.lm ... \\
+        --data-dir distributed_machine_learning_tpu --eval-batches 4 \\
+        --fused-ce-chunks 8
 
     # save after 2 steps, then resume from the newest valid checkpoint
     python -m distributed_machine_learning_tpu_torch.cli.lm ... --max-iters 2 \\
@@ -39,15 +60,18 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
         --ckpt-dir ckpts --resume
 
 ``--ckpt-dir`` saves the state after training (``train/checkpoint.py``:
-rank 0 writes, every rank restores); ``--resume`` first restores the
-newest valid checkpoint there (this run's optimizer hyperparameters win,
-so ``--lr`` may change), ``--resume auto`` also restarts a failed run from
-it, up to ``--max-restarts`` times.  The synthetic stream starts from its
-seed in every process, as the reference's does.
+rank 0 writes, every rank restores; not under fsdp, as in the reference);
+``--resume`` first restores the newest valid checkpoint there (this run's
+optimizer hyperparameters win, so ``--lr`` may change), ``--resume auto``
+also restarts a failed run from it, up to ``--max-restarts`` times.  The
+synthetic stream starts from its seed in every process, as the
+reference's does.  ``--eval-batches`` evaluates after training: the
+held-out final 10 % of the corpus under ``--data-dir``, else synthetic
+batches of the next seed; under fsdp on the gathered parameters.
 
 Every flag of the reference that this port does not carry yet raises
-NotImplementedError naming its ROADMAP item (other ``--parallel`` schemes,
-a text corpus, the fused head+loss, telemetry).
+NotImplementedError naming its ROADMAP item (the other ``--parallel``
+schemes, telemetry).
 """
 
 from __future__ import annotations
@@ -58,6 +82,13 @@ import numpy as np
 import torch
 
 from distributed_machine_learning_tpu_torch.cli.common import SEED
+from distributed_machine_learning_tpu_torch.data.text import (
+    VOCAB_SIZE,
+    TextWindowLoader,
+    eval_windows,
+    load_corpus,
+    split_corpus,
+)
 from distributed_machine_learning_tpu_torch.models.transformer import (
     TransformerLM,
     _ring_flash_wins,
@@ -87,8 +118,6 @@ PARALLEL = ["dp", "ring", "ulysses", "fsdp", "fsdp_pl", "tp", "pp", "3d", "ep"]
 # Flags of the reference CLI that this slice does not carry: (dest, the
 # value that means "not asked for", the ROADMAP item).
 _NOT_PORTED = [
-    ("data_dir", None, "A3b \"data/text.py's corpus loader\""),
-    ("fused_ce_chunks", None, "A3b 'ops/fused_ce.py'"),
     ("telemetry_dir", None, "A6 'telemetry'"),
     ("telemetry_flush_every", 20, "A6 'telemetry'"),
     ("momentum_dtype", None, "A4 (SGD)"),
@@ -105,7 +134,6 @@ _NOT_PORTED = [
     ("pp", 2, "A5 (--parallel 3d)"),
     ("tp", 2, "A5 (--parallel 3d)"),
     ("zero1_dp", False, "A5 (--parallel 3d)"),
-    ("overlap_update", False, "A5 (--parallel fsdp/pp)"),
 ]
 
 
@@ -120,8 +148,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry-flush-every", dest="telemetry_flush_every",
                    default=20, type=int)
     p.add_argument("--parallel", default="dp", choices=PARALLEL,
-                   help="dp (each rank its rows) or ring (each rank its sequence "
-                        "chunk) in this port so far")
+                   help="dp or fsdp (each rank its rows), ring or ulysses (each "
+                        "rank its sequence chunk) in this port so far")
     p.add_argument("--n-experts", dest="n_experts", default=8, type=int)
     p.add_argument("--capacity-factor", dest="capacity_factor", default=1.25,
                    type=float)
@@ -159,7 +187,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp", default=2, type=int)
     p.add_argument("--tp", default=2, type=int)
     p.add_argument("--zero1-dp", dest="zero1_dp", action="store_true")
-    p.add_argument("--overlap-update", dest="overlap_update", action="store_true")
+    p.add_argument("--overlap-update", dest="overlap_update", action="store_true",
+                   help="with --parallel fsdp: gather the next step's parameters "
+                        "behind the host's work between steps (parallel/overlap.py)")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--optimizer", default="adamw", choices=optimizer_names())
@@ -168,15 +198,21 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-update", dest="fused_update", action="store_true",
                    help="run the AdamW update as the fused kernel K7 (adamw only)")
     p.add_argument("--momentum-dtype", dest="momentum_dtype", default=None)
-    p.add_argument("--data-dir", dest="data_dir", default=None)
+    p.add_argument("--data-dir", dest="data_dir", default=None,
+                   help="train on every text file under this directory as a "
+                        "byte-level corpus (data/text.py; vocab raised to 257)")
     p.add_argument("--eval-batches", dest="eval_batches", default=0, type=int,
-                   help="after training, the perplexity of this many synthetic "
-                        "batches (0 skips)")
+                   help="after training, the perplexity of this many batches: "
+                        "windows of the held-out final 10%% of the corpus under "
+                        "--data-dir, else synthetic ones (0 skips)")
     p.add_argument("--fused-ce-chunks", dest="fused_ce_chunks", default=None,
-                   type=int)
+                   type=int, help="the head fused with the loss over this many vocab "
+                                  "chunks (ops/fused_ce.py); dp/ring/ulysses/fsdp")
     p.add_argument("--attn", default="auto", choices=["auto", "dense", "flash"],
                    help="'auto': flash from the reference's length policy up "
-                        "(ops/flash_attention.flash_wins), dense below")
+                        "(ops/flash_attention.flash_wins), dense below; ring "
+                        "upgrades to its flash kernels by the reference's rule, "
+                        "fsdp resolves 'auto' to dense, ulysses owns its attention")
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing (torch.utils.checkpoint)")
     p.add_argument("--remat-policy", dest="remat_policy", default="mlp",
@@ -188,14 +224,14 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.parallel == "ulysses":
+    if args.parallel == "fsdp_pl":
         raise NotImplementedError(
-            "--parallel ulysses is not ported yet: ROADMAP A5 '--parallel ulysses' "
-            "(ops/ulysses.py)")
-    if args.parallel not in ("dp", "ring"):
+            "--parallel fsdp_pl is not ported yet: ROADMAP A5b 'fsdp_perlayer.py' "
+            "(with parallel/gspmd.py)")
+    if args.parallel not in ("dp", "ring", "ulysses", "fsdp"):
         raise NotImplementedError(
-            f"--parallel {args.parallel} is not ported yet: ROADMAP A5 "
-            "(parallelism beyond data and context parallelism)")
+            f"--parallel {args.parallel} is not ported yet: ROADMAP A5c "
+            "(model parallelism)")
     for dest, default, item in _NOT_PORTED:
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
@@ -208,23 +244,48 @@ def _refuse_unported(args) -> None:
 
 
 def _check_layout(args) -> None:
-    """The reference's divisibility checks (``cli/lm.py:370-388``), made
-    before any rank joins the group."""
+    """The reference's checks of the flags against the scheme
+    (``cli/lm.py:317-369``) and its divisibility checks (``:370-388``,
+    ``:436-440``), made before any rank joins the group."""
     n = args.num_nodes
-    if args.parallel == "dp" and args.batch_size % n:
+    if args.overlap_update and args.parallel != "fsdp":
+        raise ValueError("--overlap-update applies to --parallel fsdp (prefetch "
+                         f"protocol) in this port; got --parallel {args.parallel}")
+    if args.fused_ce_chunks and args.parallel not in ("dp", "ring", "ulysses", "fsdp"):
+        raise ValueError("--fused-ce-chunks applies to the dp/ring/ulysses/fsdp/"
+                         "fsdp_pl steps only (tp shards the lm_head, pp computes the "
+                         "loss on the last stage)")
+    if (args.guard_nonfinite or args.loss_scale == "dynamic") and args.parallel not in (
+            "dp", "ring", "ulysses"):
+        raise ValueError("--guard-nonfinite/--loss-scale apply to the replicated "
+                         f"dp/ring/ulysses steps only (got --parallel {args.parallel})")
+    if args.parallel in ("dp", "fsdp") and args.batch_size % n:
         raise ValueError(f"--batch-size {args.batch_size} must be divisible by "
                          f"the {n}-device data axis")
-    if args.parallel == "ring" and args.seq_len % n:
+    if args.parallel in ("ring", "ulysses") and args.seq_len % n:
         raise ValueError(f"--seq-len {args.seq_len} must be divisible by the "
                          f"{n}-device sequence axis ({args.parallel} shards the "
                          "sequence)")
+    if args.parallel == "fsdp" and args.attn == "flash":
+        raise ValueError("FSDP LM step requires attn_impl='dense' (sequence-sharded "
+                         "attention needs a second mesh axis)")
+    if args.ckpt_dir and args.parallel == "fsdp":
+        raise ValueError("--ckpt-dir does not support the flat-vector fsdp state "
+                         "(FSDPState is not a TrainState); use --parallel fsdp_pl "
+                         "for checkpointable ZeRO-3")
 
 
 def attn_impl(args) -> str:
-    """The model's attention: ``--attn`` under dp; under ring the einsum
-    ring, upgraded to the ring flash kernels as the reference decides
-    (``cli/lm.py:394-419``): ``--attn flash`` on any chunk the kernels tile
-    natively, ``--attn auto`` where ``_ring_flash_wins(chunk)``."""
+    """The model's attention: ``--attn`` under dp; under fsdp ``auto``
+    resolved to dense (its step refuses flash); ``ulysses`` under ulysses;
+    under ring the einsum ring, upgraded to the ring flash kernels as the
+    reference decides (``cli/lm.py:394-419``): ``--attn flash`` on any chunk
+    the kernels tile natively, ``--attn auto`` where
+    ``_ring_flash_wins(chunk)``."""
+    if args.parallel == "ulysses":
+        return "ulysses"
+    if args.parallel == "fsdp" and args.attn == "auto":
+        return "dense"
     if args.parallel != "ring":
         return args.attn
     chunk = args.seq_len // args.num_nodes
@@ -256,10 +317,13 @@ def synthetic_batches(args, seed: int = SEED, count: int | None = None):
 
 def build(args, ctx: DistributedContext | None = None):
     """``(step, state, place, model)`` of this rank: the model (f32
-    parameters from SEED, the same on every rank), its TrainState, the
-    train step and the batch placement (the global host batch → this rank's
-    shard on its device).  ``ctx``: the rank's process group (from
-    :func:`initialize_from_flags`); without one, a one-process run."""
+    parameters from SEED, the same on every rank), its TrainState (an
+    ``FSDPState`` of this rank's shards under fsdp), the train step and the
+    batch placement (the global host batch → this rank's shard on its
+    device).  ``step.params_fn(state)`` gives the full parameters by name
+    (under fsdp a gather: every rank must call it).  ``ctx``: the rank's
+    process group (from :func:`initialize_from_flags`); without one, a
+    one-process run."""
     _refuse_unported(args)
     _check_layout(args)
     if ctx is None:
@@ -278,9 +342,26 @@ def build(args, ctx: DistributedContext | None = None):
     if args.lr is not None:
         cfg["learning_rate"] = args.lr
     state = init_lm_state(model, seed=SEED, config=AdamWConfig(**cfg))
-    step = make_lm_train_step(model, comm, guard_nonfinite=args.guard_nonfinite,
-                              dynamic_scale=args.loss_scale == "dynamic")
-    axis = "seq" if args.parallel == "ring" else "batch"
+    if args.parallel == "fsdp":
+        from distributed_machine_learning_tpu_torch.parallel.fsdp import (
+            gather_fsdp_params,
+            make_fsdp_lm_train_step,
+            shard_fsdp_state,
+        )
+
+        state, unravel, n_elems = shard_fsdp_state(state, comm)
+        step = make_fsdp_lm_train_step(model, comm, unravel, n_elems,
+                                       fused_ce_chunks=args.fused_ce_chunks,
+                                       overlap=args.overlap_update)
+        join = getattr(step, "join", lambda st: None)
+        step.params_fn = lambda st: gather_fsdp_params(st, unravel, n_elems, comm,
+                                                       full=join(st))
+    else:
+        step = make_lm_train_step(model, comm, guard_nonfinite=args.guard_nonfinite,
+                                  dynamic_scale=args.loss_scale == "dynamic",
+                                  fused_ce_chunks=args.fused_ce_chunks)
+        step.params_fn = lambda st: unwrap_dynamic_scale(st).params
+    axis = "seq" if args.parallel in ("ring", "ulysses") else "batch"
 
     def place(tokens, targets):
         tokens, targets = shard_lm_batch(tokens, targets, comm.rank, comm.world, axis)
@@ -288,6 +369,36 @@ def build(args, ctx: DistributedContext | None = None):
                 torch.from_numpy(np.ascontiguousarray(targets)).to(device, torch.long))
 
     return step, state, place, model
+
+
+def load_data(args):
+    """``(corpus, eval_corpus)`` under ``--data-dir`` (both None without it),
+    as the reference's main loads them (``cli/lm.py:773-817``): every text
+    file under the directory as bytes; ``--vocab`` raised to 257 when
+    smaller; with ``--eval-batches`` the final 10 % held out (the whole
+    corpus for both, with a warning, when it is too small to split)."""
+    if args.data_dir is None:
+        return None, None
+    corpus = load_corpus(args.data_dir)
+    if args.vocab < VOCAB_SIZE:
+        rank0_print(f"--data-dir is byte-level: vocab {args.vocab} -> {VOCAB_SIZE} "
+                    "(256 bytes + BOS)")
+        args.vocab = VOCAB_SIZE
+    if not args.eval_batches:
+        rank0_print(f"corpus: {len(corpus)} tokens from {args.data_dir}")
+        return corpus, None
+    corpus, eval_corpus = split_corpus(corpus, eval_frac=0.1,
+                                       min_eval_tokens=args.seq_len + 1)
+    if len(eval_corpus) == len(corpus):
+        # The documented degrade path: training-set perplexity must not pass
+        # for held-out perplexity.
+        rank0_print("WARNING: corpus too small to hold out an eval slice — eval will "
+                    "run on in-distribution training windows")
+        rank0_print(f"corpus: {len(corpus)} tokens from {args.data_dir}")
+    else:
+        rank0_print(f"corpus: {len(corpus)} train tokens from {args.data_dir}, "
+                    f"{len(eval_corpus)} held-out eval tokens")
+    return corpus, eval_corpus
 
 
 def resume(args, state):
@@ -327,7 +438,8 @@ def resume(args, state):
 
 def run(args, ctx: DistributedContext):
     """Train this rank as ``main`` does, after the group is up; returns the
-    final TrainState (saved under ``--ckpt-dir`` when given)."""
+    final state (saved under ``--ckpt-dir`` when given)."""
+    corpus, eval_corpus = load_data(args)
     step, state, place, model = build(args, ctx)
     rank0_print(f"lm parallel={args.parallel} devices={ctx.num_nodes} ({model.device}) "
                 f"d_model={args.d_model} layers={args.n_layers} "
@@ -339,6 +451,11 @@ def run(args, ctx: DistributedContext):
     rng = np.random.default_rng(SEED)
 
     def batches():
+        if corpus is not None:
+            # Every rank draws the same full global batch from the seed and
+            # place() shards it, as on the synthetic path.
+            yield from TextWindowLoader(corpus, args.batch_size, args.seq_len, seed=SEED)
+            return
         for _ in range(args.max_iters):
             block = synthetic_tokens(rng, args.batch_size, args.seq_len, args.vocab)
             yield block[:, :-1], block[:, 1:]
@@ -361,30 +478,40 @@ def run(args, ctx: DistributedContext):
             rank0_print(f"Saved checkpoint to {path}")
         return s
 
-    if args.resume == "auto":
-        # On any failure: a fresh state, restored from the newest valid
-        # checkpoint (or none), trained again, up to --max-restarts times.
-        from distributed_machine_learning_tpu_torch.runtime.supervisor import run_attempts
+    try:
+        if args.resume == "auto":
+            # On any failure: a fresh state, restored from the newest valid
+            # checkpoint (or none), trained again, up to --max-restarts times.
+            from distributed_machine_learning_tpu_torch.runtime.supervisor import (
+                run_attempts,
+            )
 
-        def attempt(restart_idx):
-            nonlocal step, place, model
-            s = state
-            if restart_idx > 0:
-                step, fresh, place, model = build(args, ctx)
-                s = resume(args, fresh)
-            return run_once(s)
+            def attempt(restart_idx):
+                nonlocal step, place, model
+                s = state
+                if restart_idx > 0:
+                    step, fresh, place, model = build(args, ctx)
+                    s = resume(args, fresh)
+                return run_once(s)
 
-        state = run_attempts(attempt, max_restarts=args.max_restarts)
-    else:
-        state = run_once(state)
-    if args.eval_batches:
-        # Every rank evaluates the whole held-out batches on its own
-        # (dense, one program: the reference's eval); rank 0 prints.
-        dev = model.device
-        held_out = ((torch.from_numpy(x).to(dev, torch.long),
-                     torch.from_numpy(y).to(dev, torch.long))
-                    for x, y in synthetic_batches(args, SEED + 1, args.eval_batches))
-        evaluate_lm(make_lm_eval_step(model), state.params, held_out)
+            state = run_attempts(attempt, max_restarts=args.max_restarts)
+        else:
+            state = run_once(state)
+        if args.eval_batches:
+            # Every rank evaluates the whole held-out batches on its own
+            # (dense, one program: the reference's eval); rank 0 prints.
+            dev = model.device
+            held_out = (eval_windows(eval_corpus, args.batch_size, args.seq_len,
+                                     args.eval_batches) if corpus is not None
+                        else synthetic_batches(args, SEED + 1, args.eval_batches))
+            held_out = ((torch.from_numpy(x).to(dev, torch.long),
+                         torch.from_numpy(y).to(dev, torch.long)) for x, y in held_out)
+            evaluate_lm(make_lm_eval_step(model), step.params_fn(state), held_out)
+    finally:
+        if getattr(step, "overlap", False):
+            # No gather may be in flight when the group shuts down.
+            step.join(state)
+            step.close()
     return state
 
 

@@ -36,8 +36,10 @@ backward is an autograd Function over K2/K3).  Context-parallel training
 shards the sequence over the ranks of ``comm`` (the model's
 :class:`~distributed_machine_learning_tpu_torch.runtime.distributed.Comm`):
 ``attn_impl="ring"`` is the einsum ring, ``"ring_flash"`` the ring over the
-chunk kernels K11-K13; rank r's chunk holds global positions
-``r·Lc + arange(Lc)``, which RoPE sees.  Parameters stay f32 and
+chunk kernels K11-K13, ``"ulysses"`` two all-to-alls around attention over
+the full sequence on a slice of the heads (``ops/ulysses.py``: K1-K3 where
+flash wins); rank r's chunk holds global positions ``r·Lc + arange(Lc)``,
+which RoPE sees.  Parameters stay f32 and
 each projection casts them to the compute dtype, as Flax's
 ``Dense(dtype=...)`` does.  ``remat=True`` checkpoints the LN2+MLP
 sub-layer (``remat_policy="mlp"``: attention's saved ``(out, lse)`` stay
@@ -46,8 +48,7 @@ resident, so the backward never re-runs attention) or the whole block
 ``models/transformer.py:614-709``).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item
-where the model has the option): ulysses attention and multi-token decode
-continuation; nor tensor-parallel decode, MoE blocks, or per-row
+where the model has the option): multi-token decode continuation; nor tensor-parallel decode, MoE blocks, or per-row
 frontiers over a dense cache (the reference's ``decode_batched_frontier``
 outside the engine, used by batched speculative decoding).
 """
@@ -80,6 +81,7 @@ from distributed_machine_learning_tpu_torch.ops.ring_attention import (
 from distributed_machine_learning_tpu_torch.ops.ring_flash_attention import (
     ring_flash_self_attention,
 )
+from distributed_machine_learning_tpu_torch.ops.ulysses import ulysses_self_attention
 from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
 
 LN_EPS = 1e-6  # Flax LayerNorm's epsilon (torch's default is 1e-5)
@@ -336,13 +338,16 @@ class Attention(nn.Module):
                     "multi-token decode continuation (speculative "
                     "decoding's verify pass) is not ported yet: "
                     "ROADMAP A8 'speculative decoding'")
-        if self.attn_impl in ("ring", "ring_flash"):
+        if self.attn_impl in SEQ_SHARDED:
             if cache is not None or paged is not None:
                 raise ValueError("decode runs dense cached attention; clone the model "
                                  'with attn_impl="dense"')
-            # GQA: the narrow K/V chunks travel the ring.
-            ring = ring_self_attention if self.attn_impl == "ring" else ring_flash_self_attention
-            out = ring(q, k, v, self.comm)
+            # GQA: the narrow K/V chunks travel the ring, or the narrow K/V
+            # ride the all-to-all when the group divides Hkv.  Ulysses picks
+            # its own local kernel ("ulysses owns its attention").
+            sharded = {"ring": ring_self_attention, "ring_flash": ring_flash_self_attention,
+                       "ulysses": ulysses_self_attention}[self.attn_impl]
+            out = sharded(q, k, v, self.comm)
             return _project(self.out, out.reshape(B, L, H * hd), cd)
         # Full causal pass, or prefill (the cache was empty, so attention is
         # plain causal attention over the fresh K/V; the decode path picks
@@ -397,15 +402,18 @@ class Block(nn.Module):
         return x + self.mlp(x)
 
 
-_ATTN_IMPLS = ("dense", "flash", "auto", "ring", "ring_flash")
+# The attentions over a sequence chunk of this rank (the others see the
+# whole sequence).
+SEQ_SHARDED = ("ring", "ring_flash", "ulysses")
+_ATTN_IMPLS = ("dense", "flash", "auto", *SEQ_SHARDED)
 
 
 class TransformerLM(nn.Module):
     """Causal LM: tokens [B, L] → f32 logits [B, L, vocab].
 
     ``forward(tokens)`` is the full causal pass (``attn_impl`` dense,
-    flash or auto; ring or ring_flash on this rank's sequence chunk of the
-    context-parallel group ``comm``).  ``forward(tokens, cache=...,
+    flash or auto; ring, ring_flash or ulysses on this rank's sequence chunk
+    of the context-parallel group ``comm``).  ``forward(tokens, cache=...,
     start=s)`` is the decode path: writes K/V for positions s..s+L-1 into the cache and attends
     against it (prefill at s = 0, then one token per call).
     ``forward(tokens [W, 1], paged=PagedKV(...))`` is one paged decode
@@ -428,9 +436,7 @@ class TransformerLM(nn.Module):
                  int8_tiered_dispatch: bool = False):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP A5 "
-                f"'--parallel ulysses'); use one of {_ATTN_IMPLS}")
+            raise ValueError(f"unknown attn_impl={attn_impl!r}; use one of {_ATTN_IMPLS}")
         if kv_cache_dtype is not None and kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be None or one of {KV_CACHE_DTYPES}, "
                              f"got {kv_cache_dtype!r}")
@@ -516,8 +522,9 @@ class TransformerLM(nn.Module):
             layer_paged = [(k, v, paged.tables, paged.positions, page, lane_pos % bs)
                            for k, v in zip(paged.keys, paged.values)]
         else:
-            # A ring rank's chunk sits at rank·L in the global sequence.
-            offset = self.comm.rank * L if self.attn_impl in ("ring", "ring_flash") else start
+            # A ring or Ulysses rank's chunk sits at rank·L in the global
+            # sequence.
+            offset = self.comm.rank * L if self.attn_impl in SEQ_SHARDED else start
             positions = torch.arange(offset, offset + L, device=tokens.device)
         rope = rope_tables(positions, self.head_dim)
         x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)

@@ -30,8 +30,9 @@ decodes are one K10 launch), ``"xla"`` to their plain versions — the
 names are the reference's ``--ring-codec-impl`` values, so a JAX command
 line runs unchanged) and ``topk``.  Each rank's chunk rows start on
 16-element boundaries so every chunk view is 16-byte aligned for the
-kernels.  ``ring_all_gather_flat`` and ``topology=`` are
-not ported (ROADMAP A5).
+kernels.  :func:`ring_all_gather_flat` is the ring's all-gather alone,
+bucketed, for the overlapped FSDP update (``parallel/overlap.py``).
+``topology=`` is not ported (ROADMAP A5c).
 """
 
 from __future__ import annotations
@@ -254,6 +255,33 @@ def ring_all_reduce_flat(x: torch.Tensor, comm, mean: bool = False,
     factor = float(n) if mean else 1.0
     res[own_i, :chunk] += factor * (own - own_dec)
     return result, res[:, :chunk].reshape(-1)[:length]
+
+
+def ring_all_gather_flat(shard: torch.Tensor, comm, n_buckets: int = 1) -> torch.Tensor:
+    """All-gather a flat shard by the ring's phase-2 structure: rank r holds
+    global chunk r; after n − 1 hops (send right, receive left) every rank
+    holds the whole [n·L] vector, in rank order.  Pure data movement, so
+    bit for bit ``comm.all_gather_flat(shard)``.  ``n_buckets > 1`` splits
+    the shard into that many rings whose hops travel together, one
+    ``send_recv`` a hop carrying every bucket (the reference's bucket
+    pipelining: each hop's payloads in flight at once)."""
+    n = comm.world
+    if n == 1:
+        return shard
+    L = shard.numel()
+    k = max(1, min(n_buckets, L))
+    bounds = [(i * L // k, (i + 1) * L // k) for i in range(k)]
+    out = torch.empty((n, L), dtype=shard.dtype, device=shard.device)
+    r = comm.rank
+    out[r] = shard
+    cur = tuple(shard[a:b] for a, b in bounds)
+    for s in range(n - 1):
+        # The chunk that arrives after hop s + 1 was sent by rank r − s − 1.
+        cur = comm.shift(cur)
+        row = out[(r - s - 1) % n]
+        for (a, b), part in zip(bounds, cur):
+            row[a:b] = part
+    return out.reshape(-1)
 
 
 def _bucket_bounds(n_elems: int, bucket_bytes: int, itemsize: int):

@@ -22,7 +22,12 @@ router, ``runtime/serving_worker.py``'s replicas) with no dropped request:
 4. **Canary**: the router steers every Nth dispatch at the swapped
    replicas; the controller compares the canary's quality probe and
    latency with the stable version's over a window, with a deploy-scoped
-   ``SLOEngine`` on the canary's outcomes.
+   ``SLOEngine`` on the canary's outcomes.  The window and the latency
+   gate count only the canary completions submitted after the slice
+   opened: a request admitted before it waited in the canary replica's
+   queue through the weight swap, and its latency is the swap's pause, not
+   the new weights' service (under a loaded host that pause alone read
+   3.8× the stable p50 and rolled a correct deploy back).
 5. **Promote or roll back**: a clean window swaps the rest of the fleet
    (``canary_promotions``); a regression re-swaps every touched replica to
    the prior version (``canary_rollbacks``).  Every edge lands in the
@@ -120,7 +125,7 @@ class DeployConfig:
     checkpoint_dir: str = ""
     canary_replicas: int = 1     # how many replicas take the canary
     canary_every_n: int = 3      # traffic slice: every Nth dispatch
-    canary_window: int = 12      # canary completions needed to judge
+    canary_window: int = 12      # canary completions (submitted after the slice opened) to judge
     max_latency_ratio: float = 3.0  # canary p50 vs stable p50 gate
     max_bad_ratio: float = 0.0   # quality-probe failure ratio tolerated
     commit_timeout_s: float = 5.0   # per-replica wait for the worker's commit
@@ -160,6 +165,8 @@ class DeployController:
         self._stats: dict[int, dict] = {}
         self._slo = None          # deploy-scoped engine, one per canary
         self._candidate: int | None = None  # version the canary judges
+        self._opened: float | None = None   # monotonic time the canary slice opened
+        self._canary_lat: list[float] = []  # latencies submitted after it opened
         self.state = "idle"
         self.deployed_version = 0
         self.deployed_meta: dict = {}
@@ -188,6 +195,9 @@ class DeployController:
                 st["bad"] += 1
             if lat is not None:
                 st["lat"].append(float(lat))
+                if (v == self._candidate and self._opened is not None
+                        and time.monotonic() - float(lat) >= self._opened):
+                    self._canary_lat.append(float(lat))
             if self._slo is not None and v == self._candidate:
                 self._slo.observe(latency_s=lat, error=not ok, now=self._now())
 
@@ -258,6 +268,9 @@ class DeployController:
             else:
                 return self._rollback(swapped, version, prev_version, prev_meta,
                                       reason=f"replica {rank} failed to commit v{version}")
+        with self._lock:
+            self._opened = time.monotonic()
+            self._canary_lat = []
         self.router.set_canary(canary, self.cfg.canary_every_n)
         self.state = "canary"
         self.tx.append_health_event("deploy_canary", version=version, step=meta.get("step"),
@@ -281,12 +294,14 @@ class DeployController:
         deadline = time.monotonic() + self.cfg.judge_timeout_s
         while time.monotonic() < deadline:
             with self._lock:
-                cn = self._stats_since(version, base)["count"]
+                cn = len(self._canary_lat)
             if cn >= self.cfg.canary_window:
                 break
             time.sleep(self.cfg.poll_s)
         with self._lock:
             cstat = self._stats_since(version, base)
+            lats = sorted(self._canary_lat)
+            cstat["p50"] = lats[len(lats) // 2] if lats else None
             sstat = self._stats_since(prev_version, base)
             alerts = list(self._slo.alerts) if self._slo else []
         reason = None
@@ -348,6 +363,7 @@ class DeployController:
     def _teardown_canary(self) -> None:
         with self._lock:
             self._candidate = None
+            self._opened = None
             self._slo = None
         self._pending = None
         self.loaded = {v: w for v, w in self.loaded.items() if v == self.deployed_version}

@@ -166,6 +166,61 @@ class Comm:
         dist.all_reduce(host)
         return t.copy_(host)
 
+    def _back(self, out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return out.to(like.device) if self.host else out
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """Split ``t`` into W blocks along ``split_dim``, send block r to rank
+        r, and concatenate the blocks that arrive along ``concat_dim`` in
+        rank order: the reference's ``lax.all_to_all(..., tiled=True)``.
+        One ``all_to_all_single`` on every wire (gloo takes it on CPU
+        tensors, so the host wire stages through host buffers)."""
+        n = self.world
+        if n == 1:
+            return t
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} is not "
+                             f"divisible by {n} ranks")
+        split_dim %= t.dim()
+        concat_dim %= t.dim()
+        # Blocks leading: [n, ...t's dims with split_dim cut to 1/n...].
+        shape = list(t.shape)
+        shape[split_dim] //= n
+        blocks = t.unflatten(split_dim, (n, shape[split_dim])).movedim(split_dim, 0)
+        src = self._out(blocks.contiguous())
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
+        out = self._back(out, t)  # out[s]: rank s's block for this rank
+        return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1).contiguous()
+
+    def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of a flat tensor, of which this rank keeps
+        block ``rank`` of W equal blocks: the reference's
+        ``lax.psum_scatter(tiled=True)``.  ``reduce_scatter_tensor`` on
+        every wire (the host wire through host buffers)."""
+        n = self.world
+        if n == 1:
+            return flat
+        if flat.dim() != 1 or flat.numel() % n:
+            raise ValueError(f"reduce_scatter takes a flat tensor of a multiple of {n} "
+                             f"elements, got {tuple(flat.shape)}")
+        src = self._out(flat.contiguous())
+        out = torch.empty(flat.numel() // n, dtype=flat.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src)
+        return self._back(out, flat)
+
+    def all_gather_flat(self, shard: torch.Tensor) -> torch.Tensor:
+        """Every rank's flat ``shard``, concatenated in rank order into one
+        flat tensor (``lax.all_gather(tiled=True)``):
+        ``all_gather_into_tensor`` on every wire."""
+        n = self.world
+        if n == 1:
+            return shard
+        src = self._out(shard.contiguous().reshape(-1))
+        out = torch.empty(n * src.numel(), dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src)
+        return self._back(out, shard)
+
 
 # The gradient mean packs its f32 tensors, in order, into buffers of at most
 # this many bytes (a larger tensor takes a buffer of its own): one

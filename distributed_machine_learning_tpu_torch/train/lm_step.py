@@ -5,17 +5,16 @@ forward, mean next-token cross-entropy, backward, the optimizer from the
 state's config, the step counter.  With a ``comm`` of W ranks the step is
 the reference's ``make_lm_train_step(model, mesh=...)`` over a (batch,
 seq) mesh of (W, 1) (``--parallel dp``: each rank its rows) or (1, W)
-(``--parallel ring``: each rank its sequence chunk, the model's attention
-a ring over ``comm``): after the backward the gradients and the loss are
+(``--parallel ring`` or ``ulysses``: each rank its sequence chunk, the
+model's attention a ring or two all-to-alls over ``comm``): after the backward the gradients and the loss are
 averaged over the ranks (the reference's ``pmean``), so every rank applies
 the same update to the same parameters.  The reference compiles this into one donated program; here it
 runs eagerly and updates the state in place, so ``step(state, tokens,
 targets)`` returns the same state object and the loss tensor (the caller
 syncs on it).  The gradients stay on the parameters (``p.grad``) until
-the next step clears them.
-
-The fused head+loss (``fused_ce_chunks``, ROADMAP A3b) and Ulysses
-attention (A5a) are not ported yet; ``cli/lm.py`` refuses their flags.
+the next step clears them.  ``fused_ce_chunks`` fuses the head and the
+loss (``ops/fused_ce.py``): the [B, L, vocab] logits are never
+materialized.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from functools import partial
 import torch
 
 from distributed_machine_learning_tpu_torch.convert import init_params
+from distributed_machine_learning_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from distributed_machine_learning_tpu_torch.runtime.distributed import mean_over_ranks_
 from distributed_machine_learning_tpu_torch.train.common import (
     guard_update,
@@ -79,10 +79,22 @@ def unwrap_dynamic_scale(state):
     return state.inner if isinstance(state, DynamicScaleState) else state
 
 
-def lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """The LM training loss: mean next-token cross-entropy of the model's
-    f32 logits (the parameters live in the model)."""
-    return lm_cross_entropy(model(tokens), targets)
+def lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor,
+            fused_ce_chunks: int | None = None) -> torch.Tensor:
+    """The LM training loss, one definition for the replicated step below
+    and the ZeRO-3 step (``parallel/fsdp.py``): mean next-token
+    cross-entropy of the model's f32 logits (the parameters live in the
+    model).  With ``fused_ce_chunks`` the model returns its post-``ln_f``
+    hidden states and ``ops/fused_ce.py`` scans the vocab in that many
+    chunks, the head's weights cast to the compute dtype as its projection
+    casts them."""
+    if not fused_ce_chunks:
+        return lm_cross_entropy(model(tokens), targets)
+    hidden = model(tokens, return_hidden=True)
+    head, cd = model.lm_head, model.compute_dtype
+    return fused_linear_cross_entropy(hidden.reshape(-1, hidden.shape[-1]),
+                                      head.weight.to(cd), head.bias.to(cd),
+                                      targets.reshape(-1), fused_ce_chunks)
 
 
 def _backward(model, loss: torch.Tensor, comm) -> tuple[dict, torch.Tensor]:
@@ -104,8 +116,9 @@ def _apply_update(state: TrainState, grads: dict) -> None:
     state.step += 1
 
 
-def _lm_step_impl(model, state: TrainState, tokens, targets, *, guard: bool, comm):
-    grads, loss = _backward(model, lm_loss(model, tokens, targets), comm)
+def _lm_step_impl(model, state: TrainState, tokens, targets, *, guard: bool, comm,
+                  fused_ce_chunks: int | None = None):
+    grads, loss = _backward(model, lm_loss(model, tokens, targets, fused_ce_chunks), comm)
     if guard:
         # Non-finite gradients skip the update wholesale (step counter
         # included); the non-finite loss still returns so the host sees it.
@@ -116,11 +129,13 @@ def _lm_step_impl(model, state: TrainState, tokens, targets, *, guard: bool, com
     return state, loss
 
 
-def _lm_scaled_step_impl(model, sstate: DynamicScaleState, tokens, targets, *, comm):
+def _lm_scaled_step_impl(model, sstate: DynamicScaleState, tokens, targets, *, comm,
+                         fused_ce_chunks: int | None = None):
     """The dynamic-loss-scaled step (guard always on; gradients unscaled
     after the mean over the ranks, as the reference)."""
     scale = sstate.loss_scale
-    grads, scaled_loss = _backward(model, lm_loss(model, tokens, targets) * scale, comm)
+    loss = lm_loss(model, tokens, targets, fused_ce_chunks)
+    grads, scaled_loss = _backward(model, loss * scale, comm)
     for g in grads.values():
         g.div_(scale)
     finite = guard_update(tree_all_finite(grads), sstate.inner,
@@ -138,31 +153,34 @@ def _lm_scaled_step_impl(model, sstate: DynamicScaleState, tokens, targets, *, c
 
 
 def make_lm_train_step(model, comm=None, guard_nonfinite: bool = False,
-                       dynamic_scale: bool = False):
+                       dynamic_scale: bool = False, fused_ce_chunks: int | None = None):
     """Build ``step(state, tokens, targets) -> (state, loss)``.
 
     Without ``comm`` (or at world 1): one device, the reference's no-mesh
     case.  With a ``comm`` of W ranks: each rank passes its shard of the
     global batch (:func:`shard_lm_batch`) and every rank must call the step
     each time; gradients and loss are averaged over the ranks before the
-    update.  A dense or flash model shards the batch (dp); a ring model
-    the sequence, over the same ``comm``.
+    update.  A dense or flash model shards the batch (dp); a ring or
+    Ulysses model the sequence, over the same ``comm``.
 
     ``guard_nonfinite``: a non-finite gradient skips the update (state and
     step counter unchanged).  ``dynamic_scale``: dynamic loss scaling
     (implies the guard); the step then takes a :class:`DynamicScaleState`
-    (:func:`with_dynamic_scale`)."""
+    (:func:`with_dynamic_scale`).  ``fused_ce_chunks``: the fused head+loss
+    (:func:`lm_loss`)."""
     if comm is not None and comm.world == 1:
         comm = None
     if dynamic_scale:
-        return partial(_lm_scaled_step_impl, model, comm=comm)
-    return partial(_lm_step_impl, model, guard=guard_nonfinite, comm=comm)
+        return partial(_lm_scaled_step_impl, model, comm=comm,
+                       fused_ce_chunks=fused_ce_chunks)
+    return partial(_lm_step_impl, model, guard=guard_nonfinite, comm=comm,
+                   fused_ce_chunks=fused_ce_chunks)
 
 
 def shard_lm_batch(tokens, targets, rank: int, world: int, axis: str):
     """This rank's part of a global [B, L] batch (numpy arrays or tensors):
-    rows ``[r·B/W, (r+1)·B/W)`` for ``axis="batch"`` (dp), columns
-    ``[r·L/W, (r+1)·L/W)`` for ``axis="seq"`` (ring), as the reference's
+    rows ``[r·B/W, (r+1)·B/W)`` for ``axis="batch"`` (dp, fsdp), columns
+    ``[r·L/W, (r+1)·L/W)`` for ``axis="seq"`` (ring, ulysses), as the reference's
     ``shard_lm_batch`` places them on a (batch, seq) mesh of (W, 1) or
     (1, W).  Every rank draws the same global batch from the seed."""
     dim = {"batch": 0, "seq": 1}[axis]

@@ -5,8 +5,11 @@ Counterpart of ``distributed_machine_learning_tpu/train/loop.py``
 iteration wall clock with iteration 0 excluded (where the kernels build
 and the first launches land), the loss printed every 20 iterations, and
 the same total/average summary lines.  Each step is timed to a host sync
-on its loss: PyTorch returns before the device finishes.  No telemetry
-yet (ROADMAP A6).
+on its loss: PyTorch returns before the device finishes.  A step with an
+overlapped parameter gather (``parallel/fsdp.py``, ``overlap=True``) hands
+its gather's seconds over through ``pop_gather_seconds()``; they are kept
+as the timer's ``param_gather_s`` (the reference's row column of that
+name).  No telemetry yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import math
 from typing import Iterable
 
 from distributed_machine_learning_tpu_torch.utils.logging import rank0_print
-from distributed_machine_learning_tpu_torch.utils.timing import IterationTimer
+from distributed_machine_learning_tpu_torch.utils.timing import IterationTimer, percentile_stats
 
 # Reference constants (part1/main.py:32-33, 49-50).
 MAX_ITERS = 40
@@ -33,6 +36,7 @@ def train_epoch(train_step, state, batches: Iterable, place_batch=None,
     loss, tagged with this rank (the reference's per-rank print surface,
     ``part2/2a/main.py:58-61``); otherwise rank 0 prints."""
     timer = timer or IterationTimer(skip_first=1)
+    pop_gather = getattr(train_step, "pop_gather_seconds", None)
     for batch_idx, (tokens, targets) in enumerate(batches):
         if batch_idx == max_iters:  # part1/main.py:32-33
             break
@@ -42,6 +46,12 @@ def train_epoch(train_step, state, batches: Iterable, place_batch=None,
         state, loss = train_step(state, tokens, targets)
         loss = loss.item()  # the host sync the step is timed to
         timer.stop()
+        if pop_gather is not None:
+            # The gather closed at this step's consume: step k reports step
+            # k − 1's gather, as the reference's rows do.
+            gather_s = pop_gather()
+            if gather_s is not None:
+                timer.param_gather_s.append(gather_s)
         if (batch_idx + 1) % loss_print_every == 0:  # part1/main.py:49-50
             if local_loss_rank is None:
                 rank0_print(f"Loss at {batch_idx + 1}th batch is {loss}")
@@ -49,6 +59,10 @@ def train_epoch(train_step, state, batches: Iterable, place_batch=None,
                 rank0_print(f"Loss at {batch_idx + 1}th batch is {loss} "
                             f"(rank {local_loss_rank})", all_ranks=True)
     rank0_print(timer.summary())  # part1/main.py:57-58
+    if timer.param_gather_s:
+        p = percentile_stats(timer.param_gather_s)
+        rank0_print(f"Param gather p50/max : {p['p50']:.6f}/{p['max']:.6f} seconds "
+                    f"({len(timer.param_gather_s)} gathers)")
     return state, timer
 
 

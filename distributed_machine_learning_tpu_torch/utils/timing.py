@@ -48,6 +48,8 @@ class IterationTimer:
 
     skip_first: int = 1
     times: list = field(default_factory=list)
+    # Seconds of each overlapped parameter gather (train/loop.py fills it).
+    param_gather_s: list = field(default_factory=list)
     _start: float = 0.0
     _iter: int = 0
 

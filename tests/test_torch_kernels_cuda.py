@@ -334,6 +334,71 @@ def test_trainer_on_the_card_matches_plain_path(cuda):
     assert all(abs(g - w) <= 2e-2 for g, w in zip(got, want)), (got, want)
 
 
+def _parallel_rank(rank, world, init_method, parallel):
+    """One rank of a small ``cli.lm --parallel ulysses|fsdp`` run sharing the
+    card (gloo over host buffers): 2 bf16 steps with the fused update
+    (fsdp: the sync step, then --overlap-update from the same seed), the
+    launch counts of each run and a digest of the full parameters."""
+    import hashlib
+
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method)
+    flags = ["--parallel", parallel, "--num-nodes", str(world), "--rank", str(rank),
+             "--d-model", "256", "--n-layers", "2", "--n-heads", "4", "--n-kv-heads", "2",
+             "--vocab", "257", "--compute-dtype", "bfloat16", "--fused-update",
+             "--max-iters", "2"]
+    flags += (["--seq-len", "2048", "--batch-size", "1"] if parallel == "ulysses"
+              else ["--seq-len", "256", "--batch-size", "2"])
+    runs = [[]] if parallel == "ulysses" else [[], ["--overlap-update"]]
+    out = []
+    try:
+        for extra in runs:
+            args = lm.make_parser().parse_args(flags + extra)
+            step, state, place, model = lm.build(args, ctx)
+            build.reset_launch_counts()
+            losses = [float(step(state, *place(x, y))[1]) for x, y in lm.synthetic_batches(args)]
+            launches = dict(build.launches)
+            digest = hashlib.sha256()
+            for p in step.params_fn(state).values():
+                digest.update(p.detach().float().cpu().numpy().tobytes())
+            if extra:
+                step.close()
+            out.append((losses, launches, digest.hexdigest(), model.attn_impl,
+                        sum(1 for _ in model.parameters())))
+        return out
+    finally:
+        ctx.shutdown()
+
+
+@pytest.mark.parametrize("parallel", ["ulysses", "fsdp"])
+def test_parallel_trainers_on_the_card(cuda, parallel):
+    """``--parallel ulysses`` at W 2 runs its local attention over the full
+    2048 tokens through K1-K3 (once per layer a step on every rank) and K7
+    once per leaf; ``--parallel fsdp`` at W 2 runs dense attention and K7
+    once a step on its flat shard, and its overlapped run is bit for bit the
+    sync run.  Every rank ends with the same parameters."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    ranks = spawn(_parallel_rank, 2, (parallel,), timeout_s=600)
+    for runs in ranks:
+        for losses, launches, digest, attn, n_leaves in runs:
+            assert all(math.isfinite(x) for x in losses) and losses == ranks[0][0][0]
+            if parallel == "ulysses":
+                assert attn == "ulysses"
+                assert [launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] \
+                    == [2 * 2] * 3
+                assert launches["fused_adamw"] == 2 * n_leaves
+            else:
+                assert attn == "dense" and launches["flash_fwd"] == 0
+                assert launches["fused_adamw"] == 2
+    assert len({d for runs in ranks for _, _, d, _, _ in runs}) == 1
+
+
 def test_checkpoint_round_trip_of_a_card_state(cuda, tmp_path):
     """A TrainState on the card after a flash + fused-AdamW step, saved and
     restored into a fresh card state: every leaf bit for bit, on the state's

@@ -230,9 +230,9 @@ def test_cli_prints_the_protocol_lines(capsys):
 def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_lm.main(["--max-iters", "1"])
-    for flags, item in ((["--parallel", "fsdp"], "A5"),
-                        (["--data-dir", "x"], "A3"), (["--fused-ce-chunks", "2"], "A3"),
-                        (["--telemetry-dir", "x"], "A6"), (["--parallel", "ulysses"], "A5"),
+    for flags, item in ((["--parallel", "fsdp_pl"], "A5b"),
+                        (["--momentum-dtype", "bfloat16"], "A4"), (["--n-experts", "4"], "A5"),
+                        (["--telemetry-dir", "x"], "A6"), (["--parallel", "pp"], "A5c"),
                         (["--optimizer", "sgd"], "A4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             cli_lm.main(["--device", "cpu", *flags])

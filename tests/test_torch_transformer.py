@@ -125,9 +125,11 @@ def test_cached_decode_matches_full_forward(n_kv_heads):
 
 
 def test_out_of_slice_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Every attention of the reference is ported (ulysses too); an unknown
+    # one is refused.
+    with pytest.raises(ValueError, match="unknown attn_impl='sparse'"):
         TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1, n_heads=4,
-                      device="cpu", attn_impl="ulysses")
+                      device="cpu", attn_impl="sparse")
     # The int8 KV cache is ported (tests/test_torch_kv_int8.py); a cache
     # dtype outside the reference's set is refused.
     for dtype in ("int8", torch.float16):

@@ -8,20 +8,21 @@ Drives the context-parallel LM ring (``chip_smoke.run_ring``: 4 ranks,
 B 1 x L 16384) and the VGG parts (``chip_smoke.run_vgg``: world 1, 2 and
 4) with their own gates: launch counts, ranks bit for bit equal, one step
 kernel path vs plain path, losses.  Then the real commands, one process
-per rank: ``cli.lm --parallel ring`` at world 2 (``chip_smoke.run_ring_cli``),
-``cli.part3 --ring-compress int8`` at world 2 (``chip_smoke.run_vgg_cli``)
-and ``cli.lm --parallel dp --num-nodes 4`` at the LM's full width
-(``run_dp_cli`` below); each must exit 0 on every rank, print the
-reference's protocol lines and name nccl in its banner.  The serving
-fleet's run (a) (``run_fleet`` below): ``chip_smoke.serve_fleet``'s
-steady run with replica r's engine and models on ``cuda:r``.  With a card per
-rank the ranks choose nccl (``runtime/distributed.plan_placement``); on
-one card they share it over gloo, as ``chip_smoke.py`` runs them.  Prints
-each kernel's launches over the spawned phases (the codec's by chunk length
-and residual); exits 1 if a phase fails.
-PHASE names limit the run to those phases (``ring``, ``vgg``, ``ring cli``,
-``vgg cli``, ``dp cli``, ``fleet``), e.g. the VGG ones alone after a change to the
-int8 ring codec.
+per rank: ``cli.lm --parallel ring`` at world 2
+(``chip_smoke.run_ring_cli``), ``cli.part3 --ring-compress int8`` at world
+2 (``chip_smoke.run_vgg_cli``) and ``cli.lm --parallel dp``, ``ring``,
+``ulysses`` and ``fsdp --overlap-update`` with ``--num-nodes 4`` at the
+LM's full width (``run_lm_cli`` below); each must exit 0 on every rank,
+print the reference's protocol lines and name nccl in its banner.  The
+serving fleet's run (a) (``run_fleet`` below): ``chip_smoke.serve_fleet``'s
+steady run with replica r's engine and models on ``cuda:r``.  With a card
+per rank the ranks choose nccl (``runtime/distributed.plan_placement``);
+on one card they share it over gloo, as ``chip_smoke.py`` runs them.
+Prints each kernel's launches over the spawned phases (the codec's by
+chunk length and residual); exits 1 if a phase fails.  PHASE names limit
+the run to those phases (``ring``, ``vgg``, ``ring cli``, ``vgg cli``,
+``dp cli``, ``ring w4 cli``, ``ulysses cli``, ``fsdp cli``, ``fleet``),
+e.g. the VGG ones alone after a change to the int8 ring codec.
 """
 
 import os
@@ -34,29 +35,40 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# cli.lm --parallel dp across DP_CLI["world"] processes: the LM at full
-# width (chip_smoke.MODEL), B 8 x L 4096 split over the ranks, 5 steps.
-DP_CLI = dict(world=4, seq_len=4096, batch_size=8, max_iters=5)
+# cli.lm across LM_CLI[parallel]["world"] processes at the LM's full width
+# (chip_smoke.MODEL): dp splits B 8 x L 4096 over the ranks; ring and
+# ulysses split L 16384 of B 1 (the ring cell's shape; Ulysses runs K1-K3
+# over the full sequence on 4 of the 16 heads a rank); fsdp splits B 4 x L 2048 with --overlap-update
+# (dense attention, one K7 launch a step on each rank's flat shard).
+LM_CLI = {"dp": dict(world=4, seq_len=4096, batch_size=8, max_iters=5, attn="flash"),
+          "ring": dict(world=4, seq_len=16384, batch_size=1, max_iters=5, attn="flash",
+                       want_attn="ring_flash"),
+          "ulysses": dict(world=4, seq_len=16384, batch_size=1, max_iters=5, attn="flash",
+                          want_attn="ulysses"),
+          "fsdp": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="auto",
+                       want_attn="dense", extra=("--overlap-update",))}
 
 
-def run_dp_cli(smoke, backend: str) -> None:
-    """``python -m ...cli.lm --parallel dp --num-nodes W --master-ip --rank``
-    in W processes; every process exits 0, and rank 0's banner names the
-    world, the attention kernel and ``backend``, followed by the reference's
-    timing lines."""
+def run_lm_cli(smoke, backend: str, parallel: str = "dp") -> None:
+    """``python -m ...cli.lm --parallel PARALLEL --num-nodes W --master-ip
+    --rank`` in W processes; every process exits 0, and rank 0's banner
+    names the world, the attention and ``backend``, followed by the
+    reference's timing lines."""
+    cfg = LM_CLI[parallel]
     with socket.socket() as sock:  # a free port for the rendezvous
         sock.settimeout(10)
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    world, m = DP_CLI["world"], smoke.MODEL
+    world, m = cfg["world"], smoke.MODEL
     cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.lm",
-           "--parallel", "dp", "--num-nodes", str(world), "--master-ip", f"127.0.0.1:{port}",
+           "--parallel", parallel, "--num-nodes", str(world),
+           "--master-ip", f"127.0.0.1:{port}",
            "--d-model", str(m["d_model"]), "--n-layers", str(m["n_layers"]),
            "--n-heads", str(m["n_heads"]), "--n-kv-heads", str(m["n_kv_heads"]),
-           "--vocab", str(m["vocab_size"]), "--seq-len", str(DP_CLI["seq_len"]),
-           "--batch-size", str(DP_CLI["batch_size"]), "--max-iters", str(DP_CLI["max_iters"]),
+           "--vocab", str(m["vocab_size"]), "--seq-len", str(cfg["seq_len"]),
+           "--batch-size", str(cfg["batch_size"]), "--max-iters", str(cfg["max_iters"]),
            "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--fused-update",
-           "--attn", "flash"]
+           "--attn", cfg["attn"], *cfg.get("extra", ())]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([*cmd, "--rank", str(r)], stdout=subprocess.PIPE,
@@ -71,14 +83,16 @@ def run_dp_cli(smoke, backend: str) -> None:
                 p.wait()
     rcs = [p.returncode for p in procs]
     lines = [ln for ln in outs[0].splitlines()
-             if ln.startswith(("lm parallel=", "Total execution", "Average execution"))]
-    smoke.log(f"cli.lm --parallel dp, {world} processes ({time.perf_counter() - t0:.1f} s): "
-              f"exit codes {rcs}; rank 0: {lines}")
-    want = (f"lm parallel=dp devices={world}", "Total execution time is",
+             if ln.startswith(("lm parallel=", "Total execution", "Average execution",
+                               "Iteration time", "Param gather"))]
+    smoke.log(f"cli.lm --parallel {parallel}, {world} processes "
+              f"({time.perf_counter() - t0:.1f} s): exit codes {rcs}; rank 0: {lines}")
+    want = (f"lm parallel={parallel} devices={world}", "Total execution time is",
             "Average execution time is")
+    attn = cfg.get("want_attn", cfg["attn"])
     if rcs != [0] * world or not all(any(ln.startswith(w) for ln in lines) for w in want) \
-            or "attn=flash" not in lines[0] or f"backend={backend}" not in lines[0]:
-        raise AssertionError(f"cli.lm dp: exit codes {rcs}; output tails "
+            or f"attn={attn}" not in lines[0] or f"backend={backend}" not in lines[0]:
+        raise AssertionError(f"cli.lm {parallel}: exit codes {rcs}; output tails "
                              f"{[o[-2000:] for o in outs]}")
 
 
@@ -150,12 +164,15 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
                  if r or k == "ring_encode_int8"})  # the codec's launches by row
     rows.update({smoke.codec_row("ring_decode_int8", n, rows=w): {}
                  for w, n in smoke.CODEC_ALLGATHER})  # the all-gather's batched K10
-    backend = "nccl" if cards >= DP_CLI["world"] else "gloo"
+    backend = "nccl" if cards >= LM_CLI["dp"]["world"] else "gloo"
     phases = [("ring", lambda: smoke.run_ring(torch, rows)),
               ("vgg", lambda: smoke.run_vgg(torch, rows)),
               ("ring cli", lambda: smoke.run_ring_cli(torch, backend)),
               ("vgg cli", lambda: smoke.run_vgg_cli(torch, backend)),
-              ("dp cli", lambda: run_dp_cli(smoke, backend)),
+              ("dp cli", lambda: run_lm_cli(smoke, backend, "dp")),
+              ("ring w4 cli", lambda: run_lm_cli(smoke, backend, "ring")),
+              ("ulysses cli", lambda: run_lm_cli(smoke, backend, "ulysses")),
+              ("fsdp cli", lambda: run_lm_cli(smoke, backend, "fsdp")),
               ("fleet", lambda: run_fleet(smoke, torch, card))]
     chosen = sys.argv[1:] or [name for name, _ in phases]
     unknown = set(chosen) - {name for name, _ in phases}
