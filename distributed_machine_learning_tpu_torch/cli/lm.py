@@ -34,7 +34,14 @@ Every rank draws the same global batch and takes its part:
   (one K7 launch with ``--fused-update``); dense attention only (``auto``
   resolves to dense, explicit ``flash`` is refused).  ``--overlap-update``
   gathers the next step's parameters behind the host's work between steps
-  (``parallel/overlap.py``), bit for bit the sync trajectory.
+  (``parallel/overlap.py``), bit for bit the sync trajectory;
+- ``--parallel fsdp_pl``: its rows, with every leaf and its moments split
+  1/W along the leaf's largest W-divisible dimension (per-layer ZeRO-3,
+  ``parallel/fsdp_perlayer.py``): each layer's leaves are gathered when the
+  layer runs and again in its backward, each leaf's gradient
+  reduce-scattered to the rank's block, the optimizer run per leaf (one K7
+  launch a leaf with ``--fused-update``); ``--attn`` is honoured (K1-K3
+  under flash).
 
 Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
@@ -60,18 +67,21 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
         --ckpt-dir ckpts --resume
 
 ``--ckpt-dir`` saves the state after training (``train/checkpoint.py``:
-rank 0 writes, every rank restores; not under fsdp, as in the reference);
+rank 0 writes, every rank restores; not under fsdp, as in the reference;
+under fsdp_pl every leaf is gathered whole first, so the files are a dp
+run's, and a resume slices each rank's blocks out of them);
 ``--resume`` first restores the newest valid checkpoint there (this run's
 optimizer hyperparameters win, so ``--lr`` may change), ``--resume auto``
 also restarts a failed run from it, up to ``--max-restarts`` times.  The
 synthetic stream starts from its seed in every process, as the
 reference's does.  ``--eval-batches`` evaluates after training: the
 held-out final 10 % of the corpus under ``--data-dir``, else synthetic
-batches of the next seed; under fsdp on the gathered parameters.
+batches of the next seed; under fsdp and fsdp_pl on the gathered
+parameters.
 
 Every flag of the reference that this port does not carry yet raises
 NotImplementedError naming its ROADMAP item (the other ``--parallel``
-schemes, telemetry).
+schemes tp, pp, 3d and ep, telemetry).
 """
 
 from __future__ import annotations
@@ -148,8 +158,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry-flush-every", dest="telemetry_flush_every",
                    default=20, type=int)
     p.add_argument("--parallel", default="dp", choices=PARALLEL,
-                   help="dp or fsdp (each rank its rows), ring or ulysses (each "
-                        "rank its sequence chunk) in this port so far")
+                   help="dp, fsdp or fsdp_pl (each rank its rows), ring or ulysses "
+                        "(each rank its sequence chunk) in this port so far")
     p.add_argument("--n-experts", dest="n_experts", default=8, type=int)
     p.add_argument("--capacity-factor", dest="capacity_factor", default=1.25,
                    type=float)
@@ -207,12 +217,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "--data-dir, else synthetic ones (0 skips)")
     p.add_argument("--fused-ce-chunks", dest="fused_ce_chunks", default=None,
                    type=int, help="the head fused with the loss over this many vocab "
-                                  "chunks (ops/fused_ce.py); dp/ring/ulysses/fsdp")
+                                  "chunks (ops/fused_ce.py); dp/ring/ulysses/fsdp/"
+                                  "fsdp_pl")
     p.add_argument("--attn", default="auto", choices=["auto", "dense", "flash"],
                    help="'auto': flash from the reference's length policy up "
                         "(ops/flash_attention.flash_wins), dense below; ring "
                         "upgrades to its flash kernels by the reference's rule, "
-                        "fsdp resolves 'auto' to dense, ulysses owns its attention")
+                        "fsdp resolves 'auto' to dense, fsdp_pl honours it, "
+                        "ulysses owns its attention")
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing (torch.utils.checkpoint)")
     p.add_argument("--remat-policy", dest="remat_policy", default="mlp",
@@ -224,11 +236,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.parallel == "fsdp_pl":
-        raise NotImplementedError(
-            "--parallel fsdp_pl is not ported yet: ROADMAP A5b 'fsdp_perlayer.py' "
-            "(with parallel/gspmd.py)")
-    if args.parallel not in ("dp", "ring", "ulysses", "fsdp"):
+    if args.parallel not in ("dp", "ring", "ulysses", "fsdp", "fsdp_pl"):
         raise NotImplementedError(
             f"--parallel {args.parallel} is not ported yet: ROADMAP A5c "
             "(model parallelism)")
@@ -251,7 +259,8 @@ def _check_layout(args) -> None:
     if args.overlap_update and args.parallel != "fsdp":
         raise ValueError("--overlap-update applies to --parallel fsdp (prefetch "
                          f"protocol) in this port; got --parallel {args.parallel}")
-    if args.fused_ce_chunks and args.parallel not in ("dp", "ring", "ulysses", "fsdp"):
+    if args.fused_ce_chunks and args.parallel not in ("dp", "ring", "ulysses", "fsdp",
+                                                      "fsdp_pl"):
         raise ValueError("--fused-ce-chunks applies to the dp/ring/ulysses/fsdp/"
                          "fsdp_pl steps only (tp shards the lm_head, pp computes the "
                          "loss on the last stage)")
@@ -259,7 +268,7 @@ def _check_layout(args) -> None:
             "dp", "ring", "ulysses"):
         raise ValueError("--guard-nonfinite/--loss-scale apply to the replicated "
                          f"dp/ring/ulysses steps only (got --parallel {args.parallel})")
-    if args.parallel in ("dp", "fsdp") and args.batch_size % n:
+    if args.parallel in ("dp", "fsdp", "fsdp_pl") and args.batch_size % n:
         raise ValueError(f"--batch-size {args.batch_size} must be divisible by "
                          f"the {n}-device data axis")
     if args.parallel in ("ring", "ulysses") and args.seq_len % n:
@@ -318,10 +327,11 @@ def synthetic_batches(args, seed: int = SEED, count: int | None = None):
 def build(args, ctx: DistributedContext | None = None):
     """``(step, state, place, model)`` of this rank: the model (f32
     parameters from SEED, the same on every rank), its TrainState (an
-    ``FSDPState`` of this rank's shards under fsdp), the train step and the
-    batch placement (the global host batch → this rank's shard on its
+    ``FSDPState`` of this rank's shards under fsdp; under fsdp_pl a TrainState
+    whose parameters and moments are this rank's blocks), the train step and
+    the batch placement (the global host batch → this rank's shard on its
     device).  ``step.params_fn(state)`` gives the full parameters by name
-    (under fsdp a gather: every rank must call it).  ``ctx``: the rank's
+    (under fsdp and fsdp_pl a gather: every rank must call it).  ``ctx``: the rank's
     process group (from :func:`initialize_from_flags`); without one, a
     one-process run."""
     _refuse_unported(args)
@@ -342,7 +352,17 @@ def build(args, ctx: DistributedContext | None = None):
     if args.lr is not None:
         cfg["learning_rate"] = args.lr
     state = init_lm_state(model, seed=SEED, config=AdamWConfig(**cfg))
-    if args.parallel == "fsdp":
+    if args.parallel == "fsdp_pl":
+        from distributed_machine_learning_tpu_torch.parallel.fsdp_perlayer import (
+            gather_fsdp_pl_params,
+            make_fsdp_pl_lm_train_step,
+            shard_fsdp_pl_state,
+        )
+
+        step = make_fsdp_pl_lm_train_step(model, comm, fused_ce_chunks=args.fused_ce_chunks)
+        state = shard_fsdp_pl_state(state, comm)
+        step.params_fn = lambda st: gather_fsdp_pl_params(st, comm)
+    elif args.parallel == "fsdp":
         from distributed_machine_learning_tpu_torch.parallel.fsdp import (
             gather_fsdp_params,
             make_fsdp_lm_train_step,
@@ -430,7 +450,14 @@ def resume(args, state):
                          f"this run uses --optimizer {args.optimizer}; the LM resume path "
                          "requires a matching optimizer")
     config = state.config
-    state = restore_checkpoint(latest, state, files_verified=True)
+    if args.parallel == "fsdp_pl":  # a dp-layout checkpoint: this rank's blocks of it
+        from distributed_machine_learning_tpu_torch.parallel.fsdp_perlayer import (
+            load_fsdp_pl_state,
+        )
+
+        state = load_fsdp_pl_state(state, restore_checkpoint(latest, files_verified=True))
+    else:
+        state = restore_checkpoint(latest, state, files_verified=True)
     state.config = config
     rank0_print(f"Resumed from {latest} (step {state.step})")
     return state
@@ -474,7 +501,14 @@ def run(args, ctx: DistributedContext):
                 save_checkpoint,
             )
 
-            path = save_checkpoint(args.ckpt_dir, s)
+            if args.parallel == "fsdp_pl":  # every leaf whole: a dp run's files
+                from distributed_machine_learning_tpu_torch.parallel.fsdp_perlayer import (
+                    gather_fsdp_pl_state,
+                )
+
+                path = save_checkpoint(args.ckpt_dir, gather_fsdp_pl_state(s, ctx.comm))
+            else:
+                path = save_checkpoint(args.ckpt_dir, s)
             rank0_print(f"Saved checkpoint to {path}")
         return s
 

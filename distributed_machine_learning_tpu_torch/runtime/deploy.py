@@ -9,7 +9,8 @@ router, ``runtime/serving_worker.py``'s replicas) with no dropped request:
    the verified chain (quarantined directories skipped, torn or
    digest-mismatched ones quarantined and counted).
 2. **Restore and requantize**: :func:`load_serving_weights` restores the
-   dp state onto the serving world (1), quantizes the parameters to int8
+   state (dp, or zero1/fsdp flat vectors unraveled through the model's
+   parameters) onto the serving world (1), quantizes the parameters to int8
    with the serving quantizer (``ops/quant.py``'s ``quantize_lm_params``,
    what ``quantize_lm`` loads), then re-verifies the f32 bytes the
    quantizer consumed against the manifest's leaf digests.
@@ -77,33 +78,58 @@ def tree_digest(tree: dict) -> str:
     return h.hexdigest()
 
 
-def load_serving_weights(path, *, events=None) -> dict:
+def load_serving_weights(path, template_params: dict | None = None, *, events=None) -> dict:
     """Checkpoint → serving weights, through the whole verified chain.
 
     Restores the state at ``path`` onto world 1 (``reshard_restore``: file
-    and leaf digests verified there, quarantine on a mismatch; a zero1/fsdp
-    checkpoint raises, ROADMAP A5b), quantizes its parameters to int8
-    (``quantize_lm_params``), then the post-requantize check: the sha256 of
-    each f32 parameter the quantizer consumed, taken after it ran, against
-    the manifest's ``params/<name>`` leaf digest.  A mismatch quarantines
-    the checkpoint and raises :class:`CheckpointVerifyError`.
+    and leaf digests verified there, quarantine on a mismatch).  A dp
+    checkpoint carries its parameters by name; a zero1/fsdp one (flat padded
+    vectors) is cut to its logical prefix and unraveled through
+    ``template_params`` (the model's parameters by name: their order and
+    shapes are the port's flat order, which the flat layouts do not
+    record).  The parameters are quantized to int8 (``quantize_lm_params``),
+    then the post-requantize check: the sha256 of the f32 bytes the
+    quantizer consumed, taken after it ran, against the manifest's leaf
+    digests (dp: each ``params/<name>``; flat: the parameters raveled again
+    in the port's order against the flat leaf's logical digest).  A mismatch
+    quarantines the checkpoint and raises :class:`CheckpointVerifyError`.
 
     Returns ``{"params", "quantized", "meta", "spec"}``: the float
     state_dict (CPU), its int8 twin's, the ``set_weights`` payload
     ``{"step", "path", "digest", "layout"}`` (``digest``: of the quantized
     weights) and the ShardSpec."""
+    import torch
+
     from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm_params
 
     path = os.path.abspath(os.fspath(path))
     leaves = (checkpoint_manifest(path) or {}).get("leaves", {})
     state, spec = reshard_restore(path, world=1, events=events)
-    params = state.params
-    with ThreadPoolExecutor(8) as pool:
-        expected = ({k: leaves.get(f"params/{k}", {}).get("sha256") for k in params}
-                    if leaves else dict(zip(params, pool.map(_sha256, params.values()))))
+    if spec.layout == "dp":
+        params = state.params
+        with ThreadPoolExecutor(8) as pool:
+            expected = ({k: leaves.get(f"params/{k}", {}).get("sha256") for k in params}
+                        if leaves else dict(zip(params, pool.map(_sha256, params.values()))))
+            quantized = quantize_lm_params(params)
+            got = dict(zip(params, pool.map(_sha256, params.values())))
+    else:
+        if template_params is None:
+            raise ValueError(f"restoring a {spec.layout} checkpoint for serving needs "
+                             "template_params (the flat layouts don't record the unravel)")
+        flat_key = "param_shards" if spec.layout == "fsdp" else "param_flat"
+        vec = state.param_shard if spec.layout == "fsdp" else state.param_flat
+        logical = vec[:spec.n_elems]
+        params, off = {}, 0
+        for name, t in template_params.items():
+            params[name] = logical[off:off + t.numel()].view(t.shape)
+            off += t.numel()
+        if off != spec.n_elems:
+            raise ValueError(f"template_params hold {off} elements, the checkpoint's flat "
+                             f"vectors {spec.n_elems}")
+        expected = {flat_key: leaves.get(flat_key, {}).get("sha256") or _sha256(logical)}
         quantized = quantize_lm_params(params)
-        got = dict(zip(params, pool.map(_sha256, params.values())))
-    bad = sorted(k for k in params if got[k] != expected[k])
+        got = {flat_key: _sha256(torch.cat([t.reshape(-1) for t in params.values()]))}
+    bad = sorted(k for k in got if got[k] != expected[k])
     if bad:
         quarantine_checkpoint(path, f"post-requantize digest mismatch ({bad[0]}: "
                                     f"{got[bad[0]][:12]}…)")

@@ -115,6 +115,9 @@ class Comm:
         self.rank, self.world, self.backend = rank, world, backend
         self.device = device or torch.device("cpu")
         self.host = backend == "gloo" and self.device.type == "cuda"
+        # Set by the flat-shard overlap step from a gather's dispatch on its
+        # background thread to its join: no other collective may run then.
+        self.gather_in_flight = False
 
     @property
     def wire(self) -> str:

@@ -36,8 +36,19 @@ and hashed by a pool of threads (hashlib, zlib and file I/O release the
 interpreter lock on large buffers).
 
 Only rank 0 of a ``torch.distributed`` group writes (the dp state is
-replicated); the other ranks wait at a barrier.  Flat-shard states
-(zero1/fsdp) are not ported yet: ROADMAP A5b.
+replicated); the other ranks wait at a barrier.  The flat-shard states
+(``parallel/zero1.py``'s ``Zero1State``, ``parallel/fsdp.py``'s
+``FSDPState``) are saved under a ``ShardSpec`` as the reference saves them:
+the global padded flat vectors (``param_flat`` or ``param_shards``,
+``momentum_shards[/mu|/nu]``), each gathered whole over the caller's
+``comm`` in turn (each port rank holds only its block, where a JAX array
+is global) and moved to the host by rank 0 before the next, with
+``batch_stats/<name>`` and ``step``.  Their leaf digests cover the logical
+prefix (``logical_elems``: the first ``n_elems`` values, the part a reshard
+keeps), the file digests the bytes as written.  ``reshard_restore`` lays
+them out for another world.  The port's flat order is its own
+(``named_parameters()``, each tensor row-major), so its digests are its
+own.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from distributed_machine_learning_tpu_torch.runtime.mesh import ShardSpec
+from distributed_machine_learning_tpu_torch.runtime.mesh import ShardSpec, padded_len, repad_flat
 
 _CONFIG_FILE = "sgd_config.json"
 _STATE_DIR = "state"
@@ -66,7 +77,9 @@ _INDEX_FILE = "index.json"
 _INDEX_FORMAT = "distributed_machine_learning_tpu_torch/tensors-v1"
 _LEAF_SUFFIX = ".bin"
 _IO_THREADS = min(8, os.cpu_count() or 1)
-_FLAT_LAYOUTS_ITEM = "ROADMAP A5b (parallel/zero1.py, parallel/fsdp.py)"
+# Leaf names (prefixes) of the flat world-padded vectors of the zero1/fsdp
+# layouts: their manifest digests cover the logical prefix.
+_FLAT_LEAF_PREFIXES = ("param_flat", "param_shards", "momentum_shards")
 
 # Absolute paths of checkpoints this process has hashed clean during GC:
 # complete checkpoints are immutable, so GC (on the training thread after
@@ -164,38 +177,102 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _check_layout(state) -> None:
-    if hasattr(state, "param_flat") or hasattr(state, "param_shards"):
-        raise NotImplementedError(
-            f"checkpointing a flat-shard (zero1/fsdp) state: {_FLAT_LAYOUTS_ITEM}")
-
-
-def _state_leaves(state) -> dict:
-    """The state's tensors by leaf name (the config is metadata)."""
-    _check_layout(state)
-    leaves = {f"params/{k}": p.detach() for k, p in state.params.items()}
-    _flatten(state.momentum, "momentum", leaves)
-    leaves.update({f"batch_stats/{k}": b.detach() for k, b in state.batch_stats.items()})
-    leaves["step"] = torch.tensor(int(state.step), dtype=torch.int32)
-    return leaves
-
-
 def state_layout(state) -> str:
-    """The ``SHARD_LAYOUTS`` name of a state: ``dp`` (the one ported)."""
-    _check_layout(state)
+    """The ``SHARD_LAYOUTS`` name of a state: ``fsdp`` (an ``FSDPState``),
+    ``zero1`` (a ``Zero1State``) or ``dp``."""
+    if hasattr(state, "param_shard"):
+        return "fsdp"
+    if hasattr(state, "param_flat"):
+        return "zero1"
     return "dp"
 
 
-def _check_shard_spec(state, shard_spec: ShardSpec | None) -> None:
+def _flat_lens(state, comm) -> list[int]:
+    """The global padded length each of a flat state's vectors stands for:
+    the replicated vector's own (zero1), ``comm``'s W blocks of the rank's
+    for the sharded ones (without a comm the state holds whole vectors)."""
+    world = comm.world if comm is not None else 1
+    mom = state.momentum_shards
+    lens = [t.numel() * world for t in (mom.values() if isinstance(mom, dict) else [mom])]
+    if state_layout(state) == "fsdp":
+        return [state.param_shard.numel() * world, *lens]
+    if state.param_flat is None:
+        raise ValueError("the overlap step's gather of this Zero1State is in flight: "
+                         "call step.join(state) before saving it")
+    return [state.param_flat.numel(), *lens]
+
+
+def _leaf_items(state, comm=None):
+    """The state's tensors as (leaf name, tensor), one at a time (the config
+    is metadata).  A flat state's sharded vectors are gathered whole over
+    ``comm``, each when it is reached (every rank of ``comm`` must walk them
+    all); without a comm the state holds the whole vectors."""
     layout = state_layout(state)
+    if layout == "dp":
+        leaves = {f"params/{k}": p.detach() for k, p in state.params.items()}
+        _flatten(state.momentum, "momentum", leaves)
+        yield from leaves.items()
+    else:
+        def whole(t):
+            return comm.all_gather_flat(t) if comm is not None else t.detach()
+
+        yield (("param_shards", whole(state.param_shard)) if layout == "fsdp"
+               else ("param_flat", state.param_flat.detach()))
+        mom = state.momentum_shards
+        moms = ({f"momentum_shards/{k}": v for k, v in mom.items()} if isinstance(mom, dict)
+                else {"momentum_shards": mom})
+        for name, t in moms.items():
+            yield name, whole(t)
+    for k, b in state.batch_stats.items():
+        yield f"batch_stats/{k}", b.detach()
+    yield "step", torch.tensor(int(state.step), dtype=torch.int32)
+
+
+def _state_leaves(state, comm=None) -> dict:
+    """The state's tensors by leaf name (:func:`_leaf_items`)."""
+    return dict(_leaf_items(state, comm))
+
+
+def _check_shard_spec(state, shard_spec: ShardSpec | None, comm=None) -> None:
+    """A flat-shard state saved without (or with a mismatched) spec could
+    not be resharded or verified, and one whose overlap gather is in flight
+    over ``comm`` cannot be gathered: refused at the save, the spec errors
+    in the reference's words."""
+    layout = state_layout(state)
+    if layout != "dp" and comm is not None and comm.gather_in_flight:
+        raise ValueError(f"the overlap step's gather of this {layout} state is in flight: "
+                         "call step.join(state) before saving it")
     if shard_spec is None:
+        if layout != "dp":
+            raise ValueError(f"saving a {layout} state requires a shard_spec (world size + "
+                             "unpadded flat length); without it the padded vectors cannot "
+                             "be resharded or verified")
         return
     if shard_spec.layout != layout:
-        if shard_spec.layout in ("zero1", "fsdp"):
-            raise NotImplementedError(
-                f"a {shard_spec.layout} shard_spec: {_FLAT_LAYOUTS_ITEM}")
         raise ValueError(f"shard_spec.layout={shard_spec.layout!r} does not match "
                          f"the state's layout {layout!r}")
+    if layout == "dp":
+        return
+    expect = padded_len(shard_spec.n_elems, shard_spec.world)
+    got = next((n for n in _flat_lens(state, comm) if n != expect), expect)
+    if got != expect:
+        raise ValueError(f"shard_spec {shard_spec} expects a flat vector of {expect} "
+                         f"elements (padded_len({shard_spec.n_elems}, {shard_spec.world})), "
+                         f"but the state's is ({got},) — wrong world or n_elems would "
+                         "silently drop parameter data on reshard")
+
+
+def _logical_elems(name: str, shape, spec: ShardSpec | None) -> int | None:
+    """The unpadded length of a flat padded leaf under ``spec``, or None for
+    a leaf without world-dependent padding (every dp leaf, the flat
+    layouts' statistics and step)."""
+    if spec is None or spec.layout == "dp" or spec.n_elems is None or len(shape) != 1:
+        return None
+    if not any(name == p or name.startswith(p + "/") for p in _FLAT_LEAF_PREFIXES):
+        return None
+    if shape[0] != padded_len(spec.n_elems, spec.world):
+        return None
+    return spec.n_elems
 
 
 def _host_leaf(t, copy: bool) -> tuple[str, tuple, np.ndarray]:
@@ -217,9 +294,34 @@ def _host_leaf(t, copy: bool) -> tuple[str, tuple, np.ndarray]:
     return dtype, tuple(t.shape), t.numpy()
 
 
-def _snapshot(leaves: dict, copy: bool) -> dict:
+class _Host(dict):
+    """A host snapshot, name → (dtype, shape, array), with the ShardSpec it
+    is saved under (its flat leaves' digests cover the logical prefix)."""
+
+    spec: ShardSpec | None = None
+
+
+def _snapshot(leaves: dict, copy: bool, spec: ShardSpec | None = None) -> _Host:
     """Every leaf on the host: name → (dtype, shape, array)."""
-    return {name: _host_leaf(t, copy) for name, t in leaves.items()}
+    host = _Host((name, _host_leaf(t, copy)) for name, t in leaves.items())
+    host.spec = spec
+    return host
+
+
+def _save_snapshot(state, comm, copy: bool, spec: ShardSpec | None) -> _Host | None:
+    """The writer's host snapshot of ``state``, None on the other ranks.  A
+    flat state's vectors are gathered whole one at a time, every rank taking
+    part: the writer moves each to the host before the next gather, the
+    others drop it at once."""
+    writer = _is_writer()
+    if not writer and state_layout(state) == "dp":
+        return None
+    host = _Host()
+    for name, t in _leaf_items(state, comm):
+        if writer:
+            host[name] = _host_leaf(t, copy)
+    host.spec = spec
+    return host if writer else None
 
 
 def _digest(raw) -> tuple[str, int, int]:
@@ -228,17 +330,46 @@ def _digest(raw) -> tuple[str, int, int]:
     return hashlib.sha256(mv).hexdigest(), zlib.crc32(mv) & 0xFFFFFFFF, mv.nbytes
 
 
-def _leaf_entry(dtype: str, shape, sha: str, crc: int, nbytes: int) -> dict:
-    return {"sha256": sha, "crc32": crc, "bytes": nbytes, "dtype": dtype,
-            "shape": list(shape)}
+def _digests(raw, logical_bytes: int | None) -> tuple[tuple, tuple]:
+    """One pass over a buffer: ((sha256, crc32, bytes) of the leaf — its
+    first ``logical_bytes`` when given, else all of it —, (sha256, bytes) of
+    the whole buffer, the file)."""
+    mv = memoryview(raw).cast("B")
+    if logical_bytes is None:
+        leaf = _digest(mv)
+        return leaf, (leaf[0], leaf[2])
+    head = mv[:logical_bytes]
+    h = hashlib.sha256(head)
+    leaf = (h.hexdigest(), zlib.crc32(head) & 0xFFFFFFFF, head.nbytes)
+    h.update(mv[logical_bytes:])
+    return leaf, (h.hexdigest(), mv.nbytes)
 
 
-def _leaf_entries(host: dict) -> dict:
+def _leaf_entry(dtype: str, shape, sha: str, crc: int, nbytes: int,
+                logical: int | None = None) -> dict:
+    entry = {"sha256": sha, "crc32": crc, "bytes": nbytes, "dtype": dtype,
+             "shape": list(shape)}
+    if logical is not None:
+        entry["logical_elems"] = logical
+    return entry
+
+
+def _logical_bytes(arr: np.ndarray, logical: int | None) -> int | None:
+    return None if logical is None else logical * arr.itemsize
+
+
+def _leaf_entries(host: _Host) -> dict:
     """Per-leaf digests of a host snapshot (the manifest's ``leaves``)."""
+    logical = {name: _logical_elems(name, shape, host.spec)
+               for name, (_, shape, _) in host.items()}
+
+    def one(item):
+        name, (dtype, shape, arr) = item
+        leaf, _ = _digests(arr, _logical_bytes(arr, logical[name]))
+        return _leaf_entry(dtype, shape, *leaf, logical[name])
+
     with ThreadPoolExecutor(_IO_THREADS) as pool:
-        digests = pool.map(_digest, [a for _, _, a in host.values()])
-        return {name: _leaf_entry(dtype, shape, *d)
-                for (name, (dtype, shape, _)), d in zip(host.items(), digests)}
+        return dict(zip(host, pool.map(one, list(host.items()))))
 
 
 def _leaf_file(name: str) -> str:
@@ -295,7 +426,7 @@ def write_checkpoint_manifest(path: str | os.PathLike, tree=None,
         digests = list(pool.map(lambda r: _file_digest(os.path.join(path, r)), rels))
     files = {rel: {"sha256": sha, "bytes": n} for rel, (sha, n) in zip(rels, digests)}
     if leaf_entries is None:
-        leaf_entries = (_leaf_entries(_snapshot(_state_leaves(tree), copy=False))
+        leaf_entries = (_leaf_entries(_snapshot(_state_leaves(tree), False, shard_spec))
                         if tree is not None else {})
     return _dump_manifest(path, files, leaf_entries, shard_spec)
 
@@ -416,10 +547,11 @@ def _config_payload(config, layout=None, cursor=None, shard_spec=None,
     return payload
 
 
-def _write_state_dir(path: str, host: dict) -> tuple[dict, dict]:
+def _write_state_dir(path: str, host: _Host) -> tuple[dict, dict]:
     """Write ``host`` (a snapshot) as ``path/state``: every leaf file and
     the index into ``state.tmp``, then one rename.  Returns the manifest's
-    ``files`` and ``leaves``, hashed from the bytes as written."""
+    ``files`` and ``leaves``, hashed from the bytes as written (a flat
+    leaf's digest over its logical prefix under the snapshot's spec)."""
     tmp = os.path.join(path, _STATE_TMP)
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -430,7 +562,8 @@ def _write_state_dir(path: str, host: dict) -> tuple[dict, dict]:
         os.makedirs(os.path.dirname(fp), exist_ok=True)
         with open(fp, "wb") as f:
             f.write(memoryview(arr).cast("B"))
-        return _digest(arr)
+        logical = _logical_elems(name, shape, host.spec)
+        return logical, _digests(arr, _logical_bytes(arr, logical))
 
     with ThreadPoolExecutor(_IO_THREADS) as pool:
         digests = list(pool.map(write, list(host.items())))
@@ -441,9 +574,9 @@ def _write_state_dir(path: str, host: dict) -> tuple[dict, dict]:
     with open(os.path.join(tmp, _INDEX_FILE), "w") as f:
         json.dump(index, f, indent=1)
     files, leaves = {}, {}
-    for (name, (dtype, shape, _)), (sha, crc, n) in zip(host.items(), digests):
+    for (name, (dtype, shape, _)), (logical, (leaf, (sha, n))) in zip(host.items(), digests):
         files[os.path.join(_STATE_DIR, _leaf_file(name))] = {"sha256": sha, "bytes": n}
-        leaves[name] = _leaf_entry(dtype, shape, sha, crc, n)
+        leaves[name] = _leaf_entry(dtype, shape, *leaf, logical)
     sha, n = _file_digest(os.path.join(tmp, _INDEX_FILE))
     files[os.path.join(_STATE_DIR, _INDEX_FILE)] = {"sha256": sha, "bytes": n}
     # A re-save of this step: the old config goes first, so the directory
@@ -480,7 +613,7 @@ def save_checkpoint(directory: str | os.PathLike, state, layout: str | None = No
                     cursor: int | None = None, mid_save_hook=None,
                     keep_last_n: int | None = None, post_save_hook=None,
                     shard_spec: ShardSpec | None = None,
-                    extra_payload: dict | None = None) -> str:
+                    extra_payload: dict | None = None, comm=None) -> str:
     """Write ``state`` (a ``TrainState`` or a :class:`HostState`) under
     ``directory/step_<n>/``; returns the path.
 
@@ -492,21 +625,25 @@ def save_checkpoint(directory: str | os.PathLike, state, layout: str | None = No
     garbage-collect older checkpoints after this save (``gc_checkpoints``).
     ``post_save_hook(path)``: called once the checkpoint is committed.
     ``shard_spec``: the layout and world recorded in the manifest and the
-    config (dp only in the port).  ``extra_payload``: caller metadata under
-    ``__extra__`` (``checkpoint_extra``).
+    config; a ``Zero1State`` or ``FSDPState`` requires one that describes
+    its padded vectors.  ``extra_payload``: caller metadata under
+    ``__extra__`` (``checkpoint_extra``).  ``comm``: the ``Comm`` a
+    ``FSDPState``'s or ``Zero1State``'s shards are spread over (None: this
+    process holds the whole vectors).
 
     A re-save of the same step overwrites it.  Rank 0 writes; with a
-    process group the other ranks wait at a barrier."""
+    process group the other ranks wait at a barrier (after taking part in
+    a flat state's gathers over ``comm``: every rank must call it)."""
     directory = os.path.abspath(os.fspath(directory))
-    _check_shard_spec(state, shard_spec)
+    _check_shard_spec(state, shard_spec, comm)
     step = int(state.step)
     path = os.path.join(directory, f"step_{step}")
     _GC_VALIDATED.discard(path)
     t0 = time.perf_counter()
     nbytes = 0
-    if _is_writer():
+    host = _save_snapshot(state, comm, False, shard_spec)
+    if host is not None:  # the writer
         os.makedirs(path, exist_ok=True)
-        host = _snapshot(_state_leaves(state), copy=False)
         nbytes = _host_bytes(host)
         files, leaves = _write_state_dir(path, host)
         del host
@@ -597,10 +734,10 @@ class AsyncCheckpointWriter:
         self.wait()
         _GC_VALIDATED.discard(path)
         self._issued = True
-        if not _is_writer():
-            return path
         t0 = time.perf_counter()
-        host = _snapshot(_state_leaves(state), copy=True)
+        host = _save_snapshot(state, None, True, shard_spec)  # a flat state's whole vectors
+        if host is None:
+            return path
         payload = _config_payload(state.config, cursor=cursor, shard_spec=shard_spec)
         tel = _telemetry()
 
@@ -848,7 +985,11 @@ def _load_leaves(path: str, manifest: dict | None, verify_files: bool,
         buf = np.empty(size, dtype=np.uint8)
         with open(fp, "rb") as f:
             got = f.readinto(memoryview(buf))
-        sha, crc, n = _digest(buf[:got])
+        itemsize = np.dtype(_NP_DTYPES[entry["dtype"]]).itemsize
+        want_leaf = leaf_manifest.get(name, {})
+        logical = want_leaf.get("logical_elems")  # a flat leaf: its digest is the prefix's
+        (leaf_sha, crc, leaf_n), (sha, n) = _digests(
+            buf[:got], None if logical is None else int(logical) * itemsize)
         file_problem = leaf_problem = None
         want = files.get(rel)
         if verify_files and want is not None:
@@ -856,15 +997,13 @@ def _load_leaves(path: str, manifest: dict | None, verify_files: bool,
                 file_problem = f"size mismatch {rel}: {n} != {want['bytes']}"
             elif sha != want["sha256"]:
                 file_problem = f"digest mismatch {rel}"
-        expect = np.dtype(_NP_DTYPES[entry["dtype"]]).itemsize * int(
-            np.prod(entry["shape"], dtype=np.int64))
-        want_leaf = leaf_manifest.get(name, {})
+        expect = itemsize * int(np.prod(entry["shape"], dtype=np.int64))
         if n != expect:
             leaf_problem = f"leaf {name}: {n} bytes on disk != {expect} for its shape"
         elif "sha256" in want_leaf:
-            if n != want_leaf["bytes"]:
-                leaf_problem = f"leaf {name}: {n} bytes != {want_leaf['bytes']}"
-            elif crc != want_leaf["crc32"] or sha != want_leaf["sha256"]:
+            if leaf_n != want_leaf["bytes"]:
+                leaf_problem = f"leaf {name}: {leaf_n} bytes != {want_leaf['bytes']}"
+            elif crc != want_leaf["crc32"] or leaf_sha != want_leaf["sha256"]:
                 leaf_problem = f"leaf {name}: content digest mismatch"
         return name, buf, file_problem, leaf_problem
 
@@ -922,11 +1061,19 @@ def restore_checkpoint(path: str | os.PathLike, template_state=None, *,
     against its leaf digests, before anything reaches the state.  A
     mismatch quarantines the checkpoint and raises
     :class:`CheckpointVerifyError`, as does a checkpoint of the JAX
-    package (orbax files the port does not read)."""
+    package (orbax files the port does not read).  A zero1/fsdp checkpoint
+    restores as :func:`reshard_restore` at its saved world does (no
+    template)."""
     path = os.path.abspath(os.fspath(path))
     reason = quarantine_reason(path)
     if reason is not None:
         raise CheckpointVerifyError(f"checkpoint {path} is quarantined ({reason})")
+    spec = checkpoint_shard_spec(path)
+    if spec is not None and spec.layout != "dp":
+        if template_state is not None:
+            raise ValueError(f"a {spec.layout} checkpoint holds flat padded vectors, not a "
+                             "TrainState's leaves: restore it with reshard_restore")
+        return reshard_restore(path, files_verified=files_verified, events=events)[0]
     manifest = checkpoint_manifest(path)
     t0 = time.perf_counter()
     flat = _load_leaves(path, manifest, verify_files=not files_verified, events=events)
@@ -950,32 +1097,86 @@ def restore_checkpoint(path: str | os.PathLike, template_state=None, *,
     return state
 
 
-def reshard_restore(path: str | os.PathLike, *, world: int | None = None, events=None,
-                    files_verified: bool = False):
-    """Restore the checkpoint at ``path`` onto a (possibly different) world
-    size; returns ``(state, spec)`` with ``spec`` aimed at the target world.
+def _flat_state(path: str, saved: ShardSpec, target: int, rank: int | None,
+                files_verified: bool, events):
+    """A zero1/fsdp checkpoint as a ``Zero1State``/``FSDPState`` laid out for
+    ``target`` ranks: the logical digests verified, each flat vector cut to
+    ``n_elems`` and padded anew (``repad_flat``), then this ``rank``'s block
+    of the sharded ones (all of them when ``rank`` is None)."""
+    flat = _load_leaves(path, checkpoint_manifest(path), verify_files=not files_verified,
+                        events=events)
+    n = saved.n_elems
 
-    A dp or spec-less checkpoint carries no world-dependent padding: this
-    is the plain :func:`restore_checkpoint` at any target, counting one
-    ``reshard_restores`` when a recorded world differs from the target.
-    A zero1/fsdp checkpoint (flat padded vectors) raises
-    ``NotImplementedError``: ROADMAP A5b."""
+    def repad(t):
+        return torch.from_numpy(repad_flat(t.numpy(), n, target))
+
+    def mine(t):
+        if rank is None:
+            return t
+        size = t.numel() // target
+        return t[rank * size:(rank + 1) * size].clone()
+
+    moments = {k.split("/", 1)[1]: mine(repad(v)) for k, v in flat.items()
+               if k.startswith("momentum_shards/")}
+    momentum = moments or mine(repad(flat["momentum_shards"]))
+    stats = {k.split("/", 1)[1]: v for k, v in flat.items() if k.startswith("batch_stats/")}
+    step, config = int(flat["step"]), checkpoint_config(path)
+    if saved.layout == "fsdp":
+        from distributed_machine_learning_tpu_torch.parallel.fsdp import FSDPState
+
+        return FSDPState(param_shard=mine(repad(flat["param_shards"])), momentum_shards=momentum,
+                         step=step, config=config, batch_stats=stats)
+    from distributed_machine_learning_tpu_torch.parallel.zero1 import Zero1State
+
+    return Zero1State(param_flat=repad(flat["param_flat"]), momentum_shards=momentum,
+                      step=step, config=config, batch_stats=stats)
+
+
+def reshard_restore(path: str | os.PathLike, *, world: int | None = None,
+                    rank: int | None = None, events=None, files_verified: bool = False):
+    """Restore the checkpoint at ``path`` onto a (possibly different) world
+    size; returns ``(state, spec)`` with ``spec`` aimed at the target world
+    (``world``, else the saved one).
+
+    - ``dp`` (or spec-less): no world-dependent padding, the plain
+      :func:`restore_checkpoint` at any target (a ``HostState``).
+    - ``zero1``/``fsdp``: the flat padded vectors are read at their saved
+      length and verified against the manifest's logical digests, then cut
+      to ``n_elems`` and padded for the target world, content kept bit for
+      bit (ragged worlds included); the result is a ``Zero1State`` or
+      ``FSDPState`` of CPU tensors (layouts are not converted).  Its sharded
+      vectors are ``rank``'s blocks of the target world, or without a
+      ``rank`` the whole vectors (a state that one process can save again).
+
+    A restore whose target differs from a recorded world counts one
+    ``reshard_restores``."""
     path = os.path.abspath(os.fspath(path))
     reason = quarantine_reason(path)
     if reason is not None:
         raise CheckpointVerifyError(f"checkpoint {path} is quarantined ({reason})")
     spec = checkpoint_shard_spec(path)
     saved = spec if spec is not None else ShardSpec("dp", world=1)
-    if saved.layout != "dp":
-        raise NotImplementedError(
-            f"restoring a {saved.layout} checkpoint (flat padded shards): "
-            f"{_FLAT_LAYOUTS_ITEM}")
     target = saved.world if world is None else int(world)
-    state = restore_checkpoint(path, files_verified=files_verified, events=events)
+    if rank is not None and not 0 <= rank < target:
+        raise ValueError(f"rank {rank} out of range for world {target}")
+    if saved.layout == "dp":
+        state = restore_checkpoint(path, files_verified=files_verified, events=events)
+    else:
+        t0 = time.perf_counter()
+        state = _flat_state(path, saved, target, rank, files_verified, events)
+        tel = _telemetry()
+        if tel is not None:
+            nbytes = sum(e["bytes"] for e in (checkpoint_manifest(path) or {})
+                         .get("files", {}).values())
+            _record_ckpt_io(tel, "restore", t0, time.perf_counter(), state.step, nbytes)
     if spec is not None and target != saved.world:
         _bump("reshard_restores", events)
         tel = _telemetry()
         if tel is not None:
             tel.tracer.instant("reshard_restore", layout=saved.layout,
                                from_world=saved.world, to_world=target)
+        from distributed_machine_learning_tpu_torch.utils.logging import rank0_print
+
+        rank0_print(f"[checkpoint] resharded {path} ({saved.layout}) from world "
+                    f"{saved.world} onto world {target}")
     return state, saved.with_world(target)

@@ -67,3 +67,21 @@ def init_for_config(config):
 def update_fn_for_config(config):
     """Update fn for a config instance."""
     return _entry_for_config(config)[2]
+
+
+def moment_layout(param_specs: dict, params: dict, momentum):
+    """Project a per-parameter entry (a shard spec, by name) onto the
+    momentum slot: the slot is either params-shaped (SGD: ``{name:
+    tensor}``) or a dict of params-shaped moment dicts (AdamW's ``{"mu",
+    "nu"}``); each moment inherits its parameter's entry.  One definition
+    for every sharded layout (``parallel/gspmd.py``)."""
+    if momentum is None:
+        return param_specs
+    names = set(params)
+    if set(momentum) == names and not any(isinstance(v, dict) for v in momentum.values()):
+        return param_specs
+    if isinstance(momentum, dict) and all(
+            isinstance(v, dict) and set(v) == names for v in momentum.values()):
+        return {k: param_specs for k in momentum}
+    raise ValueError("momentum layout matches neither the param tree nor a dict of "
+                     "param-shaped moment trees; cannot derive its specs")

@@ -345,17 +345,134 @@ def test_telemetry_records_save_and_restore(tmp_path):
     assert all(e["args"]["bytes"] == nbytes and e["args"]["step"] == 0 for e in spans)
 
 
-def test_flat_layouts_name_a5b(tmp_path):
-    state = _vgg_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        ck.save_checkpoint(tmp_path, state, shard_spec=ShardSpec("zero1", 2, n_elems=10))
-    path = ck.save_checkpoint(tmp_path, state)
-    cfg = os.path.join(path, "sgd_config.json")
-    payload = json.load(open(cfg))
-    payload["__shard_spec__"] = {"layout": "fsdp", "world": 2, "n_elems": 10}
-    json.dump(payload, open(cfg, "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        ck.reshard_restore(path, world=1)
+# -- the flat layouts (zero1/fsdp), after tests/test_elastic.py:188-353 ----------------
+def _flat_state(layout: str, model: str):
+    """A world-1 Zero1State/FSDPState of the VGG (SGD) or LM (AdamW) state
+    and its unpadded length."""
+    from distributed_machine_learning_tpu_torch.parallel.fsdp import shard_fsdp_state
+    from distributed_machine_learning_tpu_torch.parallel.zero1 import shard_zero1_state
+    from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
+
+    state = _vgg_state() if model == "vgg" else _lm_state()
+    shard = shard_zero1_state if layout == "zero1" else shard_fsdp_state
+    flat_state, _, n = shard(state, Comm())
+    return flat_state, n
+
+
+def _logical(state, n: int):
+    """(parameter prefix, momentum prefixes) of a whole-vector flat state."""
+    vec = state.param_shard if hasattr(state, "param_shard") else state.param_flat
+    mom = state.momentum_shards
+    moms = [mom[k] for k in sorted(mom)] if isinstance(mom, dict) else [mom]
+    return vec[:n].clone(), [m[:n].clone() for m in moms]
+
+
+def _assert_logical_equal(a, b):
+    assert torch.equal(a[0], b[0])
+    assert len(a[1]) == len(b[1]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+@pytest.mark.parametrize("model", ["vgg", "lm"])
+@pytest.mark.parametrize("layout", ["zero1", "fsdp"])
+def test_flat_reshard_roundtrip_bit_identical(tmp_path, layout, model):
+    """save@1 → restore@8 → save@8 → restore@4 → save@4 → restore@8: the
+    logical state bit for bit, the flat leaves' logical digests equal in all
+    three checkpoints, the JAX package's file-level verdict valid."""
+    from distributed_machine_learning_tpu.train.checkpoint import (
+        validate_checkpoint as jax_validate,
+    )
+
+    s1, n = _flat_state(layout, model)
+    assert ck.state_layout(s1) == layout
+    p1 = ck.save_checkpoint(tmp_path / "w1", s1, shard_spec=ShardSpec(layout, 1, n_elems=n))
+    s8, spec8 = ck.reshard_restore(p1, world=8)
+    assert spec8 == ShardSpec(layout, 8, n_elems=n) and type(s8) is type(s1)
+    p8 = ck.save_checkpoint(tmp_path / "w8", s8, shard_spec=spec8)
+    s4, spec4 = ck.reshard_restore(p8, world=4)
+    p4 = ck.save_checkpoint(tmp_path / "w4", s4, shard_spec=spec4)
+    back, spec_back = ck.reshard_restore(p4, world=8)
+    assert spec_back == spec8 and back.step == s1.step
+    _assert_logical_equal(_logical(back, n), _logical(s1, n))
+    flat_key = "param_shards" if layout == "fsdp" else "param_flat"
+    manifests = [ck.checkpoint_manifest(p)["leaves"] for p in (p1, p8, p4)]
+    assert manifests[0][flat_key]["logical_elems"] == n
+    for key in manifests[0]:
+        assert len({m[key]["sha256"] for m in manifests}) == 1, key
+    assert {k: tuple(v.shape) for k, v in back.batch_stats.items()} == \
+        {k: tuple(v.shape) for k, v in s1.batch_stats.items()}
+    for p in (p1, p8, p4):
+        assert ck.validate_checkpoint(p) == [] and jax_validate(p) == []
+
+
+@pytest.mark.parametrize("small,big", [(3, 5), (4, 7)])
+@pytest.mark.parametrize("layout", ["zero1", "fsdp"])
+def test_flat_reshard_ragged_worlds_and_corruption(tmp_path, layout, small, big):
+    """The grow direction between ragged worlds (neither divides the
+    element count), logical bit identity, and a byte flip in the small
+    world's save caught (and quarantined) when restoring at the big one."""
+    from distributed_machine_learning_tpu_torch.runtime.faults import FaultEvents
+
+    s1, n = _flat_state(layout, "lm")
+    p1 = ck.save_checkpoint(tmp_path / "w1", s1, shard_spec=ShardSpec(layout, 1, n_elems=n))
+    ev = FaultEvents()
+    s_small, spec_small = ck.reshard_restore(p1, world=small, events=ev)
+    assert (s_small.param_shard if layout == "fsdp" else s_small.param_flat).numel() == \
+        -(-n // small) * small
+    p_small = ck.save_checkpoint(tmp_path / "small", s_small, shard_spec=spec_small)
+    grown, spec_big = ck.reshard_restore(p_small, world=big, events=ev)
+    assert spec_big == ShardSpec(layout, big, n_elems=n) and ev.reshard_restores == 2
+    _assert_logical_equal(_logical(grown, n), _logical(s1, n))
+    _flip_byte(p_small)
+    with pytest.raises(ck.CheckpointVerifyError):
+        ck.reshard_restore(p_small, world=big)
+    assert ck.quarantine_reason(p_small) is not None
+
+
+def test_flat_save_requires_matching_spec(tmp_path):
+    """A flat state saved without its spec, under another layout's, under
+    a (world, n_elems) that does not describe its padded vectors, or as one
+    rank's blocks without their comm is refused at the save, in the
+    reference's words."""
+    s1, n = _flat_state("fsdp", "vgg")
+    for spec, match in ((None, "saving a fsdp state requires a shard_spec"),
+                        (ShardSpec("zero1", 1, n_elems=n), "does not match the state's "
+                                                           "layout 'fsdp'"),
+                        (ShardSpec("fsdp", 1, n_elems=n - 8), "expects a flat vector of"),
+                        (ShardSpec("fsdp", 4, n_elems=n), "wrong world or n_elems")):
+        with pytest.raises(ValueError, match=match):
+            ck.save_checkpoint(tmp_path, s1, shard_spec=spec)
+    with pytest.raises(ValueError, match="does not match the state's layout 'dp'"):
+        ck.save_checkpoint(tmp_path, _vgg_state(), shard_spec=ShardSpec("zero1", 2, n_elems=10))
+    # one rank's blocks of a world-2 state, saved without the comm they are
+    # spread over: the moments stand for half the vector
+    z1, n = _flat_state("zero1", "vgg")
+    p = ck.save_checkpoint(tmp_path / "z1", z1, shard_spec=ShardSpec("zero1", 1, n_elems=n))
+    block, spec2 = ck.reshard_restore(p, world=2, rank=0)
+    with pytest.raises(ValueError, match="wrong world or n_elems"):
+        ck.save_checkpoint(tmp_path / "z2", block, shard_spec=spec2)
+
+
+def test_flat_restore_blocks_and_plain_restore(tmp_path):
+    """``reshard_restore(rank=r)`` keeps rank r's blocks of the sharded
+    vectors (zero1's parameters stay whole), and the four ranks' blocks
+    make the whole vectors; ``restore_checkpoint`` of a flat checkpoint is
+    the restore at its saved world and refuses a TrainState template."""
+    for layout in ("zero1", "fsdp"):
+        s1, n = _flat_state(layout, "lm")
+        p = ck.save_checkpoint(tmp_path / layout, s1, shard_spec=ShardSpec(layout, 1, n_elems=n))
+        whole, _ = ck.reshard_restore(p, world=4)
+        blocks = [ck.reshard_restore(p, world=4, rank=r)[0] for r in range(4)]
+        for w in ("mu", "nu"):
+            assert torch.equal(torch.cat([b.momentum_shards[w] for b in blocks]),
+                               whole.momentum_shards[w])
+        if layout == "fsdp":
+            assert torch.equal(torch.cat([b.param_shard for b in blocks]), whole.param_shard)
+        else:
+            assert all(torch.equal(b.param_flat, whole.param_flat) for b in blocks)
+        plain = ck.restore_checkpoint(p)
+        _assert_logical_equal(_logical(plain, n), _logical(s1, n))
+        with pytest.raises(ValueError, match="restore it with reshard_restore"):
+            ck.restore_checkpoint(p, _lm_state())
 
 
 # -- against the JAX package, on the same directories ----------------------------

@@ -3,8 +3,9 @@ on the CPU: the port-side scenarios of ``tests/test_deploy.py``.
 
 ``load_serving_weights`` restores a port checkpoint bit for bit, requantizes
 it and re-verifies the f32 bytes the quantizer consumed (a tampered restore
-and a corrupted checkpoint both fail, quarantined and counted; flat layouts
-name ROADMAP A5b).  Over the port's fleet (router, replica workers, an
+and a corrupted checkpoint both fail, quarantined and counted); zero1/fsdp
+checkpoints serve the dp checkpoint's weights bit for bit through the
+model's parameters.  Over the port's fleet (router, replica workers, an
 in-process hub or the file transport): the worker's drain-then-commit
 swap, the watcher promoting and skipping a corrupt checkpoint, rollback on
 a quality regression and on an SLO burn, a canary killed mid-swap, the
@@ -19,8 +20,8 @@ deploy leg, at the tiny size).  The CLI's exit status.
 from __future__ import annotations
 
 import importlib.util
-import json
 import os
+import shutil
 import threading
 import time
 
@@ -143,14 +144,74 @@ def test_corrupt_checkpoint_never_reaches_serving(tmp_path):
     assert ck.latest_checkpoint(tmp_path / "t") is None
 
 
-def test_load_serving_weights_refuses_flat_layouts(tmp_path):
-    path = _demo(tmp_path, 3)
-    cfg = os.path.join(path, "sgd_config.json")
-    payload = json.load(open(cfg))
-    payload["__shard_spec__"] = {"layout": "zero1", "world": 8, "n_elems": 1234}
-    json.dump(payload, open(cfg, "w"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+def _flat_checkpoint(directory, layout: str, step: int = 3):
+    """The demo model's state (``write_demo_checkpoint``'s weights) saved in
+    a flat layout at world 2: the whole padded vectors, as a 2-rank run's
+    gathered save writes them; returns (step dir, the model's parameters)."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.parallel.fsdp import shard_fsdp_state
+    from distributed_machine_learning_tpu_torch.parallel.zero1 import shard_zero1_state
+    from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
+    from distributed_machine_learning_tpu_torch.runtime.mesh import ShardSpec
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+    from distributed_machine_learning_tpu_torch.train.state import TrainState
+
+    model = TransformerLM(vocab_size=32, d_model=16, n_layers=1, n_heads=2, device="cpu")
+    init_params(model, seed=step)
+    template = {k: p.detach().clone() for k, p in model.named_parameters()}
+    state = TrainState.create(model, AdamWConfig())
+    state.step = step
+    shard = shard_zero1_state if layout == "zero1" else shard_fsdp_state
+    flat, _, n = shard(state, Comm())
+    path = ck.save_checkpoint(directory, flat, shard_spec=ShardSpec(layout, 1, n_elems=n))
+    wide, spec = ck.reshard_restore(path, world=2)
+    shutil.rmtree(directory)
+    return ck.save_checkpoint(directory, wide, shard_spec=spec), template
+
+
+@pytest.mark.parametrize("layout", ["zero1", "fsdp"])
+def test_load_serving_weights_from_flat_layouts(tmp_path, layout):
+    """zero1/fsdp checkpoints serve the dp path's weights: the flat vector's
+    logical prefix unraveled through the model's parameters, bit for bit
+    the dp checkpoint's, the same quantized digest; without a template it
+    is refused in the reference's words; a byte flipped in the flat leaf
+    after the save never reaches serving."""
+    dp = load_serving_weights(_demo(tmp_path / "dp", 3))
+    path, template = _flat_checkpoint(tmp_path / layout, layout)
+    with pytest.raises(ValueError, match="needs template_params"):
         load_serving_weights(path)
+    got = load_serving_weights(path, template)
+    assert got["meta"]["layout"] == layout and got["meta"]["step"] == 3
+    assert got["spec"].world == 1
+    assert got["params"].keys() == dp["params"].keys()
+    for k, v in dp["params"].items():
+        assert torch.equal(got["params"][k], v), k
+    assert got["meta"]["digest"] == dp["meta"]["digest"]
+    _corrupt(path)
+    events = FaultEvents()
+    with pytest.raises(ck.CheckpointVerifyError):
+        load_serving_weights(path, template, events=events)
+    assert events.ckpt_verify_failures == 1 and ck.quarantine_reason(path) is not None
+
+
+def test_load_serving_weights_flat_post_requantize_check(tmp_path, monkeypatch):
+    """The flat layouts' post-requantize check: a restore that hands the
+    quantizer other bytes than the manifest's logical digest names fails,
+    quarantined and counted."""
+    path, template = _flat_checkpoint(tmp_path / "z", "zero1")
+    real = deploy_mod.reshard_restore
+
+    def tampered(*a, **k):
+        state, spec = real(*a, **k)
+        state.param_flat[0] += 1.0
+        return state, spec
+
+    monkeypatch.setattr(deploy_mod, "reshard_restore", tampered)
+    events = FaultEvents()
+    with pytest.raises(ck.CheckpointVerifyError, match="post-requantize"):
+        load_serving_weights(path, template, events=events)
+    assert events.ckpt_verify_failures == 1 and ck.quarantine_reason(path) is not None
 
 
 # -- fleet plumbing --------------------------------------------------------------------

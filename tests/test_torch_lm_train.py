@@ -230,7 +230,7 @@ def test_cli_prints_the_protocol_lines(capsys):
 def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_lm.main(["--max-iters", "1"])
-    for flags, item in ((["--parallel", "fsdp_pl"], "A5b"),
+    for flags, item in ((["--parallel", "tp"], "A5c"),
                         (["--momentum-dtype", "bfloat16"], "A4"), (["--n-experts", "4"], "A5"),
                         (["--telemetry-dir", "x"], "A6"), (["--parallel", "pp"], "A5c"),
                         (["--optimizer", "sgd"], "A4")):
@@ -243,7 +243,9 @@ def test_trainer_imports_no_jax():
             "distributed_machine_learning_tpu_torch.train.lm_step, "
             "distributed_machine_learning_tpu_torch.train.checkpoint, "
             "distributed_machine_learning_tpu_torch.runtime.deploy, "
-            "distributed_machine_learning_tpu_torch.cli.deploy; "
+            "distributed_machine_learning_tpu_torch.cli.deploy, "
+            "distributed_machine_learning_tpu_torch.parallel.zero1, "
+            "distributed_machine_learning_tpu_torch.parallel.fsdp_perlayer; "
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('distributed_machine_learning_tpu.') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

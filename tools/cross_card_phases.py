@@ -11,8 +11,8 @@ kernel path vs plain path, losses.  Then the real commands, one process
 per rank: ``cli.lm --parallel ring`` at world 2
 (``chip_smoke.run_ring_cli``), ``cli.part3 --ring-compress int8`` at world
 2 (``chip_smoke.run_vgg_cli``) and ``cli.lm --parallel dp``, ``ring``,
-``ulysses`` and ``fsdp --overlap-update`` with ``--num-nodes 4`` at the
-LM's full width (``run_lm_cli`` below); each must exit 0 on every rank,
+``ulysses``, ``fsdp --overlap-update`` and ``fsdp_pl`` (flash) with
+``--num-nodes 4`` at the LM's full width (``run_lm_cli`` below); each must exit 0 on every rank,
 print the reference's protocol lines and name nccl in its banner.  The
 serving fleet's run (a) (``run_fleet`` below): ``chip_smoke.serve_fleet``'s
 steady run with replica r's engine and models on ``cuda:r``.  With a card
@@ -21,7 +21,8 @@ on one card they share it over gloo, as ``chip_smoke.py`` runs them.
 Prints each kernel's launches over the spawned phases (the codec's by
 chunk length and residual); exits 1 if a phase fails.  PHASE names limit
 the run to those phases (``ring``, ``vgg``, ``ring cli``, ``vgg cli``,
-``dp cli``, ``ring w4 cli``, ``ulysses cli``, ``fsdp cli``, ``fleet``),
+``dp cli``, ``ring w4 cli``, ``ulysses cli``, ``fsdp cli``, ``fsdp_pl cli``,
+``fleet``),
 e.g. the VGG ones alone after a change to the int8 ring codec.
 """
 
@@ -39,14 +40,17 @@ sys.path.insert(0, str(ROOT))
 # (chip_smoke.MODEL): dp splits B 8 x L 4096 over the ranks; ring and
 # ulysses split L 16384 of B 1 (the ring cell's shape; Ulysses runs K1-K3
 # over the full sequence on 4 of the 16 heads a rank); fsdp splits B 4 x L 2048 with --overlap-update
-# (dense attention, one K7 launch a step on each rank's flat shard).
+# (dense attention, one K7 launch a step on each rank's flat shard);
+# fsdp_pl the same batch with flash attention (every leaf split 1/4 and
+# gathered at its use, one K7 launch a leaf a step).
 LM_CLI = {"dp": dict(world=4, seq_len=4096, batch_size=8, max_iters=5, attn="flash"),
           "ring": dict(world=4, seq_len=16384, batch_size=1, max_iters=5, attn="flash",
                        want_attn="ring_flash"),
           "ulysses": dict(world=4, seq_len=16384, batch_size=1, max_iters=5, attn="flash",
                           want_attn="ulysses"),
           "fsdp": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="auto",
-                       want_attn="dense", extra=("--overlap-update",))}
+                       want_attn="dense", extra=("--overlap-update",)),
+          "fsdp_pl": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="flash")}
 
 
 def run_lm_cli(smoke, backend: str, parallel: str = "dp") -> None:
@@ -173,6 +177,7 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
               ("ring w4 cli", lambda: run_lm_cli(smoke, backend, "ring")),
               ("ulysses cli", lambda: run_lm_cli(smoke, backend, "ulysses")),
               ("fsdp cli", lambda: run_lm_cli(smoke, backend, "fsdp")),
+              ("fsdp_pl cli", lambda: run_lm_cli(smoke, backend, "fsdp_pl")),
               ("fleet", lambda: run_fleet(smoke, torch, card))]
     chosen = sys.argv[1:] or [name for name, _ in phases]
     unknown = set(chosen) - {name for name, _ in phases}
