@@ -139,10 +139,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 8. Trains the same LM context-parallel through ``cli.lm``'s ``build`` and
    ``train_epoch`` in 4 spawned ranks sharing the card (gloo over host
    buffers): ``--parallel ring --num-nodes 4``, B 1 × L 16384 (a chunk of
-   4096 tokens a rank), bf16, ``--fused-update``, ``--attn flash`` (the
-   upgrade rule picks ``ring_flash``), 3 steps.  Launch counts zeroed just
-   before and read just after on every rank: K11, K12 and K13 once per
-   layer per chunk pair (8·(r+1) a step on rank r), K1-K3 never, K7 once
+   4096 tokens a rank), the model's width at 2 of its 8 layers (depth cut
+   to keep the whole run inside its time limit), bf16, ``--fused-update``,
+   ``--attn flash`` (the upgrade rule picks ``ring_flash``), 3 steps.
+   Launch counts zeroed just before and read just after on every rank:
+   K11, K12 and K13 once per layer per chunk pair (2·(r+1) a step on rank
+   r), K1-K3 never, K7 once
    per leaf.  Gates: every rank's parameters bit for bit equal; losses
    finite and falling; the step-0 loss against the one-process dp path on
    the same batch; one step kernel path vs plain path on every rank (the
@@ -170,16 +172,42 @@ Run from the root of a checkout:  python3 chip_smoke.py
    sync; moment bytes at ``zero1_memory_footprint``'s; against the
    one-process replicated step; the zero1 state saved, restored at worlds
    1 and 4, and a flipped byte caught and quarantined.
-11. This slice's card tests (``tests/test_torch_kernels_cuda.py -k
+11. The A4 paths (``run_a4``), through the part CLIs' ``run_part`` and
+   ``cli.lm``: (a) ResNet-18 part1 at B 256 (CIFAR stem, f32, 40
+   iterations; its first step's loss and gradients against the same step
+   of a CPU copy), then in bf16, then with ``--optimizer adamw
+   --fused-update`` (K7 once a leaf a step; one step's update of all 62
+   leaves, 10 to 2,359,296 elements, against the plain version within 8
+   ulp); (b) ResNet-50 part1 at B 256
+   (step ms, peak memory); (c) at W 2 on one card, ResNet-18 ``part3
+   --ring-compress int8 --ring-codec-impl pallas --ckpt-dir --keep-last-n
+   2`` (K8-K10 at ``codec_launches_per_step``), its ``--resume`` (params,
+   BN statistics, momentum and step restored bit for bit, the residual's
+   NOTE printed), a resumed ``part2b``'s next step bit for bit the
+   uninterrupted one's, an ``--async-ckpt`` save, and ``--resume auto``
+   whose second epoch raises once (one restart, from the newest checkpoint);
+   (d) ``part2b`` VGG-11 ``--optimizer lars --lr-schedule cosine
+   --warmup-steps 4 --grad-accum 2 --dist-eval --loader native`` at W 2 ×
+   B 256: a LARS update on the card against the CPU update of the same
+   gradients, ``--grad-accum 2`` against one B 256 step, the native
+   loader's batches against the Python loader's, the sharded eval against
+   the one-rank eval; (e) ``cli.parity --max-iters 4`` and
+   ``--equivalence`` (exit 0, every row synthetic; run beside legs (c), (d)
+   and step 12's card tests, so none of their timings is the parts' own);
+   (f) ``cli.lm`` dp
+   B 4 × L 4096 flash under ``--optimizer sgd --momentum-dtype bfloat16``
+   and ``lars`` beside AdamW (K1-K3 launched, the same step-0 loss).
+12. This slice's card tests (``tests/test_torch_kernels_cuda.py -k
    trainers_on_the_card``, ``--noconftest``).
 
 Step 2 also holds the int8 ring codec K8 (with and without residual), K9
 and K10 to their plain versions BIT FOR BIT at the VGG path's chunk
-lengths, a single element, a ragged length, a length past what K8 can
-stage on chip, an all-zero and a NaN chunk, and chunks whose largest |v|
-or NaN sits in K8's last block; K8 also in CUDA graphs replayed twice and
-out of order; the batched K10 at the all-gather's (world, chunk) points,
-rows in the ring's order, in one launch.  A profiler trace of one K8 call
+lengths, ResNet-18's at world 2 (the a4 phase's part3 int8), a single
+element, a ragged length, a length past what K8 can stage on chip, an
+all-zero and a NaN chunk, and chunks whose largest |v| or NaN sits in
+K8's last block; K8 also in CUDA graphs replayed twice and out of order;
+the batched K10 at the all-gather's (world, chunk) points (ResNet-18's
+too), rows in the ring's order, in one launch.  A profiler trace of one K8 call
 must show one kernel and no memset, and one of an int8 ring call one K10
 kernel for its all-gather and no copy after it.  All three are timed at the
 VGG path's four chunk lengths, K8 with and without the residual, and the
@@ -201,6 +229,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -902,7 +931,7 @@ def fsdp_shard_len(world: int) -> int:
 def flat_cnn_shard_len(world: int) -> int:
     """Elements of one rank's flat shard of FLAT_CNN's model at ``world``
     (ZeRO-1's momentum shard, FSDP's parameter shard)."""
-    from distributed_machine_learning_tpu_torch.models.vgg import get_model
+    from distributed_machine_learning_tpu_torch.models.registry import get_model
     from distributed_machine_learning_tpu_torch.runtime.mesh import padded_len
 
     n = sum(p.numel() for p in get_model(FLAT_CNN["model"], device="meta").parameters())
@@ -980,8 +1009,24 @@ CODEC_LENGTHS = (*CODEC_PATH_LENGTHS, 1, 4097, CODEC_OVER_CAPACITY)
 # The all-gather's batched K10 at the path's (world, chunk length) points:
 # world 4 is the part3 int8 phase, world 2 the cli.part3 run.
 CODEC_ALLGATHER = ((4, 1_638_400), (4, 669_379), (2, 3_276_800), (2, 1_338_757))
+# The a4 phase's part3 int8 run: ResNet-18 (CIFAR stem) at world 2, whose
+# chunks (``resnet18_chunks``) are checked here too, untimed.
+RESNET18_PARAMS = 11_173_962
 CODEC_SETS = 8  # fewest buffer sets the codec timings rotate over (past the L2)
 CODEC_ROTATE_BYTES = 200e6  # operand bytes the sets span at least (4x the L2)
+
+
+def resnet18_chunks(world: int = 2) -> list:
+    """The ring's chunk lengths for ResNet-18's gradient at ``world``: each
+    25 MiB bucket (6,553,600 + 4,620,362 elements) in ``world`` chunks of
+    ceil(L / world) (``ops/ring.py``)."""
+    from distributed_machine_learning_tpu_torch.ops.ring import (
+        DEFAULT_BUCKET_BYTES,
+        _bucket_bounds,
+    )
+
+    return sorted({-(-(b - a) // world)
+                   for a, b in _bucket_bounds(RESNET18_PARAMS, DEFAULT_BUCKET_BYTES, 4)})
 
 
 def codec_row(name: str, n: int, residual: bool = True,
@@ -1037,8 +1082,9 @@ def bits_equal(torch, a, b) -> bool:
 
 def check_codec(torch, rc, rows: dict, timing: bool) -> None:
     gen = torch.Generator(device="cuda").manual_seed(8)
+    lengths = [*CODEC_LENGTHS, *(n for n in resnet18_chunks() if n not in CODEC_LENGTHS)]
     cases = [(f"n={n}", 0.01 * torch.randn(n, device="cuda", generator=gen))
-             for n in CODEC_LENGTHS]
+             for n in lengths]
     cases.append(("zero n=4097", torch.zeros(4097, device="cuda")))
     nan = torch.randn(4097, device="cuda", generator=gen)
     nan[1234] = float("nan")
@@ -1048,7 +1094,7 @@ def check_codec(torch, rc, rows: dict, timing: bool) -> None:
         last[-1] = float("nan") if what == "NaN" else 1.0
         cases.append((f"{what} last n={n}", last))
     failed = []
-    for n in CODEC_LENGTHS:
+    for n in lengths:
         log(f"  ring codec K8 plan n={n}: {rc.device_encode_plan(torch.device('cuda', 0), n)}")
     plan = rc.device_encode_plan(torch.device("cuda", 0), CODEC_OVER_CAPACITY)
     if plan.staged >= plan.slice:
@@ -1100,7 +1146,9 @@ def check_decode_rows(torch, rc, gen) -> list:
     from distributed_machine_learning_tpu_torch.ops import build
 
     failed = []
-    for world, n in CODEC_ALLGATHER:
+    points = [*CODEC_ALLGATHER, *((2, n) for n in resnet18_chunks()
+                                  if (2, n) not in CODEC_ALLGATHER)]
+    for world, n in points:
         payloads, out, order = allgather_case(torch, rc, world, n, gen)
         out.view(torch.int32).copy_(torch.arange(out.numel(), device="cuda").view(out.shape))
         want = rc.decode_rows_int8_reference(payloads, out.clone(), order, n)
@@ -3893,8 +3941,10 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
 # The context-parallel trainers (step 8): cli.lm --parallel ring and
 # --parallel ulysses at the model's full width, RING["world"] ranks sharing
 # the card (gloo over host buffers), each rank a chunk of seq_len / world =
-# 4096 tokens.
-RING = dict(world=4, seq_len=16384, batch_size=1, max_iters=3)
+# 4096 tokens.  Depth cut to RING["n_layers"] of the model's 8 layers, to
+# keep the whole run inside its time limit (a step's time is the host
+# wire's gradient mean, which scales with the parameters).
+RING = dict(world=4, seq_len=16384, batch_size=1, max_iters=3, n_layers=2)
 # The real command: two processes of cli.lm --parallel ring, cut to 2 layers.
 RING_CLI = dict(world=2, n_layers=2, seq_len=8192, max_iters=3)
 # The ring path's step-0 loss (the mean CE over B 1 x L 16384 tokens at the
@@ -3931,7 +3981,8 @@ def cp_args(parallel: str, rank: int, world: int, seq_len: int, iters: int):
     Ulysses picks its local kernel itself)."""
     return trainer_args("--parallel", parallel, "--num-nodes", str(world), "--rank",
                         str(rank), "--seq-len", str(seq_len), "--batch-size",
-                        str(RING["batch_size"]), iters=iters)
+                        str(RING["batch_size"]), "--n-layers", str(RING["n_layers"]),
+                        iters=iters)
 
 
 def ring_args(rank: int, world: int, seq_len: int, iters: int):
@@ -4107,7 +4158,7 @@ def ring_dp_loss(torch) -> float:
     from distributed_machine_learning_tpu_torch.train.lm_step import lm_loss
 
     args = trainer_args("--seq-len", str(RING["seq_len"]), "--batch-size",
-                        str(RING["batch_size"]), iters=1)
+                        str(RING["batch_size"]), "--n-layers", str(RING["n_layers"]), iters=1)
     _, _, place, model = lm.build(args)
     with torch.no_grad():
         loss = float(lm_loss(model, *place(*next(lm.synthetic_batches(args)))))
@@ -4129,12 +4180,13 @@ def run_cp(torch, rows: dict, parallel: str, dp_loss: float) -> None:
     the wire."""
     from distributed_machine_learning_tpu_torch.runtime.launch import spawn
 
-    world, layers = RING["world"], MODEL["n_layers"]
+    world, layers = RING["world"], RING["n_layers"]
     t0 = time.perf_counter()
     ranks = spawn(cp_rank, world, (parallel,), timeout_s=900)
     r0, n = ranks[0], RING["max_iters"]
     failed = []
-    log(f"{parallel}: world {world} x B {RING['batch_size']} x L {RING['seq_len']} (chunk "
+    log(f"{parallel}: world {world} x B {RING['batch_size']} x L {RING['seq_len']}, {layers} "
+        f"layers (chunk "
         f"{RING['seq_len'] // world}), attn {r0['attn']}, backend {r0['backend']}, wire "
         f"{r0['wire']}, {r0['device']}; {time.perf_counter() - t0:.1f} s with process start")
     path_kernels = RING_KERNELS if parallel == "ring" else FLASH_KERNELS
@@ -4501,7 +4553,7 @@ def flat_cnn_state(torch, device, fused: bool = True):
     """FLAT_CNN's model (weights from cli.common's SEED) and a fresh AdamW
     TrainState."""
     from distributed_machine_learning_tpu_torch.cli.common import SEED
-    from distributed_machine_learning_tpu_torch.models.vgg import get_model, init_params
+    from distributed_machine_learning_tpu_torch.models.registry import get_model, init_params
     from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
     from distributed_machine_learning_tpu_torch.train.state import TrainState
 
@@ -5244,6 +5296,768 @@ def run_fsdp_pl(torch, rows: dict, flat_peaks: list, card: str) -> None:
         raise AssertionError("fsdp_pl: " + "; ".join(failed))
 
 
+# -- The A4 paths: ResNets, LARS, schedules, accumulation, the parts'
+# checkpoints, the native loader, the parity report, the LM's SGD and LARS.
+A4 = dict(resnet_iters=40, resnet_bf16_iters=20, resnet50_iters=5, fused_iters=4,
+          ckpt_iters=3, lars_model="vgg11", lars_batch=256, lars_iters=8, lm_iters=3,
+          parity_iters=4, gate_batch=256)
+A4_LOSS_RTOL = 1e-5  # the first ResNet-18 step's loss, card vs CPU (f32, TF32 off)
+# Its gradients are held against an f64 CPU copy of the step: at init they
+# move by a few 1e-3 relative under f32 summation order alone
+# (``tools/resnet_grad_noise.py``), so the card may sit at most this factor
+# above the CPU f32 step's own distance from f64, or 1e-4, over all leaves
+# and per leaf.
+A4_GRAD_NOISE_FACTOR = 2.5
+A4_GRAD_FLOOR = 1e-4
+# A LARS update, card vs the same update in f64 on the CPU (``plain_lars64``):
+# the new momentum (= the scaled step, f32 norms of ~2.4 M elements) within
+# this relative L2 a leaf; each new parameter within the momentum's
+# difference plus 4 f32 rounding units of |p| + |m| (p - m is rounded once).
+A4_LARS_TOL = 1e-5
+A4_LARS_ROUND = 2.0 ** -22
+A4_ACCUM_TOL = 1e-4  # --grad-accum 2 vs one step, BN-free: rel. L2 of each synced leaf
+FLASH_AND_ADAMW = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def a4_args(part: str, *flags: str):
+    """A part CLI's flags, parsed by its own parser."""
+    from distributed_machine_learning_tpu_torch.cli import common, part3
+
+    parser = part3.make_parser() if part == "part3" else common.make_flag_parser(part)
+    return common.parse_flags(parser, list(flags))
+
+
+def cpu_tree(tree: dict) -> dict:
+    """A nested dict of tensors, cloned to the CPU."""
+    return {k: cpu_tree(v) if isinstance(v, dict) else v.detach().cpu().clone()
+            for k, v in tree.items()}
+
+
+def clone_tree(tree: dict) -> dict:
+    """A nested dict of tensors, cloned where they lie."""
+    return {k: clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def a4_watch_update(at: int = 1):
+    """Patch ``run_part``'s step factory and epoch loop so that the update
+    of step ``at`` (from 0) of the run inside is seen: ``held["pre"]`` =
+    (params, momentum, synced grads, step) as that update starts,
+    ``held["post"]`` = (params, momentum) as the next step's starts; clones
+    on the state's device."""
+    from distributed_machine_learning_tpu_torch.train import loop
+    from distributed_machine_learning_tpu_torch.train import step as step_mod
+
+    held: dict = {}
+    real_epoch, real_make = loop.train_epoch, step_mod.make_train_step
+
+    def spy_epoch(step, state, *args, **kw):
+        held["state"] = state
+        return real_epoch(step, state, *args, **kw)
+
+    def spy_make(model, *args, **kw):
+        step = real_make(model, *args, **kw)
+        calls = [0]
+
+        def observe(grads, res):
+            st = held["state"]
+            if calls[0] == at:
+                held["pre"] = (clone_tree(st.params), clone_tree(st.momentum),
+                               {n: g.detach().clone() for n, g in zip(st.params, grads)},
+                               st.step)
+            elif calls[0] == at + 1:
+                held["post"] = (clone_tree(st.params), clone_tree(st.momentum))
+            calls[0] += 1
+
+        step.observe = observe
+        return step
+
+    loop.train_epoch, step_mod.make_train_step = spy_epoch, spy_make
+    try:
+        yield held
+    finally:
+        loop.train_epoch, step_mod.make_train_step = real_epoch, real_make
+
+
+def state_snapshot(state) -> dict:
+    return {"params": cpu_tree(state.params), "batch_stats": cpu_tree(state.batch_stats),
+            "momentum": cpu_tree(state.momentum), "step": int(state.step)}
+
+
+def trees_bit_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(trees_bit_equal(torch, a[k], b[k]) for k in a))
+    if isinstance(a, int):
+        return a == b
+    return bits_equal(torch, a, b)
+
+
+def leaf_rel_l2(got: dict, want: dict) -> tuple:
+    """(worst relative L2 over the leaves, its name)."""
+    worst = max(((rel_l2(got[k].float(), want[k].float()), k) for k in want),
+                key=lambda x: x[0])
+    return worst
+
+
+def a4_first_step_gate(torch, model_name: str = "resnet18", batch: int = 256) -> dict:
+    """The first part1 step of ``model_name`` (seeded init, the first batch,
+    augmentation on) on the card in f32, on the CPU in f32 and in f64: the
+    card's loss against the CPU's f32 one, its gradients (all leaves and the
+    worst leaf) against the f64 ones beside the CPU f32 step's own distance."""
+    from distributed_machine_learning_tpu_torch.cli.common import SEED
+    from distributed_machine_learning_tpu_torch.data.cifar10 import load_cifar10
+    from distributed_machine_learning_tpu_torch.data.loader import BatchLoader
+    from distributed_machine_learning_tpu_torch.models.registry import get_model, init_params
+    from distributed_machine_learning_tpu_torch.train.sgd import SGDConfig
+    from distributed_machine_learning_tpu_torch.train.state import TrainState
+    from distributed_machine_learning_tpu_torch.train.step import make_train_step
+
+    images, labels = next(iter(BatchLoader(load_cifar10("./data", train=True), batch)))
+    out = {}
+    for key, dev, dt in (("card", card_device(torch), torch.float32),
+                         ("cpu", torch.device("cpu"), torch.float32),
+                         ("f64", torch.device("cpu"), torch.float64)):
+        model = init_params(get_model(model_name, device="cpu", compute_dtype=dt), SEED)
+        model = model.to(dev, dt)
+        state = TrainState.create(model, SGDConfig())
+        step = make_train_step(model)
+        seen = {}
+        step.observe = lambda grads, res, m=model: seen.update(
+            grads={n: g.detach().cpu().double() for (n, _), g in
+                   zip(m.named_parameters(), grads)})
+        _, loss = step(state, torch.from_numpy(images).to(dev),
+                       torch.from_numpy(labels).to(dev, torch.long))
+        out[key] = (float(loss), seen["grads"])
+
+    def whole(a, b):
+        return rel_l2(torch.cat([a[k].reshape(-1) for k in b]),
+                      torch.cat([b[k].reshape(-1) for k in b]))
+
+    (lc, gcard), (lp, gcpu), (_, g64) = out["card"], out["cpu"], out["f64"]
+    noise, noise_leaf = whole(gcpu, g64), leaf_rel_l2(gcpu, g64)[0]
+    leaf, name = leaf_rel_l2(gcard, g64)
+    return {"loss": lc, "plain_loss": lp, "loss_rel": abs(lc - lp) / abs(lp),
+            "grad_rel": whole(gcard, g64), "noise": noise,
+            "limit": max(A4_GRAD_FLOOR, A4_GRAD_NOISE_FACTOR * noise),
+            "leaf_rel": leaf, "grad_leaf": name, "leaf_noise": noise_leaf,
+            "leaf_limit": max(A4_GRAD_FLOOR, A4_GRAD_NOISE_FACTOR * noise_leaf),
+            "card_vs_cpu": whole(gcard, gcpu)}
+
+
+def a4_part1(torch, build, label: str, flags: list) -> dict:
+    """One part1 run through ``run_part`` with the launch counts zeroed just
+    before and read just after; step ms, images/s, peak memory."""
+    from distributed_machine_learning_tpu_torch.cli import common
+
+    args = a4_args("part1", *flags)
+    _sync(torch)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = common.run_part("none", 256, False, args, shutdown=False)
+    _sync(torch)
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if torch.cuda.is_available() else 0.0
+    ms = [t * 1e3 for t in res["times"]]
+    med = sorted(ms)[len(ms) // 2]
+    batch = args.batch_size or 256
+    n_params = sum(p.numel() for p in res["state"].model.parameters())
+    n_leaves = sum(1 for _ in res["state"].model.parameters())
+    finite = all(math.isfinite(x) for x in res["losses"])
+    log(f"a4 {label}: {args.model} part1 B {batch}, {n_params} params in {n_leaves} "
+        f"leaves, {args.compute_dtype}, --optimizer {args.optimizer}; losses "
+        f"{[round(x, 4) for x in res['losses'][:2]]} ... "
+        f"{[round(x, 4) for x in res['losses'][-2:]]}; step ms {spread(ms)} -> "
+        f"{batch / med * 1e3:.0f} images/s; peak memory {peak:.2f} GB")
+    if not finite:
+        raise AssertionError(f"a4 {label}: losses not finite")
+    return {"res": res, "args": args, "launches": launches, "n_params": n_params,
+            "n_leaves": n_leaves, "ms": ms, "peak": peak}
+
+
+def a4_adamw_gate(torch, run: dict, held: dict) -> dict:
+    """K7's update in the fused run (``a4_watch_update``'s step: non-zero
+    moments) against ``fused_adamw_reference`` on the same leaves, on the
+    same device: the worst ulp error of p, mu and nu over the leaves
+    (``adamw_ulp_errs``), the largest absolute error, the leaf sizes."""
+    import dataclasses
+
+    from distributed_machine_learning_tpu_torch.cli.common import make_schedule
+    from distributed_machine_learning_tpu_torch.ops import fused_adamw as fadam
+
+    params, mom, grads, at = held["pre"]
+    post_p, post_m = held["post"]
+    cfg = run["res"]["state"].config
+    schedule = make_schedule(run["args"], cfg.learning_rate)
+    if schedule is not None:
+        cfg = dataclasses.replace(cfg, learning_rate=schedule(at))
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    ulp, worst_abs, worst_leaf = [0.0, 0.0, 0.0], 0.0, None
+    for k, p in params.items():
+        old = (p, mom["mu"][k], mom["nu"][k], grads[k])
+        want = [t.clone() for t in old]
+        fadam.fused_adamw_reference(*want, *adamw_scalars(at, cfg), **hyper)
+        got = (post_p[k], post_m["mu"][k], post_m["nu"][k])
+        errs = adamw_ulp_errs(got, want, old, cfg, step=at)
+        if max(errs) > max(ulp):
+            worst_leaf = k
+        ulp = [max(a, b) for a, b in zip(ulp, errs)]
+        worst_abs = max(worst_abs, *(float((got[i] - want[i]).abs().max()) for i in range(3)))
+    sizes = sorted(p.numel() for p in params.values())
+    return {"ulp": ulp, "abs": worst_abs, "leaf": worst_leaf, "step": at,
+            "n_leaves": len(sizes), "sizes": (sizes[0], sizes[-1])}
+
+
+def a4_resnets(torch, build, card: str, totals: dict) -> dict:
+    """Legs (a) and (b): ResNet-18 part1 in f32 and bf16 and with the fused
+    AdamW update (its K7 updates held to the plain version on one step);
+    ResNet-50 part1.  Returns the K7 gate's reading."""
+    t0 = time.perf_counter()
+    gate = a4_first_step_gate(torch, batch=A4["gate_batch"])
+    log(f"a4 (a) resnet18 first step, card vs CPU copy: loss {gate['loss']:.6f} vs "
+        f"{gate['plain_loss']:.6f} (rel {gate['loss_rel']:.2e}, limit {A4_LOSS_RTOL}); "
+        f"gradients vs the f64 CPU step: rel L2 {gate['grad_rel']:.2e} (CPU f32's own "
+        f"{gate['noise']:.2e}, limit {gate['limit']:.2e}), worst leaf {gate['leaf_rel']:.2e} "
+        f"({gate['grad_leaf']}; CPU f32's worst {gate['leaf_noise']:.2e}, limit "
+        f"{gate['leaf_limit']:.2e}); card vs CPU f32 {gate['card_vs_cpu']:.2e}")
+    if (gate["loss_rel"] > A4_LOSS_RTOL or gate["grad_rel"] > gate["limit"]
+            or gate["leaf_rel"] > gate["leaf_limit"]):
+        raise AssertionError(f"a4 (a): ResNet-18's first step differs from the CPU copy: "
+                             f"{gate}")
+    run = a4_part1(torch, build, "(a) f32", ["--model", "resnet18", "--max-iters",
+                                             str(A4["resnet_iters"])])
+    if run["n_params"] != RESNET18_PARAMS:
+        raise AssertionError(f"ResNet-18 (CIFAR stem) has {run['n_params']} parameters, "
+                             f"want {RESNET18_PARAMS}")
+    res = run["res"]
+    images, labels = res["place"](*next(res["batches"]()))
+    if torch.cuda.is_available():
+        profile_steps(torch, "a4 resnet18 part1 step (f32, B 256)",
+                      lambda i: res["step"](res["state"], images, labels), steps=3)
+    log(f"a4 (a) f32: {card}")
+    a4_part1(torch, build, "(a) bf16", ["--model", "resnet18", "--compute-dtype", "bfloat16",
+                                        "--max-iters", str(A4["resnet_bf16_iters"])])
+    with a4_watch_update() as held:
+        fused = a4_part1(torch, build, "(a) adamw fused",
+                         ["--model", "resnet18", "--optimizer", "adamw", "--fused-update",
+                          "--max-iters", str(A4["fused_iters"]), "--eval-batches", "1"])
+    want = fused["n_leaves"] * A4["fused_iters"]
+    got = fused["launches"].get("fused_adamw", 0)
+    k7 = a4_adamw_gate(torch, fused, held)
+    log(f"a4 (a) adamw fused: K7 launches {got} (want {fused['n_leaves']} leaves x "
+        f"{A4['fused_iters']} steps = {want}); step {k7['step']}'s update of the "
+        f"{k7['n_leaves']} leaves ({k7['sizes'][0]} to {k7['sizes'][1]} elements) vs "
+        f"fused_adamw_reference: ulp error p/mu/nu {k7['ulp'][0]:.0f}/{k7['ulp'][1]:.0f}/"
+        f"{k7['ulp'][2]:.0f} (tol {ADAMW_ULP_TOL}; worst leaf {k7['leaf']}), max abs "
+        f"{k7['abs']:.3g}")
+    if torch.cuda.is_available() and got != want:
+        raise AssertionError(f"a4 (a): K7 launched {got} times, want {want}")
+    if max(k7["ulp"]) > ADAMW_ULP_TOL:
+        raise AssertionError(f"a4 (a): K7's update of ResNet-18's leaves differs from the "
+                             f"plain version: {k7}")
+    _add_launches(totals, fused["launches"])
+    del res, run, fused, held
+    gc.collect()
+    r50 = a4_part1(torch, build, "(b)", ["--model", "resnet50", "--max-iters",
+                                         str(A4["resnet50_iters"]), "--eval-batches", "1"])
+    log(f"a4 (b) resnet50: step ms {spread(r50['ms'])}, peak {r50['peak']:.2f} GB; {card}")
+    del r50
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    log(f"a4 (a)-(b): {time.perf_counter() - t0:.1f} s")
+    return k7
+
+
+def _add_launches(totals: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def a4_ckpt_rank(rank: int, world: int, init_method: str, ckdir: str) -> dict:
+    """Leg (c), one rank: ResNet-18 part3 int8 saves, its resume, a resumed
+    part2b's next step against the uninterrupted one, an async save, and
+    ``--resume auto`` over an attempt that raises."""
+    import io
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the bit-for-bit gates
+    torch.backends.cudnn.benchmark = False
+    from distributed_machine_learning_tpu_torch.cli import common
+    from distributed_machine_learning_tpu_torch.ops import build
+    from distributed_machine_learning_tpu_torch.train import checkpoint, loop
+
+    legs = iter(range(1, 100))
+
+    def im():  # a fresh file:// rendezvous for each leg's group
+        return f"{init_method}_{next(legs)}"
+
+    def flags(*extra):
+        return [*extra, "--model", "resnet18", "--num-nodes", str(world), "--rank",
+                str(rank), "--eval-batches", "1"]
+
+    def part3(*extra, spy=None):
+        a = a4_args("part3", *flags(*extra))
+        out = io.StringIO()
+        real = loop.train_epoch
+        if spy is not None:
+            loop.train_epoch = spy(real)
+        try:
+            with contextlib.redirect_stdout(out):
+                res = common.run_part("ring", 64, True, a, {"bucket_bytes": a.bucket_mb * 2**20},
+                                      init_method=im())
+        finally:
+            loop.train_epoch = real
+        return res, out.getvalue()
+
+    rec: dict = {"rank": rank}
+    p3 = os.path.join(ckdir, "p3")
+    int8 = ["--ring-compress", "int8", "--ring-codec-impl", "pallas"]
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _ = part3(*int8, "--ckpt-dir", p3, "--keep-last-n", "2", "--max-iters",
+                   str(A4["ckpt_iters"]))
+    _sync(torch)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(build.launches)
+    rec["n_params"] = sum(p.numel() for p in res["state"].model.parameters())
+    rec["ms"] = [t * 1e3 for t in res["times"]]
+    saved = state_snapshot(res["state"])
+    rec["saved_step"] = saved["step"]
+
+    entry: dict = {}
+
+    def capture(real):
+        def spy(step, state, *a, **k):
+            entry.setdefault("state", state_snapshot(state))
+            return real(step, state, *a, **k)
+        return spy
+
+    t0 = time.perf_counter()
+    res, text = part3(*int8, "--ckpt-dir", p3, "--resume", "--max-iters", "1", spy=capture)
+    rec["resume_s"] = time.perf_counter() - t0
+    rec["restored_bit_equal"] = trees_bit_equal(torch, entry["state"], saved)
+    rec["note"] = "NOTE: error-feedback residuals" in text or rank != 0
+    rec["resumed_line"] = next((ln for ln in text.splitlines() if ln.startswith("Resumed")),
+                               None)
+
+    # A resumed part2b's next step against the uninterrupted run's.
+    p2 = os.path.join(ckdir, "p2b")
+    a = a4_args("part2b", *flags("--ckpt-dir", p2, "--max-iters", str(A4["ckpt_iters"])))
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = common.run_part("all_reduce", 64, False, a, init_method=im(), shutdown=False)
+    try:
+        images, labels = res["place"](*next(res["batches"]()))
+        state, loss = res["step"](res["state"], images, labels)
+        straight = (float(loss), state_snapshot(state))
+    finally:
+        res["ctx"].shutdown()
+    a = a4_args("part2b", *flags("--ckpt-dir", p2, "--resume", "--max-iters", "1"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = common.run_part("all_reduce", 64, False, a, init_method=im())
+    resumed = (res["losses"][0], state_snapshot(res["state"]))
+    rec["part2b_loss"] = (straight[0], resumed[0])
+    rec["part2b_bit_equal"] = (straight[0] == resumed[0]
+                               and trees_bit_equal(torch, straight[1], resumed[1]))
+
+    # An async save, then --resume auto whose first attempt raises.
+    pa = os.path.join(ckdir, "async")
+    t0 = time.perf_counter()
+    res, text = part3("--ckpt-dir", pa, "--async-ckpt", "--max-iters", "2")
+    rec["async_s"] = time.perf_counter() - t0
+    rec["async_valid"] = checkpoint.validate_checkpoint(os.path.join(pa, "step_2")) == []
+
+    def flaky(real):  # the second epoch's training raises, once
+        calls = [0]
+
+        def spy(*a, **k):
+            calls[0] += 1
+            if calls[0] == 2:
+                raise RuntimeError("injected failure in the second epoch")
+            return real(*a, **k)
+        return spy
+
+    pauto = os.path.join(ckdir, "auto")
+    res, text = part3("--ckpt-dir", pauto, "--resume", "auto", "--epochs", "2",
+                      "--max-iters", "2", spy=flaky)
+    rec["auto_restarts"] = res["events"].restarts
+    rec["auto_step"] = res["state"].step
+    rec["auto_resumed"] = [ln for ln in text.splitlines() if ln.startswith("Resumed")]
+    rec["auto_saved"] = sorted(os.listdir(pauto))
+    return rec
+
+
+def a4_checkpoints(torch, totals: dict, card: str) -> None:
+    """Leg (c): ``a4_ckpt_rank`` on 2 ranks sharing the card."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    t0 = time.perf_counter()
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="a4_ckpt_", dir=build_dir)
+    try:
+        ranks = spawn(a4_ckpt_rank, 2, (ckdir,), timeout_s=900)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    r0 = ranks[0]
+    want = {k: v * A4["ckpt_iters"] for k, v in codec_launches_per_step(2, r0["n_params"]).items()}
+    got = [{k: r["launches"].get(k, 0) for k in CODEC_KERNELS} for r in ranks]
+    log(f"a4 (c) resnet18 part3 int8 W 2 (gloo, one card): {r0['n_params']} params; step ms "
+        f"{spread(r0['ms'])}; save run {r0['save_s']:.1f} s, resume run {r0['resume_s']:.1f} s, "
+        f"async run {r0['async_s']:.1f} s; {card}")
+    log(f"a4 (c) K8-K10 launches by rank {got} (want {want} over {A4['ckpt_iters']} steps)")
+    log(f"a4 (c) resume: {r0['resumed_line']}; restored params/BN stats/momentum/step bit for "
+        f"bit the saved ones, by rank: {[r['restored_bit_equal'] for r in ranks]}; residual "
+        f"NOTE printed: {r0['note']}")
+    log(f"a4 (c) part2b: the resumed run's next step vs the uninterrupted run's (loss "
+        f"{r0['part2b_loss']}), bit for bit by rank: {[r['part2b_bit_equal'] for r in ranks]}")
+    log(f"a4 (c) async save valid: {[r['async_valid'] for r in ranks]}; --resume auto, 2 "
+        f"epochs of 2 steps, the second epoch raising once: restarts "
+        f"{[r['auto_restarts'] for r in ranks]}, final step {[r['auto_step'] for r in ranks]}, "
+        f"{r0['auto_resumed']}, saved {r0['auto_saved']}")
+    failed = []
+    if r0["n_params"] != RESNET18_PARAMS:  # check_codec holds resnet18_chunks() bit for bit
+        failed.append(f"{r0['n_params']} parameters, not the {RESNET18_PARAMS} whose ring "
+                      "chunks step 2 checks")
+    if torch.cuda.is_available() and any(g != want for g in got):
+        failed.append("K8-K10 launch counts")
+    for key in ("restored_bit_equal", "part2b_bit_equal", "note", "async_valid"):
+        if not all(r[key] for r in ranks):
+            failed.append(key)
+    if not all(r["auto_restarts"] == 1 and r["auto_step"] == 4 for r in ranks) or (
+            len(r0["auto_resumed"]) != 1 or not r0["auto_resumed"][0].endswith("(step 2)")):
+        failed.append("--resume auto")
+    if failed:
+        raise AssertionError(f"a4 (c) failed: {failed}")
+    _add_launches(totals, {k: r0["launches"].get(k, 0) for k in CODEC_KERNELS})
+    log(f"a4 (c): {time.perf_counter() - t0:.1f} s")
+
+
+def a4_lars_rank(rank: int, world: int, init_method: str) -> dict:
+    """Leg (d), one rank: part2b VGG-11 with LARS, a cosine schedule,
+    ``--grad-accum 2``, ``--dist-eval`` and the native loader; then its gates."""
+    import io
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from distributed_machine_learning_tpu_torch.cli import common
+    from distributed_machine_learning_tpu_torch.data import native_loader
+    from distributed_machine_learning_tpu_torch.data.cifar10 import load_cifar10
+    from distributed_machine_learning_tpu_torch.data.distributed_loader import (
+        DistributedBatchLoader,
+    )
+    from distributed_machine_learning_tpu_torch.data.loader import BatchLoader
+    from distributed_machine_learning_tpu_torch.parallel.strategies import get_strategy
+    from distributed_machine_learning_tpu_torch.train import loop
+    from distributed_machine_learning_tpu_torch.train import step as step_mod
+    from distributed_machine_learning_tpu_torch.train.lars import lars_update
+
+    B = A4["lars_batch"]
+    a = a4_args("part2b", "--model", A4["lars_model"], "--optimizer", "lars",
+                "--lr-schedule", "cosine", "--warmup-steps", "4", "--grad-accum", "2",
+                "--dist-eval", "--loader", "native", "--batch-size", str(B),
+                "--max-iters", str(A4["lars_iters"]), "--eval-batches", "4",
+                "--num-nodes", str(world), "--rank", str(rank))
+    with a4_watch_update() as held, contextlib.redirect_stdout(io.StringIO()):
+        res = common.run_part("all_reduce", 64, False, a, init_method=init_method,
+                              shutdown=False)
+    rec: dict = {"rank": rank, "losses": res["losses"], "ms": [t * 1e3 for t in res["times"]]}
+    try:
+        state, comm = res["state"], res["ctx"].comm
+        # The LARS update of step 1 (lr from the schedule) against the CPU's.
+        params, mom, grads = (cpu_tree(t) for t in held["pre"][:3])
+        at = held["pre"][3]
+        lr = common.make_schedule(a, state.config.learning_rate)(at)
+        p64, m64 = plain_lars64(params, mom, grads, state.config, lr)
+        lars_update(params, mom, grads, state.config, lr=lr)  # the CPU's f32 update
+        post_p, post_m = (cpu_tree(t) for t in held["post"])
+        rec["lars_lr"] = lr
+        rec["lars_rel"] = leaf_rel_l2(post_m, m64)
+        rec["lars_cpu_rel"] = leaf_rel_l2(mom, m64)
+        rec["lars_excess"] = max(float(((post_p[k].double() - p64[k]).abs()
+                                        - (post_m[k].double() - m64[k]).abs()
+                                        - A4_LARS_ROUND * (p64[k].abs() + m64[k].abs())).max())
+                                 for k in p64)
+        # --grad-accum 2 against one step of the whole batch, from one state.
+        images, labels = res["place"](*next(res["batches"]()))
+        seen = {}
+        snap = _snapshot(state, res["step"])
+        for k in (1, 2):
+            st = step_mod.make_train_step(state.model, get_strategy("all_reduce"), comm,
+                                          accum_steps=k)
+            st.observe = lambda g, r, k=k: seen.__setitem__(
+                k, {n: t.detach().cpu().clone() for n, t in zip(state.params, g)})
+            st(state, images, labels)
+            _restore(state, st, snap)
+        rec["accum_rel"] = leaf_rel_l2(seen[2], seen[1])
+        # The native loader's batches against the Python loader's.
+        train_set = load_cifar10("./data", train=True)
+        nat = native_loader.NativeDistributedBatchLoader(train_set, B, world, rank)
+        py = DistributedBatchLoader(train_set, B, world, rank)
+        rec["native_equal"] = len(nat) == len(py) and all(
+            (x[0] == y[0]).all() and (x[1] == y[1]).all()
+            for x, y in zip(itertools.islice(nat, 5), itertools.islice(py, 5)))
+        # The sharded eval against the one-rank eval, as printed.
+        test_set = load_cifar10("./data", train=False)
+        with contextlib.redirect_stdout(io.StringIO()):
+            sharded = loop.evaluate(step_mod.make_eval_step(state.model, comm),
+                                    itertools.islice(iter(BatchLoader(test_set, 256)), 4),
+                                    place_batch=res["place"])
+            single = loop.evaluate(step_mod.make_eval_step(state.model),
+                                   itertools.islice(iter(BatchLoader(test_set, 256)), 4),
+                                   place_batch=res["place"])
+        rec["eval"] = (sharded, single)
+        rec["eval_equal"] = (f"{sharded[0]:.4f}" == f"{single[0]:.4f}"
+                             and sharded[1] == single[1])
+    finally:
+        res["ctx"].shutdown()
+    return rec
+
+
+def plain_lars64(params: dict, mom: dict, grads: dict, config, lr: float):
+    """One LARS step (``train/lars.py``'s rule) in f64 on CPU copies:
+    (new params, new momentum)."""
+    import torch
+
+    new_p, new_m = {}, {}
+    wd, trust = config.weight_decay, config.trust_coefficient
+    for k, p in params.items():
+        p, g, m = p.double(), grads[k].double(), mom[k].double()
+        wn, gn = p.norm(), g.norm()
+        scale = (trust * wn / (gn + wd * wn + config.eps) if wn > 0 and gn > 0
+                 else torch.tensor(1.0, dtype=torch.float64))
+        new_m[k] = config.momentum * m + lr * scale * (g + wd * p)
+        new_p[k] = p - new_m[k]
+    return new_p, new_m
+
+
+def a4_lars(torch, card: str) -> None:
+    """Leg (d): ``a4_lars_rank`` on 2 ranks sharing the card."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(a4_lars_rank, 2, (), timeout_s=900)
+    r0 = ranks[0]
+    B = A4["lars_batch"]
+    med = sorted(r0["ms"])[len(r0["ms"]) // 2]
+    log(f"a4 (d) part2b vgg11 LARS, cosine (warmup 4), --grad-accum 2, --dist-eval, native "
+        f"loader, W 2 x B {B}: losses {[round(x, 4) for x in r0['losses']]}; step ms "
+        f"{spread(r0['ms'])} -> {2 * B / med * 1e3:.0f} images/s; {card}")
+    log(f"a4 (d) LARS update of step 1 (lr {r0['lars_lr']:.4g}) vs the f64 CPU update: new "
+        f"momentum, worst leaf rel L2 by rank {[r['lars_rel'] for r in ranks]} (limit "
+        f"{A4_LARS_TOL}; the CPU's f32 update: {r0['lars_cpu_rel']}); new parameters, largest "
+        f"excess over the bound {[r['lars_excess'] for r in ranks]} (must be <= 0)")
+    log(f"a4 (d) --grad-accum 2 vs one B {B} step (BN-free): worst synced leaf rel L2 by rank "
+        f"{[r['accum_rel'] for r in ranks]} (limit {A4_ACCUM_TOL})")
+    log(f"a4 (d) native loader batches == python loader's: {[r['native_equal'] for r in ranks]}"
+        f"; --dist-eval (loss, accuracy) vs one-rank eval by rank "
+        f"{[r['eval'] for r in ranks]}")
+    failed = []
+    if not all(math.isfinite(x) for r in ranks for x in r["losses"]):
+        failed.append("losses not finite")
+    if any(r["lars_rel"][0] > A4_LARS_TOL or r["lars_excess"] > 0 for r in ranks):
+        failed.append("LARS update")
+    if any(r["accum_rel"][0] > A4_ACCUM_TOL for r in ranks):
+        failed.append("--grad-accum")
+    if not all(r["native_equal"] and r["eval_equal"] for r in ranks):
+        failed.append("native loader / dist eval")
+    if failed:
+        raise AssertionError(f"a4 (d) failed: {failed}")
+    log(f"a4 (d): {time.perf_counter() - t0:.1f} s")
+
+
+def a4_parity_start() -> dict:
+    """Leg (e): the real ``cli.parity`` commands (the report, then
+    ``--equivalence``), one after the other on a background thread, each in
+    its own process group; ``a4_parity_finish`` joins and checks them,
+    ``a4_parity_stop`` kills them."""
+    import threading
+
+    repo = Path(__file__).resolve().parent
+    build_dir = repo / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="a4_parity_", dir=build_dir)
+    base = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.parity",
+            "--max-iters", str(A4["parity_iters"]), "--num-nodes", "2"]
+    job = {"t0": time.perf_counter(), "tmp": tmp, "runs": {}, "proc": None, "stop": False,
+           "rows": os.path.join(tmp, "rows.json"), "eq": os.path.join(tmp, "eq.json")}
+
+    def work():
+        for extra, what in ((["--eval-batches", "1", "--json", job["rows"]], "report"),
+                            (["--equivalence", "--json", job["eq"]], "equivalence")):
+            if job["stop"]:
+                return
+            proc = subprocess.Popen([*base, *extra], cwd=repo, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, start_new_session=True)
+            job["proc"] = proc
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                _kill_group(proc)
+                out, err = proc.communicate()
+            job["runs"][what] = (proc.returncode, out, err)
+
+    job["thread"] = threading.Thread(target=work, name="a4-parity", daemon=True)
+    job["thread"].start()
+    return job
+
+
+def _kill_group(proc) -> None:
+    """Kill a process started with ``start_new_session`` and its children."""
+    import signal
+
+    if proc is not None and proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def a4_parity_stop(job: dict) -> None:
+    job["stop"] = True
+    _kill_group(job["proc"])
+    job["thread"].join(timeout=60)
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def a4_parity_finish(job: dict) -> None:
+    try:
+        job["thread"].join(timeout=1300)
+        if job["thread"].is_alive():
+            raise AssertionError("a4 (e): cli.parity did not finish")
+        for what, (rc, out, err) in job["runs"].items():
+            log(f"a4 (e) cli.parity {what}: exit code {rc}")
+            for ln in out.strip().splitlines()[:24]:
+                log(f"  {ln}")
+            if rc != 0:
+                raise AssertionError(f"cli.parity {what} failed: {(out + err)[-3000:]}")
+        rows = json.loads(Path(job["rows"]).read_text())
+        eq = json.loads(Path(job["eq"]).read_text())
+    finally:
+        a4_parity_stop(job)
+    if [row["part"] for row in rows] != ["part1", "part2a", "part2b", "part3"] or not all(
+            row["data"] == "synthetic" for row in rows) or not eq["ok"]:
+        raise AssertionError(f"a4 (e): rows {[(r['part'], r['data']) for r in rows]}, "
+                             f"equivalence {eq}")
+    log(f"a4 (e): {time.perf_counter() - job['t0']:.1f} s from its start")
+
+
+def a4_lm_args(opt: list):
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    return lm.make_parser().parse_args([
+        "--parallel", "dp", "--d-model", str(MODEL["d_model"]),
+        "--n-layers", str(MODEL["n_layers"]), "--n-heads", str(MODEL["n_heads"]),
+        "--n-kv-heads", str(MODEL["n_kv_heads"]), "--vocab", str(MODEL["vocab_size"]),
+        "--seq-len", str(TRAIN["seq_len"]), "--batch-size", str(TRAIN["batch_size"]),
+        "--compute-dtype", "bfloat16", "--attn", "flash", "--max-iters",
+        str(A4["lm_iters"]), *opt])
+
+
+def a4_lm(torch, build, totals: dict, card: str) -> None:
+    """Leg (f): ``cli.lm`` dp under AdamW (fused), SGD with bf16 momentum and
+    LARS: launches, step-0 loss, momentum bytes, step ms."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    t0 = time.perf_counter()
+    runs = {}
+    for label, opt in (("adamw", ["--optimizer", "adamw", "--fused-update"]),
+                       ("sgd", ["--optimizer", "sgd", "--momentum-dtype", "bfloat16"]),
+                       ("lars", ["--optimizer", "lars"])):
+        args = a4_lm_args(opt)
+        step, state, place, model = lm.build(args)
+        leaves = [t for v in state.momentum.values()
+                  for t in (v.values() if isinstance(v, dict) else [v])]
+        mom_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+        losses: list = []
+        _sync(torch)
+        build.reset_launch_counts()
+        state, timer = train_epoch(recorded(step, losses), state, lm.synthetic_batches(args),
+                                   place_batch=place, max_iters=args.max_iters)
+        _sync(torch)
+        launches = dict(build.launches)
+        runs[label] = {"losses": [float(x) for x in losses], "ms": [t * 1e3 for t in timer.times],
+                       "mom_gb": mom_gb, "launches": launches}
+        log(f"a4 (f) cli.lm dp --optimizer {' '.join(opt[1:])}: losses "
+            f"{[round(x, 4) for x in runs[label]['losses']]}; step ms "
+            f"{spread(runs[label]['ms'])}; momentum {mom_gb:.3f} GB a rank; launches "
+            f"{ {k: launches.get(k, 0) for k in FLASH_AND_ADAMW} }")
+        if label != "adamw":
+            _add_launches(totals, {k: launches.get(k, 0) for k in FLASH_KERNELS})
+        del step, state, place, model, leaves
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    failed = []
+    want = MODEL["n_layers"] * A4["lm_iters"]
+    for label in ("sgd", "lars"):
+        r = runs[label]
+        if r["losses"][0] != runs["adamw"]["losses"][0]:
+            failed.append(f"{label}: step-0 loss {r['losses'][0]} != AdamW's "
+                          f"{runs['adamw']['losses'][0]}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            failed.append(f"{label}: losses not finite")
+        if torch.cuda.is_available() and any(r["launches"].get(k, 0) != want
+                                             for k in FLASH_KERNELS):
+            failed.append(f"{label}: K1-K3 launches {r['launches']} (want {want} each)")
+        if r["launches"].get("fused_adamw", 0):
+            failed.append(f"{label}: K7 launched")
+    log(f"a4 (f) momentum a rank: sgd bf16 {runs['sgd']['mom_gb']:.3f} GB, lars "
+        f"{runs['lars']['mom_gb']:.3f} GB, AdamW's two f32 moments {runs['adamw']['mom_gb']:.3f} "
+        f"GB; step ms medians sgd {sorted(runs['sgd']['ms'])[len(runs['sgd']['ms']) // 2]:.2f}, "
+        f"lars {sorted(runs['lars']['ms'])[len(runs['lars']['ms']) // 2]:.2f}, adamw "
+        f"{sorted(runs['adamw']['ms'])[len(runs['adamw']['ms']) // 2]:.2f}; {card}")
+    if failed:
+        raise AssertionError(f"a4 (f) failed: {failed}")
+    log(f"a4 (f): {time.perf_counter() - t0:.1f} s")
+
+
+def run_a4(torch, build, rows: dict, card: str) -> dict:
+    """The A4 phase (docstring step 11): the timed legs (a), (b) and (f)
+    first; then leg (e) starts in the background (``a4_parity_start``) and
+    runs beside (c), (d) and the card tests, none of which is timed against
+    a prediction; the caller finishes it (``a4_parity_finish``) and gets its
+    job back.  Each kernel's launches over the phase go to its row's
+    ``a4_launches`` (the codec's on its bare-name row: ResNet-18's chunk
+    lengths are none of the timed rows', and step 2's ``check_codec`` holds
+    them to the plain codec); leg (e) runs the VGG parts, which launch
+    none."""
+    totals: dict = {}
+    t0 = time.perf_counter()
+    k7 = a4_resnets(torch, build, card, totals)
+    adamw = rows["fused_adamw"]
+    adamw["max_abs_err"] = max(adamw["max_abs_err"], k7["abs"])
+    adamw["max_ulp_err"] = max(adamw["max_ulp_err"], *k7["ulp"])
+    a4_lm(torch, build, totals, card)
+    parity = a4_parity_start()
+    try:
+        a4_checkpoints(torch, totals, card)
+        a4_lars(torch, card)
+    except BaseException:
+        a4_parity_stop(parity)
+        raise
+    log(f"a4 launches over the phase: {totals}")
+    for key, row in rows.items():
+        name = key.split(":")[0]
+        row["a4_launches"] = (totals.get(name, 0)
+                              if name not in CODEC_KERNELS or key == name else 0)
+    log(f"a4 phase, (e) still running: {time.perf_counter() - t0:.1f} s")
+    return parity
+
+
 def run_card_tests() -> None:
     """This slice's card tests (``tests/test_torch_kernels_cuda.py``: the
     flat-shard and per-layer trainers), as the README runs the file:
@@ -5516,9 +6330,17 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"zero1/fsdp_cnn and flat_ckpt (zero1) phases: {time.perf_counter() - t0:.1f} s")
+    parity = run_a4(torch, build, rows, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run_card_tests()
-    log(f"card tests phase: {time.perf_counter() - t0:.1f} s")
+    try:
+        run_card_tests()
+    except BaseException:
+        a4_parity_stop(parity)
+        raise
+    a4_parity_finish(parity)
+    log(f"card tests phase and the end of a4 (e): {time.perf_counter() - t0:.1f} s")
 
     pallas = "distributed_machine_learning_tpu/ops/pallas/"
     replaces = {  # kernel name: (source, the TPU kernel body it replaces)
@@ -5557,7 +6379,8 @@ def main(argv=None) -> int:
             "fsdp_pl_launches": row["fsdp_pl_launches"],
             "zero1_cnn_launches": row["zero1_cnn_launches"],
             "fsdp_cnn_launches": row["fsdp_cnn_launches"],
-            "flat_ckpt_launches": row["flat_ckpt_launches"], "shape": row["shape"]})
+            "flat_ckpt_launches": row["flat_ckpt_launches"],
+            "a4_launches": row["a4_launches"], "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

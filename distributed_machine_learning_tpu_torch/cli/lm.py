@@ -6,7 +6,9 @@ decoder-only ``TransformerLM`` on the reference's deterministic synthetic
 token stream (``np.random.default_rng(69143)``), or on a byte-level corpus
 of every text file under ``--data-dir`` (``data/text.py``; vocab raised to
 257): f32 master weights, the compute dtype of ``--compute-dtype``, AdamW
-(``--fused-update``: the fused kernel K7), flash attention with its
+(``--fused-update``: the fused kernel K7), or SGD (``--momentum-dtype``
+narrows its buffers) or LARS (``--optimizer``; LARS under dp, ring and
+ulysses: the sharded schemes refuse it), flash attention with its
 backward kernels K2/K3 where ``--attn`` picks flash, and the head fused
 with the loss over ``--fused-ce-chunks`` vocab chunks (``ops/fused_ce.py``:
 the [B, L, vocab] logits never exist).  The measurement protocol is the
@@ -108,7 +110,6 @@ from distributed_machine_learning_tpu_torch.runtime.distributed import (
     DistributedContext,
     initialize_from_flags,
 )
-from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
 from distributed_machine_learning_tpu_torch.train.lm_step import (
     init_lm_state,
     make_lm_eval_step,
@@ -119,6 +120,7 @@ from distributed_machine_learning_tpu_torch.train.lm_step import (
 )
 from distributed_machine_learning_tpu_torch.train.loop import evaluate_lm, train_epoch
 from distributed_machine_learning_tpu_torch.train.optimizers import (
+    get_optimizer,
     optimizer_names,
 )
 from distributed_machine_learning_tpu_torch.utils.logging import rank0_print
@@ -130,7 +132,6 @@ PARALLEL = ["dp", "ring", "ulysses", "fsdp", "fsdp_pl", "tp", "pp", "3d", "ep"]
 _NOT_PORTED = [
     ("telemetry_dir", None, "A6 'telemetry'"),
     ("telemetry_flush_every", 20, "A6 'telemetry'"),
-    ("momentum_dtype", None, "A4 (SGD)"),
     ("n_experts", 8, "A5 (--parallel ep)"),
     ("capacity_factor", 1.25, "A5 (--parallel ep)"),
     ("ep", None, "A5 (--parallel ep)"),
@@ -207,7 +208,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="override the optimizer config's learning rate")
     p.add_argument("--fused-update", dest="fused_update", action="store_true",
                    help="run the AdamW update as the fused kernel K7 (adamw only)")
-    p.add_argument("--momentum-dtype", dest="momentum_dtype", default=None)
+    p.add_argument("--momentum-dtype", dest="momentum_dtype", default=None,
+                   help="SGD momentum-buffer storage dtype (e.g. bfloat16); the update "
+                        "math stays f32 (sgd only)")
     p.add_argument("--data-dir", dest="data_dir", default=None,
                    help="train on every text file under this directory as a "
                         "byte-level corpus (data/text.py; vocab raised to 257)")
@@ -244,11 +247,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
-    if args.optimizer != "adamw":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} on the LM trainer is not ported yet: ROADMAP "
-            "A4 (train/sgd.py serves the VGG parts; the LM's sgd, lars and "
-            "--momentum-dtype are queued there)")
 
 
 def _check_layout(args) -> None:
@@ -256,6 +254,13 @@ def _check_layout(args) -> None:
     (``cli/lm.py:317-369``) and its divisibility checks (``:370-388``,
     ``:436-440``), made before any rank joins the group."""
     n = args.num_nodes
+    if args.momentum_dtype is not None and args.optimizer != "sgd":
+        raise ValueError("--momentum-dtype applies to --optimizer sgd only (AdamW keeps "
+                         "fp32 moments; LARS accumulates in the buffer dtype and refuses "
+                         "narrowing)")
+    if args.fused_update and args.optimizer != "adamw":
+        raise ValueError("--fused-update applies to --optimizer adamw only (the fused "
+                         f"kernel is the AdamW rule; got --optimizer {args.optimizer})")
     if args.overlap_update and args.parallel != "fsdp":
         raise ValueError("--overlap-update applies to --parallel fsdp (prefetch "
                          f"protocol) in this port; got --parallel {args.parallel}")
@@ -282,6 +287,19 @@ def _check_layout(args) -> None:
         raise ValueError("--ckpt-dir does not support the flat-vector fsdp state "
                          "(FSDPState is not a TrainState); use --parallel fsdp_pl "
                          "for checkpointable ZeRO-3")
+
+
+def optimizer_config(args):
+    """The optimizer config the flags describe (``--optimizer``, ``--lr``,
+    ``--momentum-dtype`` for sgd, ``--fused-update`` for adamw)."""
+    cfg: dict = {}
+    if args.lr is not None:
+        cfg["learning_rate"] = args.lr
+    if args.momentum_dtype is not None:
+        cfg["momentum_dtype"] = args.momentum_dtype
+    if args.fused_update:
+        cfg["fused"] = True
+    return get_optimizer(args.optimizer)[0](**cfg)
 
 
 def attn_impl(args) -> str:
@@ -348,10 +366,7 @@ def build(args, ctx: DistributedContext | None = None):
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads, compute_dtype=dtype,
         attn_impl=attn_impl(args), remat=args.remat, remat_policy=args.remat_policy,
         device=device, comm=comm)
-    cfg = {"fused": args.fused_update}
-    if args.lr is not None:
-        cfg["learning_rate"] = args.lr
-    state = init_lm_state(model, seed=SEED, config=AdamWConfig(**cfg))
+    state = init_lm_state(model, seed=SEED, config=optimizer_config(args))
     if args.parallel == "fsdp_pl":
         from distributed_machine_learning_tpu_torch.parallel.fsdp_perlayer import (
             gather_fsdp_pl_params,

@@ -16,9 +16,12 @@ from distributed_machine_learning_tpu_torch.cli.common import (
 BATCH_SIZE = 64  # per worker — part2/2b/main.py:31
 
 
-def main(argv=None) -> None:
+def main(argv=None, init_method: str | None = None) -> dict:
+    """Run the part; ``init_method`` overrides the ``--master-ip`` rendezvous
+    (``cli/parity.py`` starts its ranks on a ``file://`` one)."""
     args = parse_flags(make_flag_parser(__doc__), argv)
-    run_part("all_reduce", per_rank_batch=BATCH_SIZE, use_bn=False, args=args)
+    return run_part("all_reduce", per_rank_batch=BATCH_SIZE, use_bn=False, args=args,
+                    init_method=init_method)
 
 
 if __name__ == "__main__":

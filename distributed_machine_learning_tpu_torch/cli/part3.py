@@ -32,10 +32,13 @@ def make_parser():
     return parser
 
 
-def main(argv=None) -> None:
+def main(argv=None, init_method: str | None = None) -> dict:
+    """Run the part; ``init_method`` overrides the ``--master-ip`` rendezvous
+    (``cli/parity.py`` starts its ranks on a ``file://`` one)."""
     args = parse_flags(make_parser(), argv)
-    run_part("ring", per_rank_batch=BATCH_SIZE, use_bn=True, args=args,
-             strategy_kwargs={"bucket_bytes": args.bucket_mb * 2**20})
+    return run_part("ring", per_rank_batch=BATCH_SIZE, use_bn=True, args=args,
+                    strategy_kwargs={"bucket_bytes": args.bucket_mb * 2**20},
+                    init_method=init_method)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,10 @@ reference's AdamW moments (params-shaped trees) with the same table.
 batch_stats (``Conv_i`` kernels HWIO -> ``convs.i.weight`` OIHW,
 ``BatchNorm_i`` scale/bias/mean/var -> ``bns.i``, ``fc1`` kernel
 transposed); :func:`flax_vgg_tree` maps a params-shaped tree of the port
-(gradients, SGD buffers) the other way.
+(gradients, SGD buffers) the other way.  :func:`flax_resnet_to_state_dict`
+maps a reference ``ResNet``'s params and batch_stats (every kernel HWIO ->
+OIHW, every BN's scale/bias/mean/var, ``bn_down`` included, ``fc`` kernel
+transposed).
 :func:`init_params` draws fresh weights for a port model from a
 ``torch.Generator``.
 """
@@ -157,3 +160,29 @@ def flax_vgg_tree(named: dict) -> dict:
     tree["fc1"] = {"kernel": named["fc1.weight"].detach().cpu().float().numpy().T,
                    "bias": named["fc1.bias"].detach().cpu().float().numpy()}
     return tree
+
+
+def flax_resnet_to_state_dict(params: dict, batch_stats: dict | None = None
+                              ) -> dict[str, torch.Tensor]:
+    """A reference ``ResNet``'s variables as the port's ``ResNet`` state_dict
+    (the port names its modules as the Flax ones are named)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(p: dict, s: dict, prefix: str) -> None:
+        for name, leaves in p.items():
+            key = f"{prefix}{name}"
+            if "kernel" in leaves and name == "fc":
+                out[f"{key}.weight"] = _tensor(leaves["kernel"]).T.contiguous()
+                out[f"{key}.bias"] = _tensor(leaves["bias"])
+            elif "kernel" in leaves:
+                out[key] = _tensor(leaves["kernel"]).permute(3, 2, 0, 1).contiguous()
+            elif "scale" in leaves:
+                out[f"{key}.weight"] = _tensor(leaves["scale"])
+                out[f"{key}.bias"] = _tensor(leaves["bias"])
+                out[f"{key}.running_mean"] = _tensor(s[name]["mean"])
+                out[f"{key}.running_var"] = _tensor(s[name]["var"])
+            else:
+                walk(leaves, s.get(name, {}), f"{key}.")
+
+    walk(params, batch_stats or {}, "")
+    return out

@@ -17,6 +17,7 @@ augmentation happen on the device (``augment.py``).
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import tarfile
@@ -66,9 +67,12 @@ def _maybe_extract(root: str) -> str | None:
     return None
 
 
+@functools.lru_cache(maxsize=2)
 def _synthetic(train: bool, seed: int = 69143) -> Dataset:
     """Deterministic stand-in with CIFAR shapes and class-conditional means
-    (so a model can learn from it); the JAX package's, draw for draw."""
+    (so a model can learn from it); the JAX package's, draw for draw.  Made
+    once a process (a run of several parts, or a supervised restart, reuses
+    it; the loaders only read it)."""
     n = 50_000 if train else 10_000
     rng = np.random.default_rng(seed + (0 if train else 1))
     labels = rng.integers(0, 10, size=n).astype(np.int32)

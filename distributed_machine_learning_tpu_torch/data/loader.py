@@ -3,9 +3,9 @@
 Counterpart of ``distributed_machine_learning_tpu/data/loader.py``
 (``DataLoader(batch_size, shuffle=False)`` of ``part2/2a/main.py:162-167``):
 augmentation and normalization run on the device, so the host side is
-contiguous uint8 slicing.  ``drop_last=False`` like the reference's
-DataLoader (eval consumes the whole test set).  No prefetch thread, no
-retry policy (``--loader-retries`` is ROADMAP A4).
+contiguous uint8 slicing.  No prefetch thread here (``data/native_loader.py``
+prefetches in C++); the retry policy wraps it from outside
+(``data/retry.py``, ``--loader-retries``).
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ is moot.
 
 BatchNorm follows Flax, not ``F.batch_norm``: the batch variance is the
 biased E[x²] − E[x]² (clamped at 0), normalization is
-``(x − mean)·(rsqrt(var + eps)·scale) + bias``, and the running statistics
+``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in f32 whatever the compute
+dtype (the result cast back to it, as Flax's ``_normalize`` promotes
+against its f32 statistics), and the running statistics
 move by ``0.9·running + 0.1·batch`` with the *biased* variance
 (``F.batch_norm(training=True)`` would use the unbiased one).  A train-mode
 forward only records each layer's batch statistics; the train step averages
@@ -43,7 +45,6 @@ CFG: dict[str, Sequence] = {
     "VGG19": [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
               512, 512, 512, 512, "M", 512, 512, 512, 512, "M"],
 }
-MODEL_NAMES = {k.lower(): k for k in CFG}
 
 
 class BatchNorm(nn.Module):
@@ -69,8 +70,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean.to(x.dtype)[:, None, None]) * mul.to(x.dtype)[:, None, None]
-        return y + self.bias.to(x.dtype)[:, None, None]
+        y = (x.float() - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
     def new_running_stats(self) -> tuple:
         """(running_mean, running_var) moved toward the last train-mode
@@ -134,21 +135,7 @@ class VGG(nn.Module):
                 bn.running_var.copy_(stats[2 * j + 1])
 
 
-def get_model(name: str, *, use_bn: bool = False, compute_dtype=None, num_classes: int = 10,
-              device=None) -> VGG:
-    """A model by lowercase name (``vgg11``, ..., ``vggtest``).  ResNets are
-    ROADMAP A4."""
-    key = name.lower()
-    if key.startswith("resnet"):
-        raise NotImplementedError(f"--model {name} is not ported yet: ROADMAP A4 "
-                                  "(models/resnet.py)")
-    if key not in MODEL_NAMES:
-        raise ValueError(f"unknown model {name!r}; available: {sorted(MODEL_NAMES)}")
-    return VGG(MODEL_NAMES[key], use_bn=use_bn, num_classes=num_classes,
-               compute_dtype=compute_dtype or torch.float32, device=device)
-
-
-def init_params(model: VGG, seed: int) -> VGG:
+def init_vgg(model: VGG, seed: int) -> VGG:
     """torch's default distributions, drawn from one seeded generator so
     every rank builds identical weights: U(±1/√fan_in) for each kernel and
     bias (the head's bias with fan-in 512, as the JAX package draws it);

@@ -113,6 +113,9 @@ def flatten_padded(state: TrainState, world: int):
                for w in ("mu", "nu")}
     else:
         mom = _flat_pad((state.momentum[k] for k in params), padded)
+        narrow = getattr(state.config, "momentum_dtype", None)
+        if narrow:  # SGD's narrowed buffers stay narrow on the shard
+            mom = mom.to(getattr(torch, narrow))
     return flat, mom, unravel, unravel.n_elems
 
 

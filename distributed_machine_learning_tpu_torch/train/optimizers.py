@@ -2,8 +2,7 @@
 
 Counterpart of ``distributed_machine_learning_tpu/train/optimizers.py``.
 Every update fn shares the signature ``(params, moments, grads, config,
-lr=None, step=None) -> (params, moments)`` and updates in place.  Only
-AdamW and SGD are ported; LARS is ROADMAP A4.
+lr=None, step=None) -> (params, moments)`` and updates in place.
 """
 
 from __future__ import annotations
@@ -13,25 +12,22 @@ from distributed_machine_learning_tpu_torch.train.adamw import (
     adamw_init,
     adamw_update,
 )
+from distributed_machine_learning_tpu_torch.train.lars import LARSConfig, lars_update
 from distributed_machine_learning_tpu_torch.train.sgd import SGDConfig, sgd_init, sgd_update
 
 OPTIMIZERS = {
-    "adamw": (AdamWConfig, adamw_init, adamw_update),
     "sgd": (SGDConfig, sgd_init, sgd_update),
+    "lars": (LARSConfig, sgd_init, lars_update),
+    "adamw": (AdamWConfig, adamw_init, adamw_update),
 }
-NOT_PORTED = ("lars",)
 
 
 def optimizer_names() -> list[str]:
-    """Every optimizer name the reference knows, ported or not."""
-    return sorted([*OPTIMIZERS, *NOT_PORTED])
+    return sorted(OPTIMIZERS)
 
 
 def get_optimizer(name: str):
     """(config_class, init_fn, update_fn) for ``name``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: ROADMAP A4 (train/lars.py)")
     try:
         return OPTIMIZERS[name]
     except KeyError:
@@ -49,9 +45,6 @@ def _entry_for_config(config):
 
 def config_class_by_name(class_name: str):
     """Config class by its ``__name__`` (a checkpoint's ``__class__``)."""
-    if class_name == "LARSConfig":
-        raise NotImplementedError(
-            "a LARS checkpoint needs train/lars.py, not ported yet: ROADMAP A4")
     for cfg_cls, _init, _update in OPTIMIZERS.values():
         if cfg_cls.__name__ == class_name:
             return cfg_cls

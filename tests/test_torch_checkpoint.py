@@ -49,7 +49,7 @@ PARAM_ATOL = 2e-5
 
 # -- helpers -------------------------------------------------------------------
 def _vgg_state(config=None, seed=0):
-    from distributed_machine_learning_tpu_torch.models.vgg import get_model, init_params
+    from distributed_machine_learning_tpu_torch.models.registry import get_model, init_params
 
     model = init_params(get_model("vggtest", use_bn=True, device="cpu"), seed)
     return TrainState.create(model, config or SGDConfig())

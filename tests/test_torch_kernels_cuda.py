@@ -1279,7 +1279,7 @@ def _flat_rank(rank, world, init_method):
     shard; rank 1's ZeRO-1 slice misaligned), sync and overlap, and
     fsdp_pl's LM step (flash, bf16), on the card in 2 ranks."""
     from distributed_machine_learning_tpu_torch.cli import lm
-    from distributed_machine_learning_tpu_torch.models.vgg import VGG, init_params
+    from distributed_machine_learning_tpu_torch.models.vgg import VGG, init_vgg
     from distributed_machine_learning_tpu_torch.parallel import fsdp, zero1
     from distributed_machine_learning_tpu_torch.runtime.distributed import (
         initialize_from_flags,
@@ -1302,7 +1302,7 @@ def _flat_rank(rank, world, init_method):
                                       ("fsdp", (fsdp.shard_fsdp_state,
                                                 fsdp.make_fsdp_train_step))):
             for overlap in (False, True):
-                model = init_params(VGG("VGGTEST", use_bn=True, device=dev), 0)
+                model = init_vgg(VGG("VGGTEST", use_bn=True, device=dev), 0)
                 state, unravel, n = shard(TrainState.create(model, AdamWConfig(fused=True)),
                                           comm)
                 step = make(model, comm, unravel, n, augment=True, overlap=overlap)

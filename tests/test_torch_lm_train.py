@@ -230,10 +230,9 @@ def test_cli_prints_the_protocol_lines(capsys):
 def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_lm.main(["--max-iters", "1"])
-    for flags, item in ((["--parallel", "tp"], "A5c"),
-                        (["--momentum-dtype", "bfloat16"], "A4"), (["--n-experts", "4"], "A5"),
+    for flags, item in ((["--parallel", "tp"], "A5c"), (["--n-experts", "4"], "A5"),
                         (["--telemetry-dir", "x"], "A6"), (["--parallel", "pp"], "A5c"),
-                        (["--optimizer", "sgd"], "A4")):
+                        (["--parallel", "3d"], "A5c"), (["--moe-impl", "grouped"], "A5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             cli_lm.main(["--device", "cpu", *flags])
 
@@ -249,3 +248,57 @@ def test_trainer_imports_no_jax():
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('distributed_machine_learning_tpu.') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.mark.parametrize("opt", ["sgd_bf16", "lars"])
+def test_sgd_and_lars_three_steps_match_reference(opt):
+    """``cli.lm --optimizer sgd --momentum-dtype bfloat16`` and ``--optimizer
+    lars`` at the small width: the config the CLI builds, then 3 steps from
+    the reference's weights against the reference's trajectory (same losses
+    and parameters as the AdamW test's tolerances; SGD's buffers are rounded
+    to bf16 on both sides from f32 values equal to summation order, so an
+    element at a rounding boundary may land one bf16 step away and carry it:
+    buffers within two bf16 steps, 2^-6 relative, plus one bf16 step at the
+    leaf's largest magnitude for elements that cancel toward zero)."""
+    from distributed_machine_learning_tpu.train.lars import LARSConfig as RefLARS
+    from distributed_machine_learning_tpu.train.sgd import SGDConfig as RefSGD
+
+    flags = (["--optimizer", "sgd", "--momentum-dtype", "bfloat16"] if opt == "sgd_bf16"
+             else ["--optimizer", "lars"])
+    cfg = cli_lm.optimizer_config(cli_lm.make_parser().parse_args(flags))
+    ref_cfg = RefSGD(momentum_dtype="bfloat16") if opt == "sgd_bf16" else RefLARS()
+    assert cfg.__class__.__name__ == ref_cfg.__class__.__name__
+    assert vars(cfg) == vars(ref_cfg)
+    model = RefLM(**MODEL, attn_impl="flash")
+    ref = ref_init(model, seed=69143, config=ref_cfg)
+    init = jax.device_get(ref.params)
+    ref_step, want = ref_step_fn(model), []
+    for x, y in _batches():
+        ref, loss = ref_step(ref, x, y)
+        want.append(float(loss))
+    state = TrainState.create(_port_model("flash", init), cfg)
+    step, losses = make_lm_train_step(state.model), []
+    for x, y in _batches():
+        state, loss = step(state, torch.from_numpy(x).long(), torch.from_numpy(y).long())
+        losses.append(float(loss))
+    np.testing.assert_allclose(losses, want, rtol=LOSS_RTOL)
+    got = state.model.state_dict()
+    for name, w in flax_to_state_dict(jax.device_get(ref.params)).items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=0, atol=PARAM_ATOL,
+                                   err_msg=name)
+    bufs = flax_to_state_dict(jax.device_get(ref.momentum))
+    for name, w in bufs.items():
+        m = state.momentum[name]
+        assert m.dtype == (torch.bfloat16 if opt == "sgd_bf16" else torch.float32)
+        w = w.float().numpy()
+        np.testing.assert_allclose(m.float().numpy(), w, rtol=2.0 ** -6,
+                                   atol=2.0 ** -8 * float(np.abs(w).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("flags", [["--optimizer", "sgd", "--momentum-dtype", "bfloat16"],
+                                   ["--optimizer", "lars"]])
+def test_cli_trains_under_sgd_and_lars(flags, capsys):
+    cli_lm.main(["--device", "cpu", "--d-model", "64", "--n-layers", "2", "--n-heads", "4",
+                 "--n-kv-heads", "2", "--seq-len", "128", "--batch-size", "2",
+                 "--max-iters", "2", "--attn", "flash", *flags])
+    assert "Total execution time is : " in capsys.readouterr().out

@@ -17,6 +17,7 @@ from distributed_machine_learning_tpu_torch.data import sharding as tshard
 from distributed_machine_learning_tpu_torch.data.distributed_loader import (
     DistributedBatchLoader,
 )
+from distributed_machine_learning_tpu_torch.models import registry
 from distributed_machine_learning_tpu_torch.models import vgg as tvgg
 
 
@@ -71,12 +72,21 @@ def test_forward_eval_and_train_vs_flax(name, use_bn):
 
 
 def test_param_counts_and_refusals():
-    counts = {use_bn: sum(p.numel() for p in tvgg.get_model("vgg11", use_bn=use_bn,
-                                                             device="meta").parameters())
+    counts = {use_bn: sum(p.numel() for p in registry.get_model("vgg11", use_bn=use_bn,
+                                                                device="meta").parameters())
               for use_bn in (False, True)}
     assert counts == {False: 9_225_610, True: 9_231_114}
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tvgg.get_model("resnet18")
+    # The registry's ResNets (BN always on: use_bn is accepted and ignored), at
+    # torchvision's counts for a 10-class head (CIFAR stem; the ImageNet stem's
+    # 7x7 kernel adds 64 x 3 x (49 - 9)).
+    resnets = {(name, stem): sum(p.numel() for p in registry.get_model(
+        name, use_bn=False, cifar_stem=stem, device="meta").parameters())
+        for name, stem in (("resnet18", True), ("resnet18", False), ("resnet34", True),
+                           ("resnet50", True))}
+    assert resnets == {("resnet18", True): 11_173_962, ("resnet18", False): 11_181_642,
+                       ("resnet34", True): 21_282_122, ("resnet50", True): 23_520_842}
+    with pytest.raises(ValueError, match="unknown model"):
+        registry.get_model("resnet101")
 
 
 def _jax_draws(key, n):

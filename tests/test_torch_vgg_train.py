@@ -223,12 +223,10 @@ def test_cli_part3_int8_two_processes():
 def test_cli_refusals():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpart1.main(["--max-iters", "1"])
-    for flags, item in ((["--ckpt-dir", "x"], "A4"), (["--faults", "nan@1"], "A6"),
-                        (["--telemetry-dir", "x"], "A6"), (["--loader", "native"], "A4"),
-                        (["--loader-retries", "2"], "A4"), (["--ring-topology", "2x1"], "A5"),
-                        (["--dist-eval"], "A4"), (["--optimizer", "lars"], "A4"),
-                        (["--fused-update"], "A4"), (["--lr-schedule", "cosine"], "A4"),
-                        (["--grad-accum", "2"], "A4"), (["--model", "resnet18"], "A4")):
+    for flags, item in ((["--faults", "nan@1"], "A6"), (["--telemetry-dir", "x"], "A6"),
+                        (["--trace-dir", "x"], "A6"), (["--metrics-file", "x"], "A6"),
+                        (["--gang-dir", "x"], "A6"), (["--watchdog-timeout", "5"], "A6"),
+                        (["--ring-topology", "2x1"], "A5c")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tpart3.main(["--device", "cpu", *flags])
     with pytest.raises(ValueError, match="single-process"):
@@ -239,7 +237,9 @@ def test_cli_refusals():
 def test_vgg_path_imports_no_jax():
     code = ("import sys\n"
             "for m in ('cli.part1', 'cli.part2a', 'cli.part2b', 'cli.part3', 'ops.ring',\n"
-            "          'parallel.strategies', 'train.step', 'runtime.launch'):\n"
+            "          'parallel.strategies', 'train.step', 'runtime.launch', 'cli.parity',\n"
+            "          'models.resnet', 'models.registry', 'train.lars', 'data.retry',\n"
+            "          'data.native_loader'):\n"
             "    __import__('distributed_machine_learning_tpu_torch.' + m)\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('distributed_machine_learning_tpu.') for m in sys.modules)")
