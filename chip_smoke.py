@@ -85,6 +85,36 @@ Run from the root of a checkout:  python3 chip_smoke.py
    --drain-after 16``, which must exit 0 with the audit passing.  Step 2
    also holds K5 over 4-slot pages at head dim 32 and K6 at that CLI
    engine's shapes to their plain versions.
+5c. The rest of serving (ROADMAP A8, ``serve_a8``), with a d512 / 2-layer
+   / 16-head / 4-KV-head draft from seed 11 (head dim 32) and gamma 4:
+   (a) speculative decoding at B 1 x 4096 + 128 new, the random draft and
+   the target as its own draft, against vanilla greedy; K1 once a layer of
+   each prefill, K4 once a draft layer a draft step (S 4608), never in the
+   verify pass; rounds, accepted tokens a round, round ms and tokens/s
+   beside vanilla B 1; (b) B 8 x 4096 + 64 on per-row frontiers (K4 never),
+   each row against vanilla B 8; (c) sampled (temperature 0.8, top-k 50,
+   top-p 0.95), 64 tokens in the vocabulary, and ``sampled_acceptance`` on
+   the card against the CPU's in f64 (n_acc equal, residual 1e-6); (d) an
+   int8 target against vanilla int8 greedy, K6's calls by route; (e) an int8
+   KV cache at B 8 against vanilla int8-KV greedy; (f) the MoE model (d1024
+   / 8 layers / 16 heads / 4 KV heads, 8 experts of d_ff 4096, bf16) at B 8
+   x 1024 + 64: cached decode against the teacher-forced forward (0.1 on
+   the logits at every position), int8 experts against the dequantized
+   model (K6 on the attention projections and the head only), speculative
+   against the MoE model, decode ms a step in bf16 and int8 at B 8 and 1;
+   (h) ``python -m ...cli.generate --tp 2`` (ranks sharing the card) at
+   MODEL's width with a 4096-byte prompt, bf16, then int8 with
+   --spec-gamma 4: every rank exits 0 with one stream, K1 and K4 (and K6)
+   launched on every rank, the stream against the single card's.  Greedy
+   streams are judged by the tie rule (``tie_gate``): the emitted stream
+   is fed back through the reference (vanilla greedy's loop; an MoE
+   model's teacher-forced forward, ``routed_forward``), and every emitted
+   token's reference logit must be within TIE_TOL (0.0625) of the top one.
+   An MoE reference takes the path's expert where the two part at a router
+   near-tie (top-2 probabilities within ROUTER_TOL, 0.02), and they may part
+   at no more than FLIP_SHARE (5 %) of the decisions.
+   Step 2 also holds K1, K4 and K6 at every shape these legs give them
+   (``check_a8_shapes``).
 6. Trains the same model through ``cli.lm``'s ``build`` and
    ``train_epoch``, as its ``main`` runs them (``--parallel dp``, B 4 ×
    L 4096, bf16 compute over f32 master weights, ``--fused-update``,
@@ -118,7 +148,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the plain path, K1, K5 and K6 launched; then ``python -m
    ...cli.deploy --replicas 4 --requests 300 --deploys 2``, and again with
    ``--inject regression@2`` (one rollback), both exit 0.  Save, restore,
-   verify and load seconds and GB/s are logged with the card.
+   verify and load seconds and GB/s are logged with the card.  Leg (g) of
+   step 5c (``ckpt_distill_leg``): ``cli.distill`` on the step-4
+   checkpoint (a d512 / 2-layer draft, L 512, B 8, 40 iterations; exit 0,
+   its loss falling), then ``cli.generate --draft-ckpt-dir --spec-gamma 4
+   --quant int8 --temperature 0``, its stream against the plain command's
+   and its acceptance beside the random draft's.
 
 7. Trains the reference-parity VGG-11 parts through ``cli.common.run_part``,
    as their ``main`` runs it, each rank a process sharing the card (gloo
@@ -153,7 +188,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    then the real command: two processes of ``python -m
    ...cli.lm --parallel ring --num-nodes 2`` at 2 layers × L 8192.  The
    same for ``--parallel ulysses``; then ``--parallel fsdp`` (flat ZeRO-3,
-   W 2 × B 4 × L 2048, sync and ``--overlap-update``), whose final state is
+   W 2 × B 4 × L 2048 at 4 of the 8 layers since PR 19 (time limit), sync
+   and ``--overlap-update``), whose final state is
    saved under ``ShardSpec("fsdp", 2, n)`` and restored at worlds 1 and 4
    (logical prefixes bit for bit the saved ones) and served through
    ``load_serving_weights`` (greedy tokens equal to the gathered
@@ -197,8 +233,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (f) ``cli.lm`` dp
    B 4 × L 4096 flash under ``--optimizer sgd --momentum-dtype bfloat16``
    and ``lars`` beside AdamW (K1-K3 launched, the same step-0 loss).
-12. This slice's card tests (``tests/test_torch_kernels_cuda.py -k
-   trainers_on_the_card``, ``--noconftest``).
+12. The card tests of the latest slices (``tests/test_torch_kernels_cuda.py
+   -k "trainers_on_the_card or speculative_and_moe"``, ``--noconftest``).
 
 Step 2 also holds the int8 ring codec K8 (with and without residual), K9
 and K10 to their plain versions BIT FOR BIT at the VGG path's chunk
@@ -217,6 +253,9 @@ The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
 no result, without a CUDA device or outside the repository.
 ``--check-only`` stops after step 2 (a short first run of new kernels).
+``--only a8,ckpt,tests`` runs step 2's checks untimed, then only the named
+phases (``PHASES``) with their gates, and prints no result: a short loop
+for the work on those paths.
 ``--perturb NAME`` builds one kernel from a deliberately broken copy of
 its source (under ``build/perturbed/``; the checkout is not touched), runs
 the kernel checks and the logit checks (for a training kernel: the trainer
@@ -924,7 +963,7 @@ def fsdp_shard_len(world: int) -> int:
     from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
     from distributed_machine_learning_tpu_torch.runtime.mesh import padded_len
 
-    n = sum(p.numel() for p in TransformerLM(**MODEL, device="meta").parameters())
+    n = sum(p.numel() for p in TransformerLM(**FSDP_MODEL, device="meta").parameters())
     return padded_len(n, world) // world
 
 
@@ -1747,6 +1786,63 @@ def check_fleet_shapes(torch, da, qm) -> None:
             compare(f"quant_matmul cli engine f32 x R={R} D={D} K={K} "
                     f"({qm.int8_route(R, D, K)} route)", got,
                     qm.int8_matmul_reference(x, qw, sc), failed, tol=GEMM_F32_TOL)
+    raise_failed(failed)
+
+
+def check_a8_shapes(torch, fa, da, qm) -> None:
+    """K1, K4 and K6 against their plain versions at the shapes the A8 legs
+    give them, with the row gates: the draft (D 32: prefill B 1 and B 8 x
+    4096, decode B 1 at S 4608 past the prompt), the MoE model (D 64:
+    prefill B 8 x 1024; its attention projections and head at decode R 8
+    and prefill R 8 x 1024), the speculative verify pass (R = gamma + 1 at
+    every projection of the target), and a --tp 2 rank (H 8 / Hkv 2, D 128:
+    prefill B 1 x 4096, decode at S 4608; its local projections at R 1, 5
+    and 4096)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    failed = []
+    H, Hkv = MODEL["n_heads"], MODEL["n_kv_heads"]
+    D32, D64, D128 = (A8_DRAFT["d_model"] // A8_DRAFT["n_heads"],
+                      A8_MOE["d_model"] // A8_MOE["n_heads"], MODEL["d_model"] // H)
+    for label, B, L, h, hkv, D in (("draft", 1, PROMPT, H, Hkv, D32),
+                                   ("draft", BATCH, PROMPT, H, Hkv, D32),
+                                   ("MoE", A8_MOE_BATCH, A8_MOE_PROMPT, H, Hkv, D64),
+                                   ("tp rank", 1, PROMPT, H // A8_TP, Hkv // A8_TP, D128)):
+        q = torch.randn(B, L, h, D, device="cuda", generator=gen).bfloat16()
+        k = torch.randn(B, L, hkv, D, device="cuda", generator=gen).bfloat16()
+        v = torch.randn(B, L, hkv, D, device="cuda", generator=gen).bfloat16()
+        got = fa.flash_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        compare(f"flash_fwd {label} B={B} L={L} H={h} Hkv={hkv} D={D}", got,
+                fa.flash_attention_reference(q, k, v), failed)
+        del q, k, v, got
+    S = 4608
+    for label, h, hkv, D, positions in (
+            ("draft", H, Hkv, D32, (PROMPT, PROMPT + 63, PROMPT + 134)),
+            ("tp rank", H // A8_TP, Hkv // A8_TP, D128, (PROMPT, PROMPT + A8_TP_NEW - 2))):
+        q = torch.randn(1, 1, h, D, device="cuda", generator=gen).bfloat16()
+        kc = torch.randn(1, hkv, S, D, device="cuda", generator=gen).bfloat16()
+        vc = torch.randn(1, hkv, S, D, device="cuda", generator=gen).bfloat16()
+        for pos in positions:
+            got = da.cached_flash_attention(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            compare(f"decode_attention {label} B=1 S={S} H={h} Hkv={hkv} D={D} pos={pos}",
+                    got, da.cached_attention_reference(q, kc, vc, pos), failed)
+    E, V, F = MODEL["d_model"], MODEL["vocab_size"], 4 * MODEL["d_model"]
+    kv = 2 * Hkv * D128
+    Em = A8_MOE["d_model"]
+    cases = [("verify", A8_GAMMA + 1, D, K) for D, K in ((E, E), (E, kv), (E, F), (F, E), (E, V))]
+    cases += [("MoE", R, D, K) for R in (A8_MOE_BATCH, A8_MOE_BATCH * A8_MOE_PROMPT)
+              for D, K in ((Em, Em), (Em, 2 * Hkv * D64), (Em, V))]
+    cases += [("tp rank", R, D, K) for R in (1, A8_GAMMA + 1, PROMPT)
+              for D, K in ((E, E // A8_TP), (E, kv // A8_TP), (E // A8_TP, E),
+                           (E, F // A8_TP), (F // A8_TP, E), (E, V))]
+    for label, R, D, K in cases:
+        x = torch.randn(R, D, device="cuda", generator=gen).bfloat16()
+        w, s = qm.quantize_int8(torch.randn(D, K, device="cuda", generator=gen) / math.sqrt(D))
+        got = qm.int8_matmul(x, w, s)
+        torch.cuda.synchronize()
+        compare(f"quant_matmul {label} R={R} D={D} K={K} ({qm.int8_route(R, D, K)} route)",
+                got, qm.int8_matmul_reference(x, w, s), failed)
     raise_failed(failed)
 
 
@@ -2712,6 +2808,668 @@ def run_serve_cli(torch) -> None:
                                  f"tail {(res.stdout + res.stderr)[-2000:]}")
 
 
+# The rest of serving (ROADMAP A8, step 5c): speculative decoding, MoE
+# serving, cli.distill and --tp decode.  The speculative legs' draft: d512 /
+# 2 layers / 16 heads / 4 KV heads (head dim 32, which K1 and K4 take), its
+# weights from seed 11 as the CLI's random-init draft; gamma 4.
+A8_DRAFT = dict(vocab_size=32000, d_model=512, n_layers=2, n_heads=16, n_kv_heads=4)
+A8_DRAFT_SEED, A8_GAMMA = 11, 4
+A8_NEW = dict(a=128, b=64, c=64, d=64, e=32)  # new tokens of legs (a)-(e)
+A8_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+# JAX's measured MoE serving shape (bf16), B 8 x 1024 + 64 new; the cached
+# decode is held against the teacher-forced forward over its first steps.
+A8_MOE = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=4,
+              n_experts=8, d_ff=4096)
+A8_MOE_BATCH, A8_MOE_PROMPT, A8_MOE_NEW, A8_MOE_TF_STEPS = 8, 1024, 64, 8
+# cli.generate --tp: ranks, a 4096-byte prompt (4096 tokens at vocab 32000),
+# new tokens.
+A8_TP, A8_TP_PROMPT, A8_TP_NEW = 2, "The " * 1024, 32
+# cli.distill on the checkpoint phase's step-4 checkpoint.
+A8_DISTILL = ["--draft-d-model", "512", "--draft-n-layers", "2", "--draft-n-heads", "16",
+              "--draft-n-kv-heads", "4", "--seq-len", "512", "--batch-size", "8",
+              "--max-iters", "40"]
+A8_COLUMNS = ("spec", "moe", "distill", "tp")
+
+
+# The tie rule on the card (JAX's bf16 caveat: two computations of one
+# greedy stream may part where the top logits nearly tie), with fixed
+# limits.  The stream a path emitted is fed back through the reference
+# (``tie_gate``): vanilla greedy's loop teacher-forced on it, or for an MoE
+# model its teacher-forced forward (``routed_forward``).  At every position
+# the emitted token's reference logit must be at most TIE_TOL below the
+# reference's top logit.  Two computations' logits read 0.031-0.039 apart
+# (the verify pass vs one-token steps, two ranks' f32 sum vs one card; H100
+# 80GB HBM3, 700 W), so their argmaxes may sit up to twice that apart;
+# TIE_TOL is two bf16 ulps of a logit in [4, 8), where these random models'
+# top logits sit.  A wrong path is off by O(1) (a dropped key tile reads
+# 1.56-1.66).
+TIE_TOL = 0.0625
+# Routing: the path may choose another expert than the reference only
+# where the reference's top-2 router probabilities are within ROUTER_TOL
+# (two computations' router probabilities read 3.7e-3 to 9.5e-3 apart), and
+# at no more than FLIP_SHARE of the decisions (readings: 4 of 66,048 for
+# the cached decode against the teacher-forced forward; 968 of about 66,000
+# for int8 experts against the dequantized model, knock-on flips included).
+ROUTER_TOL = 0.02
+FLIP_SHARE = 0.05
+
+
+def decode_trace(torch, model, prompt, new: int, toks=None):
+    """Vanilla greedy generate's loop (prefill, then one decode step a
+    token, on the cache generate allocates), fed ``toks`` [B, new] when
+    given (teacher forcing) or else its own argmax: (tokens [B, new], the
+    f32 logits that predict them [B, new, V])."""
+    B, Lp = prompt.shape
+    with torch.inference_mode():
+        cache = model.init_cache(B, -(-(Lp + new) // 512) * 512)
+        logits = [model(prompt, cache=cache, start=0, last_only=True)[:, -1].float()]
+        picks = [logits[-1].argmax(-1) if toks is None else toks[:, 0]]
+        for i in range(new - 1):
+            logits.append(model(picks[-1][:, None], cache=cache, start=Lp + i)[:, -1].float())
+            picks.append(logits[-1].argmax(-1) if toks is None else toks[:, i + 1])
+    return torch.stack(picks, 1), torch.stack(logits, 1)
+
+
+class RouteTape:
+    """The experts an MoE model's calls chose, by absolute position: a
+    forward pre-hook reads each call's ``start`` (an int or a [B] tensor)
+    and every layer's ``route`` records its choice.  A later call at a
+    position overwrites an earlier one (a verify pass redoes the positions
+    a rejected draft held), so ``experts(P)`` [layers, B, P] holds the
+    choices behind each position's cache rows."""
+
+    def __init__(self, torch, model):
+        self.torch, self.calls, self.mods = torch, [], [b.moe for b in model.blocks]
+
+        def pre(mod, args, kwargs):
+            self.calls.append((args[0].shape, kwargs.get("start", 0), []))
+
+        def recording(route):
+            def recorded(tokens):
+                out = route(tokens)
+                self.calls[-1][2].append(out[1])
+                return out
+            return recorded
+
+        self.handle = model.register_forward_pre_hook(pre, with_kwargs=True)
+        for mod in self.mods:
+            mod.route = recording(mod.route)
+
+    def close(self):
+        self.handle.remove()
+        for mod in self.mods:
+            del mod.route  # the class's method again
+
+    def experts(self, P: int):
+        torch = self.torch
+        B, dev = self.calls[0][0][0], self.calls[0][2][0].device
+        out = torch.full((len(self.mods), B, P), -1, dtype=torch.long, device=dev)
+        rows = torch.arange(B, device=dev)[:, None]
+        for (_, T), start, picks in self.calls:
+            pos = (torch.as_tensor(start, device=dev).reshape(-1, 1)
+                   + torch.arange(T, device=dev)).expand(B, T)
+            keep = pos < P
+            for li, idx in enumerate(picks):
+                out[li, rows.expand(B, T)[keep], pos[keep]] = idx.reshape(B, T)[keep]
+        if bool((out < 0).any()):
+            raise AssertionError(f"the path left positions of the first {P} unrouted")
+        return out
+
+
+def routed_forward(torch, label: str, model, seq, chosen):
+    """``model``'s teacher-forced forward over ``seq`` [B, P] (flash
+    attention, dropless experts), its router taking the path's expert
+    ``chosen`` [layers, B, P] wherever the two part at a router near-tie
+    (the reference's top-2 probabilities within ROUTER_TOL), so that both
+    compute each position from the same experts.  Raises where they part
+    otherwise, or at more than FLIP_SHARE of the decisions.  Returns
+    (logits [B, P, V] in the compute dtype, the routing's log line)."""
+    ref = model.clone(attn_impl="flash")
+    ref.load_state_dict(model.state_dict())
+    ref.eval()
+    flips, bad, widest = [], [], []
+
+    def forcing(mod, want):
+        def forced(tokens):
+            _, idx, probs = type(mod).route(mod, tokens)
+            top2 = probs.topk(2, dim=-1).values
+            flip = want != idx
+            near = flip & (top2[:, 0] - top2[:, 1] < ROUTER_TOL)
+            flips.append(flip.sum())
+            bad.append((flip & ~near).sum())
+            widest.append(torch.where(near, top2[:, 0] - top2[:, 1], 0.0).max())
+            idx = torch.where(near, want, idx)
+            return probs.gather(1, idx[:, None])[:, 0], idx, probs
+        return forced
+
+    for li, block in enumerate(ref.blocks):
+        block.moe.route = forcing(block.moe, chosen[li].reshape(-1))
+    with torch.inference_mode():
+        logits = ref(seq)
+    n_flip, n_bad = int(sum(flips)), int(sum(bad))
+    share = n_flip / chosen.numel()
+    line = (f"; routing parts from the reference's at {n_flip} of {chosen.numel()} "
+            f"decisions ({share:.2e}, limit {FLIP_SHARE}), {n_bad} of them beyond a "
+            f"router near-tie (widest near-tie {float(max(widest)):.2e}, limit {ROUTER_TOL})")
+    del ref
+    if n_bad or share > FLIP_SHARE:
+        raise AssertionError(f"{label}: the path's routing leaves the reference's{line}")
+    return logits, line
+
+
+def tie_gate(torch, label: str, model, prompt, got, routes=None) -> None:
+    """The tie rule on a greedy stream ``got`` [B, n] that a path emitted
+    after ``prompt``: fed back through the reference (vanilla greedy's loop
+    of ``model``; an MoE ``model``'s ``routed_forward`` on the path's
+    RouteTape ``routes``), every emitted token's reference logit within
+    TIE_TOL of the reference's top logit.  Logs where the stream leaves the
+    reference's argmax and by how much; raises beyond TIE_TOL."""
+    B, L = prompt.shape
+    n = got.shape[1]
+    if routes is None:
+        _, logits = decode_trace(torch, model, prompt, n, got)
+        line = ""
+    else:
+        seq = torch.cat([prompt, got[:, :-1]], 1)
+        full, line = routed_forward(torch, label, model, seq, routes.experts(L + n - 1))
+        logits = full[:, L - 1:].float()
+        del full
+    top, best = logits.max(-1)
+    gap = top - logits.gather(-1, got[..., None])[..., 0]
+    off = (got != best).nonzero().tolist()
+    notes = [f"row {b} at {j}: gap {float(gap[b, j]):.4f}" for b, j in off[:12]]
+    worst = float(gap.max())
+    log(f"{label}: {B * n - len(off)} of {B * n} tokens the reference's argmax, the others "
+        f"{notes or 'none'}{' ...' if len(off) > 12 else ''}; largest gap {worst:.4f} (tol "
+        f"{TIE_TOL}){line}")
+    if worst > TIE_TOL or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: a token {worst:.4f} below the reference's top logit, "
+                             f"beyond the tie rule's {TIE_TOL}")
+
+def a8_draft(torch, device, kv_cache_dtype=None):
+    """The legs' random draft in bf16 (the CLI's: seed 11)."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+
+    draft = TransformerLM(**A8_DRAFT, compute_dtype=torch.bfloat16,
+                          kv_cache_dtype=kv_cache_dtype, device=device)
+    init_params(draft, seed=A8_DRAFT_SEED)
+    return draft.to(torch.bfloat16).eval()
+
+
+def host_s(torch, fn):
+    """(result, host seconds) of ``fn()`` to its last kernel."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def a8_spec_run(torch, build, fn, args, totals: dict):
+    """One counted speculative run: (tokens, seconds, launches, stats)."""
+    from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+
+    build.reset_launch_counts()
+    qm.reset_route_calls()
+    out, secs = host_s(torch, lambda: fn(*args))
+    launches = dict(build.launches)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    return out, secs, launches, dict(fn.stats)
+
+
+def a8_check_launches(label: str, launches: dict, want: dict) -> None:
+    log(f"{label} launches: {launches} (want {want})")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} {launches[name]} launches, want {n}")
+
+
+def a8_spec_b1(torch, build, target, draft, prompt, totals: dict) -> None:
+    """(a) B 1 x 4096, 128 new, gamma 4, greedy: the random draft and the
+    target as its own draft, against vanilla greedy; K1 once a layer of each
+    prefill, K4 once a draft layer a draft step (gamma + 1 a round, S 4608),
+    never in the verify pass."""
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+
+    n, Lp = A8_NEW["a"], prompt.shape[1]
+    vanilla = make_generate_fn(target, n)
+    want, secs = host_s(torch, lambda: vanilla(prompt)[:, Lp:])
+    tie_gate(torch, "(a) vanilla greedy B 1, teacher-forced through its own loop", target,
+             prompt, want)
+    _, van = host_s(torch, lambda: vanilla(prompt))
+    log(f"(a) vanilla B 1: {n / van:.1f} tok/s ({van * 1e3 / n:.3f} ms a token; first "
+        f"call {secs:.3f} s)")
+    for label, d in (("random draft", draft), ("draft = target", target)):
+        fn = make_speculative_generate_fn(target, d, n, gamma=A8_GAMMA)
+        out, _, launches, st = a8_spec_run(torch, build, fn, (prompt,), totals)
+        tie_gate(torch, f"(a) speculative B 1, {label}, teacher-forced through vanilla "
+                 f"greedy ({int((out[:, Lp:] == want).sum())} of {n} tokens vanilla's)",
+                 target, prompt, out[:, Lp:])
+        layers = d.n_layers
+        a8_check_launches(f"(a) {label}", launches, {
+            "flash_fwd": MODEL["n_layers"] + layers,
+            "decode_attention": layers * (A8_GAMMA + 1) * st["rounds"]})
+        _, again = host_s(torch, lambda: fn(prompt))
+        log(f"(a) {label} [{card_line()}]: {st['rounds']} rounds, "
+            f"{st['accepted'] / st['rounds']:.3f} accepted tokens a round, round "
+            f"{again * 1e3 / st['rounds']:.3f} ms, {n / again:.1f} tok/s against vanilla "
+            f"{n / van:.1f} ({van / again:.3f}x)")
+
+
+def a8_spec_batched(torch, build, target, draft, prompts, totals: dict) -> None:
+    """(b) B 8 x 4096, 8 distinct prompts, 64 new: per-row frontiers (K4
+    never: its reads stop at one scalar frontier), each row against vanilla
+    B 8 greedy."""
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+
+    n, (B, Lp) = A8_NEW["b"], prompts.shape
+    vanilla = make_generate_fn(target, n)
+    want = vanilla(prompts)[:, Lp:]
+    _, van = host_s(torch, lambda: vanilla(prompts))
+    fn = make_speculative_generate_fn(target, draft, n, gamma=A8_GAMMA)
+    out, secs, launches, st = a8_spec_run(torch, build, fn, (prompts,), totals)
+    tie_gate(torch, f"(b) speculative B 8, per-row frontiers, teacher-forced through vanilla "
+             f"B 8 greedy ({int((out[:, Lp:] == want).all(1).sum())} of {B} rows vanilla's)",
+             target, prompts, out[:, Lp:])
+    a8_check_launches("(b)", launches, {"flash_fwd": MODEL["n_layers"] + A8_DRAFT["n_layers"],
+                                        "decode_attention": 0})
+    _, again = host_s(torch, lambda: fn(prompts))
+    log(f"(b) speculative B {B} [{card_line()}]: {st['rounds']} rounds, "
+        f"{st['accepted'] / (st['rounds'] * B):.3f} accepted tokens a round a row, round "
+        f"{again * 1e3 / st['rounds']:.3f} ms, {B * n / again:.1f} tok/s against vanilla "
+        f"{B * n / van:.1f} ({van / again:.3f}x)")
+
+
+def a8_sampled(torch, build, target, draft, prompt, totals: dict) -> None:
+    """(c) B 1, sampled (temperature 0.8, top-k 50, top-p 0.95), 64 new:
+    exactly 64 tokens in the vocabulary; then the acceptance rule on the card
+    against the CPU's in f64 on the same inputs (fixed uniforms)."""
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+        sampled_acceptance,
+    )
+
+    n, Lp = A8_NEW["c"], prompt.shape[1]
+    fn = make_speculative_generate_fn(target, draft, n, gamma=A8_GAMMA, **A8_SAMPLING)
+    gen = torch.Generator(device=prompt.device).manual_seed(SEED)
+    out, secs, _, st = a8_spec_run(torch, build, fn, (prompt, gen), totals)
+    new = out[:, Lp:]
+    log(f"(c) sampled B 1 {A8_SAMPLING}: {new.shape[1]} tokens in [{int(new.min())}, "
+        f"{int(new.max())}], {st['rounds']} rounds, {st['accepted'] / st['rounds']:.3f} "
+        f"accepted a round, {secs:.3f} s")
+    if new.shape != (1, n) or int(new.min()) < 0 or int(new.max()) >= MODEL["vocab_size"]:
+        raise AssertionError(f"(c) sampled speculative: {tuple(new.shape)} tokens out of range")
+    dev = prompt.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B, V = 8, MODEL["vocab_size"]
+    q = torch.softmax(3 * torch.randn(B, A8_GAMMA, V, device=dev, generator=g), -1)
+    p = torch.softmax(3 * torch.randn(B, A8_GAMMA + 1, V, device=dev, generator=g), -1)
+    p[:2, :A8_GAMMA] = q[:2]  # draft = target rows: every proposal accepted
+    d = torch.multinomial(q.reshape(-1, V), 1, generator=g).reshape(B, A8_GAMMA)
+    u = torch.rand(B, A8_GAMMA, device=dev, generator=g)
+    n_acc, resid = sampled_acceptance(d, q, p, u)
+    want_n, want_r = sampled_acceptance(*(t.cpu().double() if t.is_floating_point()
+                                          else t.cpu() for t in (d, q, p, u)))
+    err = float((resid.cpu().double() - want_r).abs().max())
+    log(f"(c) sampled_acceptance on the card vs the CPU in f64: n_acc {n_acc.tolist()} vs "
+        f"{want_n.tolist()}, residual max |diff| {err:.3e} (tol 1e-6)")
+    if not torch.equal(n_acc.cpu(), want_n) or err > 1e-6:
+        raise AssertionError("(c) sampled_acceptance on the card disagrees with the CPU's")
+
+
+def a8_int8_target(torch, build, target8, draft, prompt, totals: dict) -> None:
+    """(d) an int8 target (K6 in the prefill, the verify pass and the head),
+    B 1, 64 new, against vanilla int8 greedy; K6's calls by route."""
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+    from distributed_machine_learning_tpu_torch.ops import quant_matmul as qm
+
+    n, Lp = A8_NEW["d"], prompt.shape[1]
+    fn = make_speculative_generate_fn(target8, draft, n, gamma=A8_GAMMA, quantize="int8")
+    out, secs, launches, st = a8_spec_run(torch, build, fn, (prompt,), totals)
+    routes = dict(qm.route_calls)
+    tie_gate(torch, "(d) speculative, int8 target, teacher-forced through vanilla int8 "
+             "greedy", target8, prompt, out[:, Lp:])
+    want_routes = {"wgmma": 5 * MODEL["n_layers"], "tile": 0,
+                   "skinny": 1 + (5 * MODEL["n_layers"] + 1) * st["rounds"]}
+    log(f"(d) int8 target: K6 calls by route {routes} (want {want_routes}); "
+        f"{st['rounds']} rounds, {n / secs:.1f} tok/s")
+    if routes != want_routes or launches["quant_matmul"] != sum(routes.values()):
+        raise AssertionError(f"(d) quant_matmul routes {routes}, want {want_routes}")
+
+
+def a8_kv_int8(torch, build, target, draft, prompts, totals: dict) -> None:
+    """(e) an int8 KV cache (target and draft) at B 8, 32 new, against
+    vanilla int8-KV greedy: per-row int8 rows and scales, the scale-folding
+    einsum."""
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+
+    n, Lp = A8_NEW["e"], prompts.shape[1]
+    t8 = kv_int8_model(torch, target, tiered=False)
+    d8 = kv_int8_model(torch, draft, tiered=False)
+    fn = make_speculative_generate_fn(t8, d8, n, gamma=A8_GAMMA)
+    out, secs, launches, st = a8_spec_run(torch, build, fn, (prompts,), totals)
+    tie_gate(torch, "(e) speculative B 8, int8 KV, teacher-forced through vanilla int8-KV "
+             "greedy", t8, prompts, out[:, Lp:])
+    a8_check_launches("(e)", launches, {"decode_attention": 0, "decode_attention_int8": 0})
+    del t8, d8
+
+
+def a8_dequantized(torch, qm_model):
+    """The float (bf16) twin of an int8 MoE model holding its dequantized
+    weights: the int8 read path's serving reference."""
+    sd = qm_model.state_dict()
+    out = {}
+    for key, t in sd.items():
+        module, _, leaf = key.rpartition(".")
+        if leaf == "w_q":
+            out[f"{module}.weight"] = (t.float() * sd[f"{module}.scale"]).t()
+        elif leaf in ("w_in_q", "w_out_q"):
+            out[f"{module}.{leaf[:-2]}"] = t.float() * sd[f"{module}.{leaf[:-2]}_scale"][:, None]
+        elif leaf != "scale" and not leaf.endswith("_scale"):
+            out[key] = t
+    fm = qm_model.clone(weight_quant=None)
+    fm.load_state_dict(out)
+    return fm.to(torch.bfloat16).eval()
+
+
+def a8_moe_teacher_forced(torch, moe, prompts, want) -> None:
+    """(f) the cached decode's logits (prefill and the first A8_MOE_TF_STEPS
+    steps of the stream ``want``) against the teacher-forced forward over
+    the same tokens (``routed_forward``: flash attention on both, so the
+    prompt's rows are computed as the prefill computes them; the decode's
+    experts at router near-ties), within LOGIT_TOL at every position."""
+    L, k = prompts.shape[1], A8_MOE_TF_STEPS
+    tape = RouteTape(torch, moe)
+    try:
+        with torch.inference_mode():
+            cache = moe.init_cache(prompts.shape[0], -(-(L + k + 1) // 512) * 512)
+            cached = [moe(prompts, cache=cache, start=0, last_only=True)[:, -1].float()]
+            for i in range(k):
+                cached.append(moe(want[:, i:i + 1], cache=cache, start=L + i)[:, -1].float())
+    finally:
+        tape.close()
+    cached = torch.stack(cached, 1)
+    full, line = routed_forward(torch, "(f) MoE cached decode", moe,
+                                torch.cat([prompts, want[:, :k]], 1), tape.experts(L + k))
+    full = full[:, L - 1:].float()
+    diff = float((cached - full).abs().max())
+    log(f"(f) MoE cached decode vs teacher-forced (flash on both): max |logit diff| "
+        f"{diff:.4f} over {cached.shape[0]} x {k + 1} positions (tol {LOGIT_TOL}; logit std "
+        f"{float(full.std()):.3f}){line}")
+    if not torch.isfinite(cached).all() or diff > LOGIT_TOL:
+        raise AssertionError("(f) MoE cached decode disagrees with the teacher-forced forward")
+
+
+def a8_decode_ms(torch, model, prompt, steps: int = 16) -> float:
+    """Median decode ms a step (model step + greedy sample, CUDA events over
+    ``steps`` steps, 3 repeats) after a prefill."""
+    B, Lp = prompt.shape
+    with torch.inference_mode():
+        cache = model.init_cache(B, -(-(Lp + steps) // 512) * 512)
+        first = model(prompt, cache=cache, start=0, last_only=True)[:, -1].argmax(-1)
+
+        def loop():
+            tok = first
+            for i in range(steps):
+                tok = model(tok[:, None], cache=cache, start=Lp + i)[:, -1].argmax(-1)
+
+        loop()
+        reps = sorted(event_ms(torch, loop) / steps for _ in range(3))
+    return reps[1]
+
+
+def a8_moe(torch, build, draft, totals: dict) -> None:
+    """(f) MoE serving at JAX's measured shape: the cached decode against the
+    teacher-forced forward; int8 experts against the dequantized model (K6
+    on the attention projections and the head only: 3 a layer + 1 a
+    forward); speculative decoding with an MoE target; decode ms a step,
+    bf16 and int8, at B 8 and B 1."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+    from distributed_machine_learning_tpu_torch.models.moe import MoETransformerLM
+    from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm
+
+    dev = draft.device
+    master = MoETransformerLM(**A8_MOE, moe_impl="grouped", compute_dtype=torch.bfloat16,
+                              device=dev)
+    init_params(master, seed=SEED)
+    moe8 = quantize_lm(master).eval()
+    moe = master.to(torch.bfloat16).eval()
+    del master
+    dq = a8_dequantized(torch, moe8)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    prompts = torch.randint(0, A8_MOE["vocab_size"], (A8_MOE_BATCH, A8_MOE_PROMPT),
+                            generator=g, device=dev)
+    L, n = A8_MOE_PROMPT, A8_MOE_NEW
+
+    def counted(fn):
+        build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, c in build.launches.items():
+            totals[name] = totals.get(name, 0) + c
+        return out, dict(build.launches)
+
+    (want, _), l_bf16 = counted(lambda: decode_trace(torch, moe, prompts, n))
+    a8_check_launches("(f) MoE bf16 generate", l_bf16, {
+        "flash_fwd": A8_MOE["n_layers"], "decode_attention": 0, "quant_matmul": 0})
+    a8_moe_teacher_forced(torch, moe, prompts, want)
+    tape = RouteTape(torch, moe8)
+    try:
+        (int8, _), l_int8 = counted(lambda: decode_trace(torch, moe8, prompts, n))
+    finally:
+        tape.close()
+    a8_check_launches("(f) MoE int8 generate (K6: attention and head only)", l_int8, {
+        "flash_fwd": A8_MOE["n_layers"], "quant_matmul": (3 * A8_MOE["n_layers"] + 1) * n})
+    tie_gate(torch, "(f) MoE int8 experts, teacher-forced through the dequantized model", dq,
+             prompts, int8, tape)
+    fn = make_speculative_generate_fn(moe, draft, n, gamma=A8_GAMMA)
+    tape = RouteTape(torch, moe)
+    try:
+        (out, _), l_spec = counted(lambda: (fn(prompts), None))
+    finally:
+        tape.close()
+    st = fn.stats
+    tie_gate(torch, f"(f) MoE target, speculative B 8, teacher-forced through the MoE model "
+             f"({int((out[:, L:] == want).all(1).sum())} of {out.shape[0]} rows vanilla's)",
+             moe, prompts, out[:, L:], tape)
+    log(f"(f) MoE speculative: {st['rounds']} rounds, launches {l_spec}")
+    times = {f"{mode} B {B}": a8_decode_ms(torch, m, prompts[:B])
+             for mode, m in (("bf16", moe), ("int8", moe8)) for B in (A8_MOE_BATCH, 1)}
+    log(f"(f) MoE decode ms a step [{card_line()}]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; int8/bf16 at B {A8_MOE_BATCH} "
+        f"{times[f'int8 B {A8_MOE_BATCH}'] / times[f'bf16 B {A8_MOE_BATCH}']:.3f}, at B 1 "
+        f"{times['int8 B 1'] / times['bf16 B 1']:.3f}")
+    del moe, moe8, dq
+
+
+def a8_tp(torch, models, totals: dict) -> None:
+    """(h) ``python -m ...cli.generate --tp 2`` at MODEL's width, a 4096-byte
+    prompt, --random-init, greedy: bf16, then int8 weights with
+    --spec-gamma 4 (the legs' draft, whole on every rank).  Every rank exits
+    0 with one stream, equal to the single card's under the tie rule; K1,
+    K4 (and K6) launched on every rank at local shapes."""
+    import os
+
+    from distributed_machine_learning_tpu_torch.data.text import encode_prompt
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+
+    dev = models["bf16"].device
+    prompt = torch.tensor([encode_prompt(A8_TP_PROMPT, MODEL["vocab_size"])], device=dev)
+    Lp = prompt.shape[1]
+    base = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.generate",
+            "--random-init", "--tp", str(A8_TP), "--d-model", str(MODEL["d_model"]),
+            "--n-layers", str(MODEL["n_layers"]), "--n-heads", str(MODEL["n_heads"]),
+            "--n-kv-heads", str(MODEL["n_kv_heads"]), "--vocab", str(MODEL["vocab_size"]),
+            "--prompt", A8_TP_PROMPT, "--max-new-tokens", str(A8_TP_NEW), "--temperature", "0"]
+    spec = ["--quant", "int8", "--spec-gamma", str(A8_GAMMA), "--draft-d-model", "512",
+            "--draft-n-layers", "2", "--draft-n-heads", "16", "--draft-n-kv-heads", "4"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    layers = MODEL["n_layers"]
+    for label, extra, mode in (("bf16", [], "bf16"), ("int8 + speculative", spec, "int8")):
+        t0 = time.perf_counter()
+        res = subprocess.run(base + extra, capture_output=True, text=True, env=env,
+                             timeout=600)
+        secs = time.perf_counter() - t0
+        lines = res.stdout.splitlines()
+        banner = next((ln for ln in lines if ln.startswith("tp=")), None)
+        per_rank = next((ln for ln in lines if ln.startswith("tp rank kernel launches:")), None)
+        stats = next((ln for ln in lines if ln.startswith("speculative:")), "")
+        rank_s = next((ln for ln in lines if ln.startswith("tp rank request seconds:")), "")
+        log(f"(h) cli.generate --tp {A8_TP} {label} ({secs:.1f} s): exit code "
+            f"{res.returncode}; {banner}; {per_rank}; {rank_s}; {stats}")
+        if res.returncode != 0 or banner is None or per_rank is None:
+            raise AssertionError(f"(h) cli.generate --tp: exit code {res.returncode}; "
+                                 f"output tail {(res.stdout + res.stderr)[-3000:]}")
+        got = torch.tensor([[int(t) for t in lines[-1][len(A8_TP_PROMPT):].split()]],
+                           device=dev)
+        ranks = json.loads(per_rank.split(":", 1)[1])
+        for r, rl in enumerate(ranks):
+            for name, n in rl.items():
+                totals[name] = totals.get(name, 0) + n
+            need = ["flash_fwd", "decode_attention"] + (["quant_matmul"] if extra else [])
+            if any(rl.get(k, 0) == 0 for k in need):
+                raise AssertionError(f"(h) rank {r} launched {rl}, needs each of {need}")
+            if not extra and (rl["flash_fwd"] != layers
+                              or rl["decode_attention"] != layers * (A8_TP_NEW - 1)):
+                raise AssertionError(f"(h) rank {r}: {rl}, want flash_fwd {layers} and "
+                                     f"decode_attention {layers * (A8_TP_NEW - 1)}")
+        model = models[mode]
+        if got.shape != (1, A8_TP_NEW):
+            raise AssertionError(f"(h) {tuple(got.shape)} tokens, want {(1, A8_TP_NEW)}")
+        tie_gate(torch, f"(h) --tp {A8_TP} {label}, teacher-forced through the single card's "
+                 f"vanilla greedy ({Lp}-token prompt)", model, prompt, got)
+        if extra:
+            one = make_speculative_generate_fn(model, a8_draft(torch, dev), A8_TP_NEW,
+                                               gamma=A8_GAMMA, quantize="int8")
+        else:
+            one = make_generate_fn(model, A8_TP_NEW)
+        one(prompt)
+        _, single = host_s(torch, lambda: one(prompt))
+        tp_s = max(json.loads(rank_s.split(":", 1)[1]))
+        log(f"(h) {label} [{card_line()}]: a request ({Lp} + {A8_TP_NEW} tokens) on "
+            f"{A8_TP} ranks sharing the card {tp_s:.3f} s (slowest rank) against "
+            f"{single:.3f} s on the single card ({tp_s / single:.2f}x)")
+
+
+def a8_record(rows: dict, column: str, totals: dict) -> None:
+    for key, row in rows.items():
+        row[f"{column}_launches"] = totals.get(key.split(":")[0], 0)
+
+
+def serve_a8(torch, build, models, rows: dict) -> None:
+    """Step 5c: legs (a)-(f) and (h) on the target in both modes (the
+    checkpoint phase runs leg (g), cli.distill)."""
+    dev = models["bf16"].device
+    draft = a8_draft(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    prompts = torch.randint(0, MODEL["vocab_size"], (BATCH, PROMPT), generator=g, device=dev)
+    spec: dict = {}
+    for leg, run in (("a", lambda: a8_spec_b1(torch, build, models["bf16"], draft,
+                                              prompts[:1], spec)),
+                     ("b", lambda: a8_spec_batched(torch, build, models["bf16"], draft,
+                                                   prompts, spec)),
+                     ("c", lambda: a8_sampled(torch, build, models["bf16"], draft,
+                                              prompts[:1], spec)),
+                     ("d", lambda: a8_int8_target(torch, build, models["int8"], draft,
+                                                  prompts[:1], spec)),
+                     ("e", lambda: a8_kv_int8(torch, build, models["bf16"], draft,
+                                              prompts, spec))):
+        t0 = time.perf_counter()
+        run()
+        log(f"A8 leg ({leg}): {time.perf_counter() - t0:.1f} s")
+    a8_record(rows, "spec", spec)
+    moe: dict = {}
+    t0 = time.perf_counter()
+    a8_moe(torch, build, draft, moe)
+    log(f"A8 leg (f): {time.perf_counter() - t0:.1f} s")
+    a8_record(rows, "moe", moe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp: dict = {}
+    t0 = time.perf_counter()
+    a8_tp(torch, models, tp)
+    log(f"A8 leg (h): {time.perf_counter() - t0:.1f} s")
+    a8_record(rows, "tp", tp)
+
+
+def ckpt_distill_leg(torch, build, ckdir: str, state, card: str) -> dict:
+    """(g) ``cli.distill`` on the step-4 checkpoint (exit 0, its loss
+    falling), then ``cli.generate --draft-ckpt-dir --spec-gamma 4 --quant
+    int8 --temperature 0``: its tokens against the plain command's stream
+    (the in-memory step-4 weights, int8) under the tie rule, its acceptance
+    beside the random draft's.  Returns the leg's launches."""
+    from distributed_machine_learning_tpu_torch.cli import distill, generate
+    from distributed_machine_learning_tpu_torch.data.text import encode_prompt
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm
+
+    device = state.model.device
+    shape = ["--d-model", str(MODEL["d_model"]), "--n-layers", str(MODEL["n_layers"]),
+             "--n-heads", str(MODEL["n_heads"]), "--n-kv-heads", str(MODEL["n_kv_heads"]),
+             "--vocab", str(MODEL["vocab_size"]), "--device", str(device)]
+    ddir = f"{ckdir}/draft"
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    path, lines = captured(distill.main, ["--target-ckpt-dir", ckdir, "--ckpt-dir", ddir,
+                                          *shape, *A8_DISTILL])
+    secs = time.perf_counter() - t0
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in lines if ln.startswith("iter ")]
+    log(f"(g) cli.distill [{card}]: {secs:.1f} s; "
+        + " | ".join(ln for ln in lines if ln.startswith(("distill:", "iter ", "Total",
+                                                          "draft checkpoint"))))
+    if len(losses) < 2 or not losses[-1] < losses[0] or not math.isfinite(losses[-1]):
+        raise AssertionError(f"(g) cli.distill's loss does not fall: {losses}")
+    draft_flags = A8_DISTILL[:8]
+    flags = ["--ckpt-dir", ckdir, "--draft-ckpt-dir", ddir, "--spec-gamma", str(A8_GAMMA),
+             "--quant", "int8", "--temperature", "0", "--prompt", CKPT_PROMPT,
+             "--max-new-tokens", str(CKPT_NEW_TOKENS), *shape, *draft_flags]
+    t0 = time.perf_counter()
+    tokens, lines = captured(generate.main, flags)
+    torch.cuda.synchronize()
+    stats = next((ln for ln in lines if ln.startswith("speculative:")), "")
+    log(f"(g) cli.generate --draft-ckpt-dir --spec-gamma {A8_GAMMA} --quant int8: "
+        f"{time.perf_counter() - t0:.1f} s; {stats}")
+    launches = dict(build.launches)
+    model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16, device=device)
+    model.load_state_dict(state.model.state_dict())
+    model = quantize_lm(model).eval()
+    prompt = torch.tensor([encode_prompt(CKPT_PROMPT, MODEL["vocab_size"])], device=device)
+    tie_gate(torch, "(g) distilled draft, speculative, teacher-forced through cli.generate's "
+             "vanilla greedy (int8, without --spec-gamma)", model, prompt,
+             torch.tensor([tokens], device=device))
+    fn = make_speculative_generate_fn(model, a8_draft(torch, device), CKPT_NEW_TOKENS,
+                                      gamma=A8_GAMMA, quantize="int8")
+    fn(prompt)
+    st = fn.stats
+    distilled = stats.split("(")[1].split(" a round")[0] if stats else "?"
+    log(f"(g) accepted tokens a round: distilled draft {distilled}; the random draft "
+        f"{st['accepted'] / st['rounds']:.2f} ({st['rounds']} rounds)")
+    del model
+    return launches
+
+
 # Trainer gates, kernel path vs plain path of one train step from the same
 # state (step 2, after a warm step: the moments are non-zero), each at
 # ~2.5x its reading on an H100 80GB HBM3 (700 W): the mean loss over the
@@ -3272,11 +4030,13 @@ def ckpt_resume_leg(torch, build, ckdir: str, ctx, times: dict, card: str):
     return state, launches
 
 
-def ckpt_generate_leg(torch, build, ckdir: str, state, times: dict, card: str) -> dict:
+def ckpt_generate_leg(torch, build, ckdir: str, state, times: dict, card: str,
+                      shape: dict = MODEL) -> dict:
     """``cli.generate --ckpt-dir --quant int8 --temperature 0`` in this
     process (it must return, K1 and K6 launched); its greedy tokens must
     equal the same prompt's from the in-memory weights, quantized by
-    quantize_lm, in the CLI's model.  Returns the leg's launches."""
+    quantize_lm, in the CLI's model (of ``shape``).  Returns the leg's
+    launches."""
     from distributed_machine_learning_tpu_torch.cli import generate
     from distributed_machine_learning_tpu_torch.data.text import encode_prompt
     from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
@@ -3285,9 +4045,9 @@ def ckpt_generate_leg(torch, build, ckdir: str, state, times: dict, card: str) -
 
     flags = ["--ckpt-dir", ckdir, "--quant", "int8", "--temperature", "0",
              "--prompt", CKPT_PROMPT, "--max-new-tokens", str(CKPT_NEW_TOKENS),
-             "--d-model", str(MODEL["d_model"]), "--n-layers", str(MODEL["n_layers"]),
-             "--n-heads", str(MODEL["n_heads"]), "--n-kv-heads", str(MODEL["n_kv_heads"]),
-             "--vocab", str(MODEL["vocab_size"]), "--device", str(state.model.device)]
+             "--d-model", str(shape["d_model"]), "--n-layers", str(shape["n_layers"]),
+             "--n-heads", str(shape["n_heads"]), "--n-kv-heads", str(shape["n_kv_heads"]),
+             "--vocab", str(shape["vocab_size"]), "--device", str(state.model.device)]
     for name in times:
         times[name].clear()
     build.reset_launch_counts()
@@ -3306,10 +4066,10 @@ def ckpt_generate_leg(torch, build, ckdir: str, state, times: dict, card: str) -
         if launches[name] == 0:
             raise AssertionError(f"cli.generate --ckpt-dir: {name} never launched")
     device = state.model.device
-    model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16, device=device)
+    model = TransformerLM(**shape, compute_dtype=torch.bfloat16, device=device)
     model.load_state_dict(state.model.state_dict())
     model = quantize_lm(model).eval()
-    prompt = torch.tensor([encode_prompt(CKPT_PROMPT, MODEL["vocab_size"])])
+    prompt = torch.tensor([encode_prompt(CKPT_PROMPT, shape["vocab_size"])])
     fn = make_generate_fn(model, CKPT_NEW_TOKENS, temperature=0.0, quantize="int8")
     want = fn(prompt, torch.Generator(device=device).manual_seed(0))[0, prompt.shape[1]:]
     want = want.tolist()
@@ -3547,6 +4307,9 @@ def checkpoint_phase(torch, build, rows: dict, card: str) -> None:
             torch.cuda.empty_cache()
             state, l_resume = ckpt_resume_leg(torch, build, ckdir, ctx, times, card)
             l_gen = ckpt_generate_leg(torch, build, ckdir, state, times, card)
+            t0 = time.perf_counter()
+            l_distill = ckpt_distill_leg(torch, build, ckdir, state, card)
+            log(f"A8 leg (g): {time.perf_counter() - t0:.1f} s")
         del state
         gc.collect()
         torch.cuda.empty_cache()
@@ -3558,6 +4321,7 @@ def checkpoint_phase(torch, build, rows: dict, card: str) -> None:
         name = key.split(":")[0]
         row["ckpt_launches"] = sum(leg.get(name, 0) for leg in (l_save, l_resume, l_gen,
                                                                  l_deploy))
+        row["distill_launches"] = l_distill.get(name, 0)
     log(f"checkpoint phases: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4306,13 +5070,17 @@ def run_ring_cli(torch, backend: str | None = None) -> None:
 # attention (the reference's rule), B 4 x L 2048 (2 rows a rank): first the
 # sync step, then --overlap-update, then (rank 0) --parallel dp on one
 # process from the same seeded weights and batches.
-FSDP = dict(world=2, seq_len=2048, batch_size=4, max_iters=4)
+# The ZeRO-3 cells (flat fsdp and fsdp_pl) run MODEL's width at 4 of its 8
+# layers (depth cut to keep the whole run inside its time limit, PR 19).
+FSDP = dict(world=2, seq_len=2048, batch_size=4, max_iters=4, n_layers=4)
+FSDP_MODEL = {**MODEL, "n_layers": FSDP["n_layers"]}
 
 
 def fsdp_args(rank: int, world: int, *extra: str):
     return trainer_args("--parallel", "fsdp", "--num-nodes", str(world), "--rank", str(rank),
                         "--attn", "auto", "--seq-len", str(FSDP["seq_len"]), "--batch-size",
-                        str(FSDP["batch_size"]), *extra, iters=FSDP["max_iters"])
+                        str(FSDP["batch_size"]), "--n-layers", str(FSDP["n_layers"]), *extra,
+                        iters=FSDP["max_iters"])
 
 
 def fsdp_rank(rank: int, world: int, init_method: str, ckdir: str) -> dict:
@@ -4403,7 +5171,8 @@ def fsdp_dp_compare(torch, final: dict) -> dict:
     from distributed_machine_learning_tpu_torch.train.loop import train_epoch
 
     args = trainer_args("--attn", "dense", "--seq-len", str(FSDP["seq_len"]),
-                        "--batch-size", str(FSDP["batch_size"]), iters=FSDP["max_iters"])
+                        "--batch-size", str(FSDP["batch_size"]), "--n-layers",
+                        str(FSDP["n_layers"]), iters=FSDP["max_iters"])
     step, state, place, model = lm.build(args)
     init = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
     losses: list = []
@@ -4977,7 +5746,7 @@ def flat_ckpt_lm(torch, build, path: str, final: dict, saved: dict) -> dict:
     build.reset_launch_counts()
     for label, qparams in (("checkpoint", loaded["quantized"]),
                            ("direct", quantize_lm_params(final))):
-        model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16, weight_quant="int8",
+        model = TransformerLM(**FSDP_MODEL, compute_dtype=torch.bfloat16, weight_quant="int8",
                               device=device)
         model.load_state_dict(qparams)
         fn = make_generate_fn(model.eval(), CKPT_NEW_TOKENS, temperature=0.0, quantize="int8")
@@ -5022,7 +5791,8 @@ def report_flat_ckpt_lm(rec: dict, card: str) -> None:
 def fsdp_pl_args(rank: int, world: int, *extra: str):
     return trainer_args("--parallel", "fsdp_pl", "--num-nodes", str(world), "--rank", str(rank),
                         "--attn", "flash", "--seq-len", str(FSDP["seq_len"]), "--batch-size",
-                        str(FSDP["batch_size"]), *extra, iters=CKPT_STEPS)
+                        str(FSDP["batch_size"]), "--n-layers", str(FSDP["n_layers"]), *extra,
+                        iters=CKPT_STEPS)
 
 
 def fsdp_pl_rank(rank: int, world: int, init_method: str, ckdir: str, card: str) -> dict:
@@ -5151,11 +5921,11 @@ def fsdp_pl_rank(rank: int, world: int, init_method: str, ckdir: str, card: str)
         ctx.shutdown()
     if rank == 0:
         out["dp"] = fsdp_pl_dp_compare(torch, final, grads0)
-        model = TransformerLM(**MODEL, device=card_device(torch))
+        model = TransformerLM(**FSDP_MODEL, device=card_device(torch))
         model.load_state_dict(final)
         with timed_calls(ck, ("latest_checkpoint", "restore_checkpoint")) as times:
             out["generate"] = ckpt_generate_leg(torch, build, ckdir, SimpleNamespace(model=model),
-                                                times, card)
+                                                times, card, FSDP_MODEL)
     return out
 
 
@@ -5171,7 +5941,8 @@ def fsdp_pl_dp_compare(torch, final: dict, grads0: dict) -> dict:
     from distributed_machine_learning_tpu_torch.train.loop import train_epoch
 
     args = trainer_args("--seq-len", str(FSDP["seq_len"]), "--batch-size",
-                        str(FSDP["batch_size"]), iters=CKPT_STEPS)
+                        str(FSDP["batch_size"]), "--n-layers", str(FSDP["n_layers"]),
+                        iters=CKPT_STEPS)
     step, state, place, model = lm.build(args)
     init = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
     losses: list = []
@@ -5234,7 +6005,7 @@ def run_fsdp_pl(torch, rows: dict, flat_peaks: list, card: str) -> None:
         f"backend {r0['backend']}, wire {r0['wire']}, {r0['device']}; {r0['leaves']} leaves, "
         f"{r0['block_elems']} f32 a rank ({r0['fraction']:.6f} of the elements split); "
         f"{time.perf_counter() - t0:.1f} s with process start")
-    layers = MODEL["n_layers"]
+    layers = FSDP["n_layers"]
     for r, out in enumerate(ranks):
         want = {"flash_fwd": layers * n, "flash_bwd_dq": layers * n,
                 "flash_bwd_dkv": layers * n, "fused_adamw": out["leaves"] * n,
@@ -6059,12 +6830,14 @@ def run_a4(torch, build, rows: dict, card: str) -> dict:
 
 
 def run_card_tests() -> None:
-    """This slice's card tests (``tests/test_torch_kernels_cuda.py``: the
-    flat-shard and per-layer trainers), as the README runs the file:
+    """The card tests of the latest slices (``tests/test_torch_kernels_cuda.py``:
+    the flat-shard and per-layer trainers; speculative decoding and MoE
+    serving), as the README runs the file:
     ``--noconftest`` (the repo's conftest imports JAX)."""
     repo = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "pytest", "tests/test_torch_kernels_cuda.py", "-q",
-           "--noconftest", "-p", "no:cacheprovider", "-k", "trainers_on_the_card"]
+           "--noconftest", "-p", "no:cacheprovider", "-k",
+           "trainers_on_the_card or speculative_and_moe"]
     res = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
     tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
     log(f"card tests ({' '.join(cmd[3:])}): exit code {res.returncode}; {tail}")
@@ -6118,6 +6891,12 @@ def perturb(torch, pkg, name: str) -> int:
             check()
         except AssertionError as exc:
             caught.append(f"kernel: {exc}")
+    if kernel in ("flash_fwd", "decode_attention", "quant_matmul"):
+        log(f"perturbation {name}: the A8 paths' kernel gates")
+        try:
+            check_a8_shapes(torch, fa, da, qm)
+        except AssertionError as exc:
+            caught.append(f"a8: {exc}")
     if kernel in ("ring_codec", "ring_flash"):
         pass  # the kernel gates are what these faults must meet
     elif training:
@@ -6206,13 +6985,26 @@ def device_busy(torch, prof):
     return len(spans), busy, spans[-1][1] - spans[0][0], by_name
 
 
+# The run's phases after the kernel checks, in order, for ``--only``:
+# serve (steps 4-5b), a8 (5c), train (6), ckpt (6b, with cli.distill), vgg,
+# ring, ulysses, fsdp (fsdp and fsdp_pl), zero1 (zero1/fsdp_cnn and their
+# checkpoints), a4, tests (the card tests).
+PHASES = ("serve", "a8", "train", "ckpt", "vgg", "ring", "ulysses", "fsdp", "zero1", "a4",
+          "tests")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check-only", action="store_true",
                     help="build and check the kernels, then stop")
     ap.add_argument("--perturb", choices=sorted(PERTURBATIONS),
                     help="show which checks catch a deliberately broken kernel")
+    ap.add_argument("--only", metavar="PHASE,...", type=lambda v: v.split(","),
+                    help="after the kernel checks (untimed), run only these phases of "
+                         f"{', '.join(PHASES)}, with their gates, and print no result")
     args = ap.parse_args(argv)
+    if args.only and set(args.only) - set(PHASES):
+        ap.error(f"--only: unknown phases {sorted(set(args.only) - set(PHASES))}")
 
     import torch
 
@@ -6259,7 +7051,7 @@ def main(argv=None) -> int:
                     log(f"  ptxas {name}: {line.strip()}")
 
     rows: dict = {}
-    timing = not args.check_only
+    timing = not (args.check_only or args.only)
     log("kernel vs plain on the card:")
     check_flash(torch, fa, rows, timing)
     check_decode(torch, da, rows, timing)
@@ -6267,6 +7059,7 @@ def main(argv=None) -> int:
     check_int8(torch, qm, rows, timing)
     check_paged(torch, da, rows)
     check_fleet_shapes(torch, da, qm)
+    check_a8_shapes(torch, fa, da, qm)
     check_flash_bwd(torch, fa, rows, timing)
     check_adamw(torch, fadam, rows, timing)
     check_ulysses_shapes(torch, fa, rows, timing)
@@ -6280,67 +7073,90 @@ def main(argv=None) -> int:
         log("check-only: kernels build and agree with their plain versions")
         return 0
 
-    crossover(torch, da)
-    models, prompt = make_models(torch, pkg)
-    bf16_out = serve(torch, build, models, prompt, rows)
-    t0 = time.perf_counter()
-    serve_kv_int8(torch, build, models, prompt, rows, bf16_out)
-    log(f"int8-KV phases: {time.perf_counter() - t0:.1f} s")
-    del bf16_out
-    t0 = time.perf_counter()
-    serve_engine(torch, build, da, models["bf16"], rows)
-    log(f"engine phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serve_fleet(torch, build, models["bf16"], rows, card)
-    log(f"fleet phases: {time.perf_counter() - t0:.1f} s")
-    del models, prompt
+    def wanted(phase: str) -> bool:
+        return not args.only or phase in args.only
+
+    if wanted("serve") or wanted("a8"):
+        if wanted("serve"):
+            crossover(torch, da)
+        models, prompt = make_models(torch, pkg)
+        if wanted("serve"):
+            bf16_out = serve(torch, build, models, prompt, rows)
+            t0 = time.perf_counter()
+            serve_kv_int8(torch, build, models, prompt, rows, bf16_out)
+            log(f"int8-KV phases: {time.perf_counter() - t0:.1f} s")
+            del bf16_out
+            t0 = time.perf_counter()
+            serve_engine(torch, build, da, models["bf16"], rows)
+            log(f"engine phases: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            serve_fleet(torch, build, models["bf16"], rows, card)
+            log(f"fleet phases: {time.perf_counter() - t0:.1f} s")
+        if wanted("a8"):
+            t0 = time.perf_counter()
+            serve_a8(torch, build, models, rows)
+            log(f"A8 phases (a)-(f), (h): {time.perf_counter() - t0:.1f} s")
+        del models, prompt
+        gc.collect()
+        torch.cuda.empty_cache()
+    if wanted("train"):
+        train(torch, build, rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if wanted("ckpt"):
+        checkpoint_phase(torch, build, rows, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if wanted("vgg"):
+        t0 = time.perf_counter()
+        run_vgg(torch, rows)
+        run_vgg_cli(torch)
+        log(f"vgg phases: {time.perf_counter() - t0:.1f} s")
+    dp_loss = ring_dp_loss(torch) if wanted("ring") or wanted("ulysses") else None
+    if wanted("ring"):
+        t0 = time.perf_counter()
+        run_cp(torch, rows, "ring", dp_loss)
+        run_ring_cli(torch)
+        log(f"ring phases: {time.perf_counter() - t0:.1f} s")
+    if wanted("ulysses"):
+        t0 = time.perf_counter()
+        run_cp(torch, rows, "ulysses", dp_loss)
+        log(f"ulysses phase: {time.perf_counter() - t0:.1f} s")
+    if wanted("fsdp"):
+        t0 = time.perf_counter()
+        flat_peaks = run_fsdp(torch, rows, card)
+        log(f"fsdp and flat_ckpt (LM) phases: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_fsdp_pl(torch, rows, flat_peaks, card)
+        log(f"fsdp_pl phase: {time.perf_counter() - t0:.1f} s")
+    if wanted("zero1"):
+        t0 = time.perf_counter()
+        build_dir = Path(__file__).resolve().parent / "build"
+        build_dir.mkdir(exist_ok=True)
+        ckdir = tempfile.mkdtemp(prefix="zero1_ckpt_", dir=build_dir)
+        try:
+            zero1_rec = run_flat_cnn(torch, rows, ckdir)
+            flat_ckpt_zero1(torch, zero1_rec)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        log(f"zero1/fsdp_cnn and flat_ckpt (zero1) phases: {time.perf_counter() - t0:.1f} s")
+    parity = run_a4(torch, build, rows, card) if wanted("a4") else None
     gc.collect()
     torch.cuda.empty_cache()
-    train(torch, build, rows)
-    gc.collect()
-    torch.cuda.empty_cache()
-    checkpoint_phase(torch, build, rows, card)
-    gc.collect()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run_vgg(torch, rows)
-    run_vgg_cli(torch)
-    log(f"vgg phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dp_loss = ring_dp_loss(torch)
-    run_cp(torch, rows, "ring", dp_loss)
-    run_ring_cli(torch)
-    log(f"ring phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    run_cp(torch, rows, "ulysses", dp_loss)
-    log(f"ulysses phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    flat_peaks = run_fsdp(torch, rows, card)
-    log(f"fsdp and flat_ckpt (LM) phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    run_fsdp_pl(torch, rows, flat_peaks, card)
-    log(f"fsdp_pl phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    build_dir = Path(__file__).resolve().parent / "build"
-    build_dir.mkdir(exist_ok=True)
-    ckdir = tempfile.mkdtemp(prefix="zero1_ckpt_", dir=build_dir)
     try:
-        zero1_rec = run_flat_cnn(torch, rows, ckdir)
-        flat_ckpt_zero1(torch, zero1_rec)
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    log(f"zero1/fsdp_cnn and flat_ckpt (zero1) phases: {time.perf_counter() - t0:.1f} s")
-    parity = run_a4(torch, build, rows, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    try:
-        run_card_tests()
+        if wanted("tests"):
+            run_card_tests()
     except BaseException:
-        a4_parity_stop(parity)
+        if parity is not None:
+            a4_parity_stop(parity)
         raise
-    a4_parity_finish(parity)
+    if parity is not None:
+        a4_parity_finish(parity)
     log(f"card tests phase and the end of a4 (e): {time.perf_counter() - t0:.1f} s")
+    if args.only:
+        log(f"--only {','.join(args.only)}: every gate of these phases passed")
+        return 0
 
     pallas = "distributed_machine_learning_tpu/ops/pallas/"
     replaces = {  # kernel name: (source, the TPU kernel body it replaces)
@@ -6380,7 +7196,9 @@ def main(argv=None) -> int:
             "zero1_cnn_launches": row["zero1_cnn_launches"],
             "fsdp_cnn_launches": row["fsdp_cnn_launches"],
             "flat_ckpt_launches": row["flat_ckpt_launches"],
-            "a4_launches": row["a4_launches"], "shape": row["shape"]})
+            "a4_launches": row["a4_launches"],
+            **{f"{c}_launches": row.get(f"{c}_launches", 0) for c in A8_COLUMNS},
+            "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,9 +28,15 @@ transposed); :func:`flax_vgg_tree` maps a params-shaped tree of the port
 (gradients, SGD buffers) the other way.  :func:`flax_resnet_to_state_dict`
 maps a reference ``ResNet``'s params and batch_stats (every kernel HWIO ->
 OIHW, every BN's scale/bias/mean/var, ``bn_down`` included, ``fc`` kernel
-transposed).
-:func:`init_params` draws fresh weights for a port model from a
-``torch.Generator``.
+transposed).  :func:`flax_moe_to_state_dict` maps a reference
+``MoETransformerLM`` (float or int8 tree): the dense table above for the
+attention, the LayerNorms, the embedding and the head, and each block's
+``moe`` module as ``blocks.i.moe``: ``router/kernel`` [D, E] →
+``router.weight`` [E, D], the expert leaves (``w_in`` [E, D, F], ``b_in``,
+``w_out`` [E, F, D], ``b_out``; int8: ``w_in_q``, ``w_in_scale``,
+``w_out_q``, ``w_out_scale``) unchanged.
+:func:`init_params` draws fresh weights for a port model (dense or MoE)
+from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -70,7 +76,8 @@ def _layer_norm(leaves: dict, prefix: str, out: dict) -> None:
 
 def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """Reference ``TransformerLM`` params (float or int8 tree) → the port's
-    ``state_dict``, for ``TransformerLM.load_state_dict``."""
+    ``state_dict``, for ``TransformerLM.load_state_dict``; a block with a
+    ``moe`` module maps as :func:`flax_moe_to_state_dict` says."""
     out: dict[str, torch.Tensor] = {
         "embed.weight": _tensor(params["embed"]["embedding"])}
     n_layers = sum(1 for k in params if k.startswith("block_"))
@@ -81,11 +88,29 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         _layer_norm(blk["ln2"], f"{pre}.ln2", out)
         for name, leaves in blk["attn"].items():
             _projection(name, leaves, f"{pre}.attn.{name}", out)
+        if "moe" in blk:
+            _experts(blk["moe"], f"{pre}.moe", out)
+            continue
         _projection("fc_in", blk["fc_in"], f"{pre}.fc_in", out)
         _projection("fc_out", blk["fc_out"], f"{pre}.fc_out", out)
     _layer_norm(params["ln_f"], "ln_f", out)
     _projection("lm_head", params["lm_head"], "lm_head", out)
     return out
+
+
+def _experts(leaves: dict, prefix: str, out: dict) -> None:
+    router = leaves["router"]
+    out[f"{prefix}.router.weight"] = _tensor(router["kernel"]).t().contiguous()
+    out[f"{prefix}.router.bias"] = _tensor(router["bias"])
+    for name, value in leaves.items():
+        if name != "router":
+            out[f"{prefix}.{name}"] = _tensor(value)
+
+
+def flax_moe_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """Reference ``MoETransformerLM`` params (float or int8 tree) → the
+    port's ``state_dict``, for ``MoETransformerLM.load_state_dict``."""
+    return flax_to_state_dict(params)
 
 
 def flax_adamw_state(moments: dict) -> dict[str, dict[str, torch.Tensor]]:
@@ -101,10 +126,12 @@ def flax_adamw_state(moments: dict) -> dict[str, dict[str, torch.Tensor]]:
 
 @torch.no_grad()
 def init_params(model, seed: int = 0) -> None:
-    """Fresh f32 weights for a float port ``TransformerLM``, in place, from
-    ``torch.Generator(device).manual_seed(seed)``: projections normal with
-    std 1/sqrt(fan_in) and zero bias, the embedding normal with std
-    1/sqrt(vocab), LayerNorms at scale 1 and bias 0."""
+    """Fresh f32 weights for a float port ``TransformerLM`` or
+    ``MoETransformerLM``, in place, from
+    ``torch.Generator(device).manual_seed(seed)``: projections (the router
+    and each expert's kernels too) normal with std 1/sqrt(fan_in) and zero
+    bias, the embedding normal with std 1/sqrt(vocab), LayerNorms at scale
+    1 and bias 0."""
     if model.weight_quant is not None:
         raise ValueError("init_params fills a float model; quantize it after")
     gen = torch.Generator(device=model.device).manual_seed(seed)
@@ -113,7 +140,9 @@ def init_params(model, seed: int = 0) -> None:
         base = module.rpartition(".")[2]
         if name == "embed.weight":
             p.normal_(0.0, 1.0 / math.sqrt(p.shape[0]), generator=gen)
-        elif base in QUANT_MODULES and leaf == "weight":
+        elif (base in QUANT_MODULES or base == "router") and leaf == "weight":
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+        elif base == "moe" and leaf in ("w_in", "w_out"):  # [E, fan_in, fan_out]
             p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
         elif leaf == "weight":  # LayerNorm scale
             p.fill_(1.0)

@@ -10,7 +10,12 @@ tokens.  Sampling is f32 and draws from an explicit ``torch.Generator``
 (its bits differ from ``jax.random``'s: greedy decoding is the
 cross-framework contract).  The cache takes the model's
 ``kv_cache_dtype`` (``init_cache``): an int8 cache serves through the same
-loop.  Speculative and tensor-parallel generation are not ported yet.
+loop.  An MoE model (``models/moe.py``) serves through it too: under a
+cache its experts route dropless through the grouped path, as the
+reference's decode clone does.  :func:`make_tp_generate_fn` runs the same
+loop on one rank of a tensor-parallel group over this rank's local-width
+model (``parallel/tensor_parallel.py``); speculative decoding is
+``inference/speculative.py``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,17 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None,
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
 
 
+def check_serving_form(model, quantize: str | None, name: str = "quantize") -> None:
+    """``model`` must be in the serving form ``quantize`` names: its int8
+    twin (``ops.quant.quantize_lm``) for "int8", a float model for None."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"{name} must be None or 'int8', got {quantize!r}")
+    if model.weight_quant != quantize:
+        raise ValueError(
+            f"{name}={quantize!r} but the model has weight_quant="
+            f"{model.weight_quant!r}; pass ops.quant.quantize_lm(model) for int8")
+
+
 def make_generate_fn(model, max_new_tokens: int, temperature: float = 0.0,
                      top_k: int | None = None, quantize: str | None = None,
                      top_p: float | None = None, eos_id: int | None = None):
@@ -73,12 +89,7 @@ def make_generate_fn(model, max_new_tokens: int, temperature: float = 0.0,
     earlier tokens equal the ``eos_id=None`` run's."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if quantize not in (None, "int8"):
-        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
-    if model.weight_quant != quantize:
-        raise ValueError(
-            f"quantize={quantize!r} but the model has weight_quant="
-            f"{model.weight_quant!r}; pass ops.quant.quantize_lm(model) for int8")
+    check_serving_form(model, quantize)
     sample = partial(_sample, temperature=temperature, top_k=top_k, top_p=top_p)
 
     @torch.inference_mode()
@@ -121,6 +132,28 @@ def _generate_body(model, sample, max_new_tokens: int, eos_id: int | None,
     return torch.cat([prompt, buf], dim=1)
 
 
+def make_tp_generate_fn(model, max_new_tokens: int, comm, temperature: float = 0.0,
+                        top_k: int | None = None, quantize: str | None = None,
+                        top_p: float | None = None, eos_id: int | None = None):
+    """Tensor-parallel generation on this rank of ``comm``: the Megatron
+    decode layout (heads, the KV cache and ``d_ff`` ÷ tp; the row-parallel
+    projections summed over the ranks), each rank running
+    :func:`make_generate_fn`'s loop on its local-width model, with its
+    weights sliced from ``model`` (the global model in its serving form:
+    the int8 twin for ``quantize="int8"``).  K1, K4 and K6 see local shapes.
+    Every rank samples from the same logits; with one generator seed on
+    every rank, every rank returns the same tokens."""
+    from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
+        tp_local_model,
+    )
+
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    local = tp_local_model(model, comm, quantize)
+    return make_generate_fn(local, max_new_tokens, temperature, top_k,
+                            quantize=quantize, top_p=top_p, eos_id=eos_id)
+
+
 def _default_generator(model, generator):
     if generator is not None:
         return generator
@@ -131,8 +164,9 @@ def generate(model, prompt, max_new_tokens: int, temperature: float = 0.0,
              top_k: int | None = None, generator: torch.Generator | None = None,
              quantize: str | None = None, top_p: float | None = None,
              eos_id: int | None = None) -> torch.Tensor:
-    """One-shot wrapper around :func:`make_generate_fn`;
-    ``quantize="int8"`` converts a float model with ``quantize_lm``."""
+    """One-shot wrapper around :func:`make_generate_fn` (a dense or MoE
+    model); ``quantize="int8"`` converts a float model with
+    ``quantize_lm``."""
     if quantize == "int8":
         model = quantize_lm(model)
     fn = make_generate_fn(model, max_new_tokens, temperature, top_k,

@@ -6,23 +6,47 @@ serving path: pre-LN blocks, tanh-GELU MLP, split-half RoPE in f32,
 Flax-style LayerNorm (epsilon 1e-6, f32 statistics), f32 logits.
 
 The decode KV cache is head-major ``[B, Hkv, S, D]`` and lives outside
-the module (:class:`KVCache`, from :meth:`TransformerLM.init_cache`); the
-decode position is a host int.  Attention dispatch matches the
+the module (:class:`KVCache`, from :meth:`TransformerLM.init_cache`).  The
+decode frontier ``start`` is a host int (one frontier for every row), or
+a [B] int tensor on the model's device (a frontier per row: batched
+speculative decoding, where rows commit different counts each round;
+the reference's ``decode_batched_frontier``).  Each row writes its L
+fresh K/V rows (and int8 scales) at its own offset, and RoPE and the
+causal masks take [B, L] positions.  Attention dispatch matches the
 reference's decode path:
 
-- prefill (L > 1, start 0): flash when ``flash_wins(L)``, dense below,
-  over the fresh K/V (whatever the cache dtype);
-- one-token decode: ``cached_flash_attention`` when the allocation
-  qualifies and holds at least 4096 slots, the grouped einsum
-  (:func:`_cached_attention`) otherwise;
+- prefill (L > 1, scalar start 0): flash when ``flash_wins(L)``, dense
+  below, over the fresh K/V (whatever the cache dtype);
+- a multi-token continuation (L > 1 at a scalar start > 0, or any L under
+  per-row frontiers: speculative decoding's verify pass): the fresh
+  queries attend the whole cache, masked by absolute position, through
+  the grouped einsum (:func:`_cached_attention`) or, for int8 caches, the
+  scale-folding einsum (:func:`_cached_attention_quant`);
+- one-token decode at a scalar frontier: ``cached_flash_attention`` when
+  the allocation qualifies and holds at least 4096 slots, the grouped
+  einsum otherwise; under per-row frontiers always the einsum (the kernel
+  clamps its reads at one scalar frontier);
 - with an int8 cache (``kv_cache_dtype=torch.int8``: int8 rows plus one
   f32 scale per (kv head, slot), written together by
-  :func:`quantize_kv`), one-token decode takes the scale-folding einsum
-  (:func:`_cached_attention_quant`); with ``int8_tiered_dispatch=True``
-  (the reference's ``_INT8_TIERED_DISPATCH``, default off) it takes the
-  int8 mode of ``cached_flash_attention`` while the position is below
+  :func:`quantize_kv`), one-token decode takes the scale-folding einsum;
+  with ``int8_tiered_dispatch=True`` (the reference's
+  ``_INT8_TIERED_DISPATCH``, default off) it takes the int8 mode of
+  ``cached_flash_attention`` while a scalar position is below
   :data:`INT8_TIER_BREAK_EVEN_PCT` % of the allocation, when that
-  qualifies.  The position is a host int, so the switch is a plain ``if``.
+  qualifies (never under per-row frontiers).  The scalar position is a
+  host int, so the switch is a plain ``if``.
+
+Tensor-parallel decode (the reference's manual Megatron layout): a model
+built at its local width (``n_heads``, ``n_kv_heads`` and ``d_ff`` ÷ tp,
+``head_dim`` pinned to the global width) with ``tp_comm`` set sums the
+row-parallel attention out-projection and ``fc_out`` over the ranks of
+``tp_comm`` (in f32, rounded once to the compute dtype); embeddings, the
+head and the LayerNorms stay whole on every rank
+(``parallel/tensor_parallel.py`` slices the weights).  Decode only.
+
+The feed-forward sub-layer is the dense GELU MLP, or a routed expert
+mixture (``models/moe.py`` builds its blocks with ``moe=``), which routes
+dropless whenever a cache or a paged pool is given.
 
 Per-row (paged) decode serves the continuous-batching engine: one token
 per lane, each lane at its own position, its K/V written into a shared
@@ -46,11 +70,6 @@ sub-layer (``remat_policy="mlp"``: attention's saved ``(out, lse)`` stay
 resident, so the backward never re-runs attention) or the whole block
 (``"block"``), with ``torch.utils.checkpoint`` (reference
 ``models/transformer.py:614-709``).
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP item
-where the model has the option): multi-token decode continuation; nor tensor-parallel decode, MoE blocks, or per-row
-frontiers over a dense cache (the reference's ``decode_batched_frontier``
-outside the engine, used by batched speculative decoding).
 """
 
 from __future__ import annotations
@@ -141,19 +160,30 @@ def _repeat_kv(t: torch.Tensor, n_rep: int) -> torch.Tensor:
     return t if n_rep == 1 else t.repeat_interleave(n_rep, dim=2)
 
 
+def _cached_mask(s: torch.Tensor, q_positions: torch.Tensor) -> torch.Tensor:
+    """Causal frontier mask of scores [B, Hkv, rep, Lq, S]: slot j is seen by
+    a query at position p iff j <= p.  ``q_positions``: [Lq] (one frontier)
+    or [B, Lq] (a frontier per row)."""
+    slots = torch.arange(s.shape[-1], device=s.device)
+    if q_positions.dim() == 1:
+        mask = slots[None, :] <= q_positions[:, None]  # [Lq, S]
+    else:
+        mask = (slots[None, None, :] <= q_positions[:, :, None])[:, None, None]
+    return torch.where(mask, s, float("-inf"))
+
+
 def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor,
                       q_positions: torch.Tensor) -> torch.Tensor:
-    """Queries [B, Lq, H, D] at ``q_positions`` [Lq] against the whole
-    head-major cache [B, Hkv, S, D], GQA-native (query heads grouped
-    [Hkv, rep], no repeated cache); f32 softmax, q's dtype out."""
+    """Queries [B, Lq, H, D] at ``q_positions`` ([Lq], or [B, Lq] under
+    per-row frontiers) against the whole head-major cache [B, Hkv, S, D],
+    GQA-native (query heads grouped [Hkv, rep], no repeated cache); f32
+    softmax, q's dtype out."""
     B, Lq, H, D = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    Hkv = k_cache.shape[1]
     qg = q.float().reshape(B, Lq, Hkv, H // Hkv, D)
     s = torch.einsum("bqhrd,bhkd->bhrqk", qg, k_cache.float()) * (1.0 / math.sqrt(D))
-    mask = torch.arange(S, device=q.device)[None, :] <= q_positions[:, None]
-    s = torch.where(mask, s, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_cached_mask(s, q_positions), dim=-1)
     out = torch.einsum("bhrqk,bhkd->bqhrd", p, v_cache.float())
     return out.reshape(B, Lq, H, D).to(q.dtype)
 
@@ -167,15 +197,23 @@ def _cached_attention_quant(q: torch.Tensor, k_int: torch.Tensor, ks: torch.Tens
     the QK einsum, ``p·vs`` before the PV einsum.  Plain PyTorch on every
     device, as the reference leaves it to XLA."""
     B, Lq, H, D = q.shape
-    Hkv, S = k_int.shape[1], k_int.shape[2]
+    Hkv = k_int.shape[1]
     qg = q.float().reshape(B, Lq, Hkv, H // Hkv, D)
     s = torch.einsum("bqhrd,bhkd->bhrqk", qg, k_int.float()) * (1.0 / math.sqrt(D))
     s = s * ks[:, :, None, None, :]
-    mask = torch.arange(S, device=q.device)[None, :] <= q_positions[:, None]
-    s = torch.where(mask, s, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_cached_mask(s, q_positions), dim=-1)
     out = torch.einsum("bhrqk,bhkd->bqhrd", p * vs[:, :, None, None, :], v_int.float())
     return out.reshape(B, Lq, H, D).to(q.dtype)
+
+
+def tp_sum(comm: Comm | None, y: torch.Tensor) -> torch.Tensor:
+    """The row-parallel projection's partial outputs summed over the
+    tensor-parallel ranks of ``comm`` (the reference's ``psum`` over its
+    ``tp_axis``), in f32 and rounded once to ``y``'s dtype; ``y`` itself
+    without a group."""
+    if comm is None or comm.world == 1:
+        return y
+    return comm.all_reduce_(y.float().contiguous()).to(y.dtype)  # in place: y is fresh
 
 
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -253,20 +291,29 @@ class PagedKV:
     positions: torch.Tensor
 
 
+_TP_TRAINING = ("tp_comm is the manual tensor-parallel decode wiring "
+                "(inference.generate.make_tp_generate_fn): give a cache; "
+                "training-time tensor parallelism is ROADMAP A5c")
+
+
 class Attention(nn.Module):
-    """Causal self-attention: fused ``qkv`` for MHA, ``q`` + ``kv`` for GQA."""
+    """Causal self-attention: fused ``qkv`` for MHA, ``q`` + ``kv`` for GQA.
+    ``head_dim`` pins the per-head width (default ``d_model // n_heads``; a
+    tensor-parallel rank's local clone keeps the global one)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
                  attn_impl: str, compute_dtype: torch.dtype,
                  weight_quant: str | None, device=None, comm: Comm | None = None,
-                 int8_tiered_dispatch: bool = False):
+                 int8_tiered_dispatch: bool = False, head_dim: int | None = None,
+                 tp_comm: Comm | None = None):
         super().__init__()
         self.comm = comm or Comm()
+        self.tp_comm = tp_comm
         self.int8_tiered_dispatch = int8_tiered_dispatch
-        if d_model % n_heads:
+        if head_dim is None and d_model % n_heads:
             raise ValueError("n_heads must divide d_model")
         self.n_heads = n_heads
-        self.head_dim = d_model // n_heads
+        self.head_dim = head_dim or d_model // n_heads
         self.n_kv_heads = n_kv_heads or n_heads
         if n_heads % self.n_kv_heads:
             raise ValueError(f"n_kv_heads={self.n_kv_heads} must divide "
@@ -285,14 +332,17 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, rope,
                 cache: tuple | None = None,
-                start: int = 0, paged: tuple | None = None) -> torch.Tensor:
+                start=0, paged: tuple | None = None) -> torch.Tensor:
         """``rope``: the :func:`rope_tables` of ``positions``.  ``cache``: this
         layer's ``(k_cache, v_cache, k_scale, v_scale)`` (scales None unless
-        the cache is int8).  ``paged``: this layer's ``(k_pool, v_pool,
-        tables, positions, page, slot)``, where each lane's fresh K/V row
-        goes to ``pool[page[w], :, slot[w]]``."""
+        the cache is int8).  ``start``: the frontier, a host int or a [B]
+        tensor (then ``positions`` is [B, L]).  ``paged``: this layer's
+        ``(k_pool, v_pool, tables, positions, page, slot)``, where each
+        lane's fresh K/V row goes to ``pool[page[w], :, slot[w]]``."""
         B, L, E = x.shape
         H, Hkv, hd, cd = self.n_heads, self.n_kv_heads, self.head_dim, self.compute_dtype
+        if self.tp_comm is not None and cache is None and paged is None:
+            raise ValueError(_TP_TRAINING)
         if Hkv == H:
             qkv = _project(self.qkv, x, cd).reshape(B, L, 3, H, hd)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -307,97 +357,118 @@ class Attention(nn.Module):
             k_pool[page, :, slot] = k[:, 0]
             v_pool[page, :, slot] = v[:, 0]
             out = paged_flash_attention(q, k_pool, v_pool, tables, lane_pos)
-            return _project(self.out, out.reshape(B, L, H * hd), cd)
-        if cache is not None:
-            k_cache, v_cache, k_scale, v_scale = cache
-            if k_scale is None:
-                k_cache[:, :, start:start + L] = k.transpose(1, 2)
-                v_cache[:, :, start:start + L] = v.transpose(1, 2)
-            else:  # int8 rows and their scales, written together
-                for rows, scales, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
-                    codes, sc = quantize_kv(t.transpose(1, 2))
-                    rows[:, :, start:start + L] = codes
-                    scales[:, :, start:start + L] = sc
-            if L == 1:
-                S = k_cache.shape[2]
-                if k_scale is not None:
-                    if (self.int8_tiered_dispatch and decode_flash_qualifies(S)
-                            and start * 100 < S * INT8_TIER_BREAK_EVEN_PCT):
-                        out = cached_flash_attention(q, k_cache, v_cache, start,
-                                                     k_scale=k_scale, v_scale=v_scale)
-                    else:
-                        out = _cached_attention_quant(q, k_cache, k_scale, v_cache,
-                                                      v_scale, positions)
-                elif decode_flash_qualifies(S) and S >= DECODE_KERNEL_MIN_SLOTS:
-                    out = cached_flash_attention(q, k_cache, v_cache, start)
-                else:
-                    out = _cached_attention(q, k_cache, v_cache, positions)
-                return _project(self.out, out.reshape(B, L, H * hd), cd)
-            if start != 0:
-                raise NotImplementedError(
-                    "multi-token decode continuation (speculative "
-                    "decoding's verify pass) is not ported yet: "
-                    "ROADMAP A8 'speculative decoding'")
-        if self.attn_impl in SEQ_SHARDED:
-            if cache is not None or paged is not None:
-                raise ValueError("decode runs dense cached attention; clone the model "
-                                 'with attn_impl="dense"')
+        elif cache is not None:
+            out = self._cached(q, k, v, cache, positions, start)
+        elif self.attn_impl in SEQ_SHARDED:
             # GQA: the narrow K/V chunks travel the ring, or the narrow K/V
             # ride the all-to-all when the group divides Hkv.  Ulysses picks
             # its own local kernel ("ulysses owns its attention").
             sharded = {"ring": ring_self_attention, "ring_flash": ring_flash_self_attention,
                        "ulysses": ulysses_self_attention}[self.attn_impl]
             out = sharded(q, k, v, self.comm)
-            return _project(self.out, out.reshape(B, L, H * hd), cd)
-        # Full causal pass, or prefill (the cache was empty, so attention is
-        # plain causal attention over the fresh K/V; the decode path picks
-        # flash by length alone, whatever attn_impl says).
-        if cache is not None or self.attn_impl == "auto":
-            use_flash = flash_wins(L)
-        else:
-            use_flash = self.attn_impl == "flash"
-        if use_flash:
+        elif self.attn_impl == "flash" or (self.attn_impl == "auto" and flash_wins(L)):
             out = flash_self_attention(q, k, v)
         else:
             n_rep = H // Hkv
             out = dense_self_attention(
                 q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), positions)
-        return _project(self.out, out.reshape(B, L, H * hd), cd)
+        return tp_sum(self.tp_comm, _project(self.out, out.reshape(B, L, H * hd), cd))
+
+    def _cached(self, q, k, v, cache: tuple, positions, start) -> torch.Tensor:
+        """Write the fresh K/V at the frontier and attend (the dispatch of
+        the module note)."""
+        if self.attn_impl in SEQ_SHARDED:
+            raise ValueError("decode runs dense cached attention; clone the model "
+                             'with attn_impl="dense"')
+        B, L, H, hd = q.shape
+        k_cache, v_cache, k_scale, v_scale = cache
+        per_row = torch.is_tensor(start)
+        if per_row:  # each row's L slots at its own offset
+            rows = torch.arange(B, device=q.device)[:, None]
+            at = (rows, slice(None), positions)  # indexes [B, L, Hkv, ...]
+            if k_scale is None:
+                k_cache[at], v_cache[at] = k, v
+            else:
+                for buf, sbuf, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+                    buf[at], sbuf[at] = quantize_kv(t)
+        elif k_scale is None:
+            k_cache[:, :, start:start + L] = k.transpose(1, 2)
+            v_cache[:, :, start:start + L] = v.transpose(1, 2)
+        else:  # int8 rows and their scales, written together
+            for rows_, scales, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+                codes, sc = quantize_kv(t.transpose(1, 2))
+                rows_[:, :, start:start + L] = codes
+                scales[:, :, start:start + L] = sc
+        if L > 1 and not per_row and start == 0:
+            # Prefill: the cache was empty, so attention is plain causal
+            # attention over the fresh K/V (flash by length alone, whatever
+            # attn_impl says).
+            if flash_wins(L):
+                return flash_self_attention(q, k, v)
+            n_rep = H // k.shape[2]
+            return dense_self_attention(
+                q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), positions)
+        S = k_cache.shape[2]
+        one = L == 1 and not per_row
+        if k_scale is not None:
+            if (one and self.int8_tiered_dispatch and decode_flash_qualifies(S)
+                    and start * 100 < S * INT8_TIER_BREAK_EVEN_PCT):
+                return cached_flash_attention(q, k_cache, v_cache, start,
+                                              k_scale=k_scale, v_scale=v_scale)
+            return _cached_attention_quant(q, k_cache, k_scale, v_cache, v_scale,
+                                           positions)
+        if one and decode_flash_qualifies(S) and S >= DECODE_KERNEL_MIN_SLOTS:
+            return cached_flash_attention(q, k_cache, v_cache, start)
+        return _cached_attention(q, k_cache, v_cache, positions)
 
 
 class Block(nn.Module):
-    """Pre-LN block: x + attn(ln1(x)), then + fc_out(gelu(fc_in(ln2(x)))).
+    """Pre-LN block: x + attn(ln1(x)), then + fc_out(gelu(fc_in(ln2(x)))),
+    or + moe(ln2(x)) when a routed expert MLP is given (``moe``: a module
+    called as ``moe(h, dropless=...)``; the reference's ``mlp_factory``).
     ``remat_mlp``: the LN2+MLP sub-layer is recomputed in the backward
-    instead of saving its activations (the selective remat policy)."""
+    instead of saving its activations (the selective remat policy).
+    ``tp_comm``: the tensor-parallel decode group (``fc_out`` is
+    row-parallel and summed over it; an expert mixture sums its own)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: int | None, attn_impl: str,
                  compute_dtype: torch.dtype, weight_quant: str | None,
                  device=None, remat_mlp: bool = False, comm: Comm | None = None,
-                 int8_tiered_dispatch: bool = False):
+                 int8_tiered_dispatch: bool = False, head_dim: int | None = None,
+                 tp_comm: Comm | None = None, moe: nn.Module | None = None):
         super().__init__()
         quant = weight_quant == "int8"
         self.compute_dtype = compute_dtype
         self.remat_mlp = remat_mlp
+        self.tp_comm = tp_comm
         self.ln1 = LayerNorm(d_model, compute_dtype, device)
         self.attn = Attention(d_model, n_heads, n_kv_heads, attn_impl,
                               compute_dtype, weight_quant, device, comm,
-                              int8_tiered_dispatch)
+                              int8_tiered_dispatch, head_dim, tp_comm)
         self.ln2 = LayerNorm(d_model, compute_dtype, device)
-        self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
-        self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
+        if moe is not None:
+            self.moe = moe
+        else:
+            self.fc_in = _linear(d_model, d_ff, quant, compute_dtype, device)
+            self.fc_out = _linear(d_ff, d_model, quant, compute_dtype, device)
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        """LN2 + feed-forward sub-layer (the residual is added by the caller)."""
+    def mlp(self, x: torch.Tensor, dropless: bool = False) -> torch.Tensor:
+        """LN2 + feed-forward sub-layer (the residual is added by the caller).
+        ``dropless``: an expert mixture routes every token (serving)."""
         cd = self.compute_dtype
+        if hasattr(self, "moe"):
+            return self.moe(self.ln2(x), dropless=dropless)
         h = _project(self.fc_in, self.ln2(x), cd)
         h = F.gelu(h, approximate="tanh")  # Flax nn.gelu is the tanh form
-        return _project(self.fc_out, h, cd)
+        return tp_sum(self.tp_comm, _project(self.fc_out, h, cd))
 
-    def forward(self, x, positions, rope, cache=None, start: int = 0,
+    def forward(self, x, positions, rope, cache=None, start=0,
                 paged=None):
         x = x + self.attn(self.ln1(x), positions, rope, cache, start, paged)
-        if self.remat_mlp and cache is None and paged is None:
+        if cache is not None or paged is not None:
+            return x + self.mlp(x, dropless=True)
+        if self.remat_mlp:
             return x + checkpoint(self.mlp, x, use_reentrant=False)
         return x + self.mlp(x)
 
@@ -414,8 +485,10 @@ class TransformerLM(nn.Module):
     ``forward(tokens)`` is the full causal pass (``attn_impl`` dense,
     flash or auto; ring, ring_flash or ulysses on this rank's sequence chunk
     of the context-parallel group ``comm``).  ``forward(tokens, cache=...,
-    start=s)`` is the decode path: writes K/V for positions s..s+L-1 into the cache and attends
-    against it (prefill at s = 0, then one token per call).
+    start=s)`` is the decode path: writes K/V for positions s..s+L-1 into
+    the cache and attends against it (prefill at s = 0, then one token per
+    call, or several mid-stream: a continuation); ``s`` is a host int, or a
+    [B] tensor of per-row frontiers.
     ``forward(tokens [W, 1], paged=PagedKV(...))`` is one paged decode
     step: every lane at its own position.
     ``weight_quant="int8"`` builds :class:`QuantLinear` projections (load
@@ -424,7 +497,9 @@ class TransformerLM(nn.Module):
     ``torch.float32``) is the decode cache's storage; ``int8_tiered_dispatch``
     the int8 cache's tiered switch (see the module note).  ``remat`` with
     ``remat_policy`` "mlp" or "block": activation checkpointing on the
-    full causal pass (see the module note)."""
+    full causal pass (see the module note).  ``head_dim`` and ``tp_comm``:
+    a tensor-parallel rank's local-width decode model (see the module
+    note)."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_layers: int = 4,
                  n_heads: int = 8, d_ff: int | None = None,
@@ -433,7 +508,8 @@ class TransformerLM(nn.Module):
                  n_kv_heads: int | None = None, kv_cache_dtype=None,
                  weight_quant: str | None = None, remat: bool = False,
                  remat_policy: str = "mlp", device=None, comm: Comm | None = None,
-                 int8_tiered_dispatch: bool = False):
+                 int8_tiered_dispatch: bool = False, head_dim: int | None = None,
+                 tp_comm: Comm | None = None):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl={attn_impl!r}; use one of {_ATTN_IMPLS}")
@@ -452,39 +528,50 @@ class TransformerLM(nn.Module):
             compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
             kv_cache_dtype=kv_cache_dtype, weight_quant=weight_quant, remat=remat,
             remat_policy=remat_policy, comm=comm,
-            int8_tiered_dispatch=int8_tiered_dispatch)
+            int8_tiered_dispatch=int8_tiered_dispatch, head_dim=head_dim,
+            tp_comm=tp_comm)
         self.comm = comm or Comm()
+        self.tp_comm = tp_comm
         self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.n_layers = n_layers
+        self.d_ff = d_ff or 4 * d_model
         self.attn_impl = attn_impl
+        self.remat = remat
         self.remat_block = remat and remat_policy == "block"
         self.compute_dtype = compute_dtype
         self.kv_cache_dtype = kv_cache_dtype
         self.weight_quant = weight_quant
+        self.int8_tiered_dispatch = int8_tiered_dispatch
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads or n_heads
-        self.head_dim = d_model // n_heads
-        d_ff = d_ff or 4 * d_model
+        self.head_dim = head_dim or d_model // n_heads
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, d_ff, n_kv_heads, attn_impl,
-                  compute_dtype, weight_quant, device,
-                  remat_mlp=remat and remat_policy == "mlp", comm=comm,
-                  int8_tiered_dispatch=int8_tiered_dispatch)
+            self._block(device, remat_mlp=remat and remat_policy == "mlp")
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, compute_dtype, device)
         self.lm_head = _linear(d_model, vocab_size, weight_quant == "int8",
                                compute_dtype, device)
+
+    def _block(self, device, remat_mlp: bool, moe: nn.Module | None = None) -> Block:
+        """One block of this config (a subclass passes its expert mixture)."""
+        return Block(self.d_model, self.n_heads, self.d_ff, self.config["n_kv_heads"],
+                     self.attn_impl, self.compute_dtype, self.weight_quant, device,
+                     remat_mlp=remat_mlp, comm=self.config["comm"],
+                     int8_tiered_dispatch=self.int8_tiered_dispatch,
+                     head_dim=self.config["head_dim"], tp_comm=self.tp_comm, moe=moe)
 
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
 
     def clone(self, device=None, **overrides) -> "TransformerLM":
-        """A new model of this config (with ``overrides``) on ``device``
-        (default: this model's); its weights are freshly initialized, not
-        copied."""
-        return TransformerLM(**{**self.config, **overrides},
-                             device=self.device if device is None else device)
+        """A new model of this class and config (with ``overrides``) on
+        ``device`` (default: this model's); its weights are freshly
+        initialized, not copied."""
+        return type(self)(**{**self.config, **overrides},
+                          device=self.device if device is None else device)
 
     def init_cache(self, batch: int, slots: int) -> KVCache:
         """Zeroed head-major caches [batch, Hkv, slots, D] per layer, in
@@ -502,7 +589,7 @@ class TransformerLM(nn.Module):
         return KVCache(mk(), mk(), mk(shape[:3], torch.float32), mk(shape[:3], torch.float32))
 
     def forward(self, tokens: torch.Tensor, cache: KVCache | None = None,
-                start: int = 0, last_only: bool = False,
+                start=0, last_only: bool = False,
                 paged: PagedKV | None = None,
                 return_hidden: bool = False) -> torch.Tensor:
         """``last_only=True`` returns logits for the last position only
@@ -521,6 +608,11 @@ class TransformerLM(nn.Module):
             page = paged.tables.gather(1, (lane_pos // bs)[:, None])[:, 0].long()
             layer_paged = [(k, v, paged.tables, paged.positions, page, lane_pos % bs)
                            for k, v in zip(paged.keys, paged.values)]
+        elif torch.is_tensor(start):  # a frontier per row: [B, L] positions
+            if cache is None:
+                raise ValueError("per-row frontiers need a cache")
+            start = start.to(device=tokens.device, dtype=torch.long)
+            positions = start[:, None] + torch.arange(L, device=tokens.device)
         else:
             # A ring or Ulysses rank's chunk sits at rank·L in the global
             # sequence.

@@ -1368,3 +1368,43 @@ def test_flat_and_per_layer_trainers_on_the_card(cuda):
     dp = [float(step(state, *place(a, b))[1]) for a, b in lm.synthetic_batches(args)]
     for a, b in zip(ranks[0]["fsdp_pl"][0], dp):
         assert abs(a - b) <= 1e-3 * abs(b), (ranks[0]["fsdp_pl"][0], dp)
+
+
+def test_speculative_and_moe_on_the_card(cuda):
+    """The A8 serving paths on the card, in f32 (exact greedy headroom):
+    speculative decoding with a head-dim-32 target and draft (K1 prefills
+    both; the draft's decode steps take K4 at S 4096; the verify pass takes
+    neither) gives vanilla greedy's tokens, at B 1 and batched (per-row
+    frontiers: no K4); an MoE model's cached decode on the card (experts
+    through the dropless grouped path) gives its teacher-forced argmax."""
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
+    from distributed_machine_learning_tpu_torch.inference.speculative import (
+        make_speculative_generate_fn,
+    )
+    from distributed_machine_learning_tpu_torch.models.moe import MoETransformerLM
+
+    target = transformer.TransformerLM(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                                       n_kv_heads=2, device="cuda")
+    draft = transformer.TransformerLM(vocab_size=512, d_model=64, n_layers=1, n_heads=2,
+                                      device="cuda")
+    init_params(target, seed=0)
+    init_params(draft, seed=7)
+    prompt = torch.randint(0, 512, (4, 4000), generator=cuda, device="cuda")
+    for rows in (prompt[:1], prompt):
+        build.reset_launch_counts()
+        fn = make_speculative_generate_fn(target, draft, 16, gamma=3)
+        got = fn(rows)
+        launches = dict(build.launches)
+        assert torch.equal(got, make_generate_fn(target, 16)(rows))
+        assert launches["flash_fwd"] == 3
+        want_k4 = fn.stats["rounds"] * 4 if rows.shape[0] == 1 else 0
+        assert launches["decode_attention"] == want_k4, (launches, fn.stats)
+    moe = MoETransformerLM(vocab_size=256, d_model=64, n_layers=2, n_heads=2,
+                           n_experts=4, moe_impl="grouped", device="cuda")
+    init_params(moe, seed=3)
+    short = torch.randint(0, 256, (2, 8), generator=cuda, device="cuda")
+    out = make_generate_fn(moe, 6)(short)
+    with torch.no_grad():
+        full = moe(out)
+    assert torch.equal(out[:, 8:], full[:, 7:-1].argmax(-1))

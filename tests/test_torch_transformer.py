@@ -139,8 +139,13 @@ def test_out_of_slice_features_raise():
     port = TransformerLM(vocab_size=VOCAB, d_model=32, n_layers=1, n_heads=4,
                          device="cpu")
     init_params(port, seed=0)
+    # Multi-token decode continuation is ported (speculative decoding's
+    # verify pass): 3 tokens at start 4 attend the whole cache and give the
+    # full causal pass's logits at those positions (f32 summation order).
     cache = port.init_cache(1, 512)
+    tokens = torch.arange(7, dtype=torch.long)[None] % VOCAB
     with torch.no_grad():
-        port(torch.zeros(1, 4, dtype=torch.long), cache=cache, start=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port(torch.zeros(1, 3, dtype=torch.long), cache=cache, start=4)
+        port(tokens[:, :4], cache=cache, start=0)
+        cont = port(tokens[:, 4:], cache=cache, start=4)
+        full = port(tokens)
+    torch.testing.assert_close(cont, full[:, 4:], rtol=1e-5, atol=1e-5)
