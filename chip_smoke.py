@@ -103,7 +103,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    model (K6 on the attention projections and the head only), speculative
    against the MoE model, decode ms a step in bf16 and int8 at B 8 and 1;
    (h) ``python -m ...cli.generate --tp 2`` (ranks sharing the card) at
-   MODEL's width with a 4096-byte prompt, bf16, then int8 with
+   MODEL's width and 4 of its 8 layers (a depth cut for the time limit) with a
+   4096-byte prompt, bf16, then int8 with
    --spec-gamma 4: every rank exits 0 with one stream, K1 and K4 (and K6)
    launched on every rank, the stream against the single card's.  Greedy
    streams are judged by the tie rule (``tie_gate``): the emitted stream
@@ -159,7 +160,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    as their ``main`` runs it, each rank a process sharing the card (gloo
    over host buffers): part1 (world 1, batch 256), part2a, part2b and part3
    (world 2, batch 64 a rank) and part3 with ``--ring-compress int8
-   --ring-codec-impl pallas`` (world 4), 40 iterations each.  Launch counts
+   --ring-codec-impl pallas`` (world 4), 20 iterations each (the
+   reference's protocol runs 40; cut for the time limit).  Launch counts
    are zeroed just before and read just after in every rank: K8 and K9
    once per bucket per hop, K10 once per bucket (the all-gather's batched
    decode), as the formula says, and nowhere else.  Gates:
@@ -174,8 +176,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 8. Trains the same LM context-parallel through ``cli.lm``'s ``build`` and
    ``train_epoch`` in 4 spawned ranks sharing the card (gloo over host
    buffers): ``--parallel ring --num-nodes 4``, B 1 × L 16384 (a chunk of
-   4096 tokens a rank), the model's width at 2 of its 8 layers (depth cut
-   to keep the whole run inside its time limit), bf16, ``--fused-update``,
+   4096 tokens a rank), the model's width at 1 of its 8 layers (depth cut
+   to keep the whole run inside its time limit: 2 in PRs 18-19), bf16,
+   ``--fused-update``,
    ``--attn flash`` (the upgrade rule picks ``ring_flash``), 3 steps.
    Launch counts zeroed just before and read just after on every rank:
    K11, K12 and K13 once per layer per chunk pair (2·(r+1) a step on rank
@@ -186,9 +189,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    trainer's limits).  Reports step ms, tokens/s, hop and gradient-mean ms
    a step (CUDA events), peak memory per rank and the device idle share;
    then the real command: two processes of ``python -m
-   ...cli.lm --parallel ring --num-nodes 2`` at 2 layers × L 8192.  The
+   ...cli.lm --parallel ring --num-nodes 2`` at 1 layer × L 8192.  The
    same for ``--parallel ulysses``; then ``--parallel fsdp`` (flat ZeRO-3,
-   W 2 × B 4 × L 2048 at 4 of the 8 layers since PR 19 (time limit), sync
+   W 2 × B 4 × L 2048 at 2 of the 8 layers (a depth cut for the time limit), sync
    and ``--overlap-update``), whose final state is
    saved under ``ShardSpec("fsdp", 2, n)`` and restored at worlds 1 and 4
    (logical prefixes bit for bit the saved ones) and served through
@@ -208,6 +211,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
    sync; moment bytes at ``zero1_memory_footprint``'s; against the
    one-process replicated step; the zero1 state saved, restored at worlds
    1 and 4, and a flipped byte caught and quarantined.
+10b. ROADMAP A5c's model parallelism (``run_a5c``), through ``cli.lm``'s
+   ``build`` and ``train_epoch`` in ranks sharing the card (gloo over host
+   buffers), full width, bf16, fused AdamW, ``--attn flash``: (a) ``--parallel
+   tp`` at W 2, B 2 x L 2048, 4 of the 8 layers, 3 steps; (b) ``--parallel
+   pp`` at W 2, B 4 x L 2048 in 4 microbatches, 8 layers: 1f1b, gpipe, gpipe
+   ``--overlap-update`` and interleaved ``--pp-chunks 2``, 3 steps each
+   (batches 0, 1, 0; 1f1b and interleaved saved at step 2 in their pipeline
+   layouts, 1f1b resumed by ``cli.lm``'s run for 1 more); (c) ``--parallel
+   3d`` at W 4, 4 layers, B 4 x L 2048 in 2 microbatches, 3 steps: dp 1 x pp
+   2 x tp 2, dp 2 x pp 2 x tp 1 with ``--zero1-dp`` and without; (d)
+   ``python -m ...cli.generate --ckpt-dir`` on both pipeline checkpoints and
+   on their parameters saved again in the dp layout, B 1 x 4096 + 32.
+   Launch counts zeroed before and read after each run on every rank: K1,
+   K2 and K3 once a local layer a microbatch a step, K7 once a local leaf a
+   step (gpipe ``--overlap-update``: the boundary's five leaves as one flat
+   slice). Gates: the step-0 loss and every local leaf after the run
+   against one-process dp on the same weights and batches (the fsdp_pl
+   gates' loss limit; the leaves' scaled by a plain-vs-plain dp reading);
+   the leaves TP keeps whole bit for bit across
+   a TP group; tp's step kernel vs plain on every rank; ``--overlap-update``
+   bit for bit sync gpipe; the resumed run bit for bit the uninterrupted
+   one; ``--zero1-dp`` within 1e-6 of plain 3-D; every ``cli.generate``
+   exits 0, each pipeline checkpoint's tokens equal to its dp-layout
+   twin's. Reports step ms, tokens/s, MFU a rank, peak GB a rank, the wire's
+   ms a step (TP sums, hops, the pipe and data groups' sums) and pp's idle
+   share a stage beside (P-1)/(v*M+P-1). The three cells' ranks run at
+   once (time limit), so each cell's times carry the others' load.
 11. The A4 paths (``run_a4``), through the part CLIs' ``run_part`` and
    ``cli.lm``: (a) ResNet-18 part1 at B 256 (CIFAR stem, f32, 40
    iterations; its first step's loss and gradients against the same step
@@ -233,8 +263,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (f) ``cli.lm`` dp
    B 4 × L 4096 flash under ``--optimizer sgd --momentum-dtype bfloat16``
    and ``lars`` beside AdamW (K1-K3 launched, the same step-0 loss).
-12. The card tests of the latest slices (``tests/test_torch_kernels_cuda.py
-   -k "trainers_on_the_card or speculative_and_moe"``, ``--noconftest``).
+12. The card test of the latest slice (``tests/test_torch_kernels_cuda.py
+   -k model_parallel_paths_on_the_card``, ``--noconftest``; the other
+   slices' card tests are left to the README's command: the time limit).
 
 Step 2 also holds the int8 ring codec K8 (with and without residual), K9
 and K10 to their plain versions BIT FOR BIT at the VGG path's chunk
@@ -259,8 +290,9 @@ for the work on those paths.
 ``--perturb NAME`` builds one kernel from a deliberately broken copy of
 its source (under ``build/perturbed/``; the checkout is not touched), runs
 the kernel checks and the logit checks (for a training kernel: the trainer
-step gates) against it, and reports which of them catch the fault: it
-exits 0 only if the kernel checks catch it.
+step gates; for K1, K2, K3 and K7 also the a5c tp cell's gates) against
+it, and reports which of them catch the fault: it exits 0 only if the
+kernel checks catch it.
 """
 
 from __future__ import annotations
@@ -2824,6 +2856,9 @@ A8_MOE_BATCH, A8_MOE_PROMPT, A8_MOE_NEW, A8_MOE_TF_STEPS = 8, 1024, 64, 8
 # cli.generate --tp: ranks, a 4096-byte prompt (4096 tokens at vocab 32000),
 # new tokens.
 A8_TP, A8_TP_PROMPT, A8_TP_NEW = 2, "The " * 1024, 32
+# Leg (h) serves MODEL's width at 4 of its 8 layers (a depth cut
+# for the time limit: the a5c phase), its own random weights from SEED.
+A8_TP_LAYERS = 4
 # cli.distill on the checkpoint phase's step-4 checkpoint.
 A8_DISTILL = ["--draft-d-model", "512", "--draft-n-layers", "2", "--draft-n-heads", "16",
               "--draft-n-kv-heads", "4", "--seq-len", "512", "--batch-size", "8",
@@ -3298,32 +3333,42 @@ def a8_moe(torch, build, draft, totals: dict) -> None:
     del moe, moe8, dq
 
 
-def a8_tp(torch, models, totals: dict) -> None:
-    """(h) ``python -m ...cli.generate --tp 2`` at MODEL's width, a 4096-byte
-    prompt, --random-init, greedy: bf16, then int8 weights with
-    --spec-gamma 4 (the legs' draft, whole on every rank).  Every rank exits
-    0 with one stream, equal to the single card's under the tie rule; K1,
-    K4 (and K6) launched on every rank at local shapes."""
+def a8_tp(torch, totals: dict) -> None:
+    """(h) ``python -m ...cli.generate --tp 2`` at MODEL's width and
+    A8_TP_LAYERS layers, a 4096-byte prompt, --random-init, greedy: bf16,
+    then int8 weights with --spec-gamma 4 (the legs' draft, whole on every
+    rank).  Every rank exits 0 with one stream, equal to the single card's
+    (the same seeded weights) under the tie rule; K1, K4 (and K6) launched
+    on every rank at local shapes."""
     import os
 
+    import distributed_machine_learning_tpu_torch as pkg
+    from distributed_machine_learning_tpu_torch.convert import init_params
     from distributed_machine_learning_tpu_torch.data.text import encode_prompt
     from distributed_machine_learning_tpu_torch.inference.generate import make_generate_fn
     from distributed_machine_learning_tpu_torch.inference.speculative import (
         make_speculative_generate_fn,
     )
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.ops.quant import quantize_lm
 
-    dev = models["bf16"].device
+    dev = pkg.resolve_device()
+    master = TransformerLM(**{**MODEL, "n_layers": A8_TP_LAYERS}, compute_dtype=torch.bfloat16,
+                           device=dev)
+    init_params(master, seed=SEED)  # cli.generate --random-init's weights (--seed 0)
+    models = {"int8": quantize_lm(master).eval()}
+    models["bf16"] = master.to(torch.bfloat16).eval()
     prompt = torch.tensor([encode_prompt(A8_TP_PROMPT, MODEL["vocab_size"])], device=dev)
     Lp = prompt.shape[1]
     base = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.generate",
             "--random-init", "--tp", str(A8_TP), "--d-model", str(MODEL["d_model"]),
-            "--n-layers", str(MODEL["n_layers"]), "--n-heads", str(MODEL["n_heads"]),
+            "--n-layers", str(A8_TP_LAYERS), "--n-heads", str(MODEL["n_heads"]),
             "--n-kv-heads", str(MODEL["n_kv_heads"]), "--vocab", str(MODEL["vocab_size"]),
             "--prompt", A8_TP_PROMPT, "--max-new-tokens", str(A8_TP_NEW), "--temperature", "0"]
     spec = ["--quant", "int8", "--spec-gamma", str(A8_GAMMA), "--draft-d-model", "512",
             "--draft-n-layers", "2", "--draft-n-heads", "16", "--draft-n-kv-heads", "4"]
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-    layers = MODEL["n_layers"]
+    layers = A8_TP_LAYERS
     for label, extra, mode in (("bf16", [], "bf16"), ("int8 + speculative", spec, "int8")):
         t0 = time.perf_counter()
         res = subprocess.run(base + extra, capture_output=True, text=True, env=env,
@@ -3406,7 +3451,7 @@ def serve_a8(torch, build, models, rows: dict) -> None:
     torch.cuda.empty_cache()
     tp: dict = {}
     t0 = time.perf_counter()
-    a8_tp(torch, models, tp)
+    a8_tp(torch, tp)
     log(f"A8 leg (h): {time.perf_counter() - t0:.1f} s")
     a8_record(rows, "tp", tp)
 
@@ -4336,7 +4381,9 @@ VGG_RUNS = [
     ("part3 int8", "ring", 4, 64, True, ["--ring-compress", "int8", "--ring-codec-impl",
                                           "pallas"]),
 ]
-VGG_ITERS = 40  # the reference's protocol: 40 iterations, iteration 0 untimed
+# The reference's protocol runs 40 iterations (iteration 0 untimed); cut to
+# 20 (time limit).
+VGG_ITERS = 20
 VGG_PLATEAU_TOL = 0.05  # |loss - ln 10| of the BN-free parts (read: at most 0.008)
 CODEC_KERNELS = ("ring_encode_int8", "ring_decode_add_int8", "ring_decode_int8")
 
@@ -4708,9 +4755,10 @@ def time_ring_flash(torch, rf, rows: dict, gen) -> None:
 # 4096 tokens.  Depth cut to RING["n_layers"] of the model's 8 layers, to
 # keep the whole run inside its time limit (a step's time is the host
 # wire's gradient mean, which scales with the parameters).
-RING = dict(world=4, seq_len=16384, batch_size=1, max_iters=3, n_layers=2)
-# The real command: two processes of cli.lm --parallel ring, cut to 2 layers.
-RING_CLI = dict(world=2, n_layers=2, seq_len=8192, max_iters=3)
+# (1 layer: a depth cut for the time limit.)
+RING = dict(world=4, seq_len=16384, batch_size=1, max_iters=3, n_layers=1)
+# The real command: two processes of cli.lm --parallel ring, cut to 1 layer.
+RING_CLI = dict(world=2, n_layers=1, seq_len=8192, max_iters=3)
 # The ring path's step-0 loss (the mean CE over B 1 x L 16384 tokens at the
 # seeded weights, ~ln 32000 = 10.4) against the one-process dp path (K1 over
 # the whole sequence) on the same batch: both bf16, with P and the
@@ -5020,7 +5068,7 @@ def run_ring(torch, rows: dict) -> None:
 def run_ring_cli(torch, backend: str | None = None) -> None:
     """The ring path through the real command: RING_CLI["world"] processes
     of ``python -m distributed_machine_learning_tpu_torch.cli.lm --parallel
-    ring --master-ip --rank --num-nodes`` (full width, cut to 2 layers);
+    ring --master-ip --rank --num-nodes`` (full width, cut to 1 layer);
     every process exits 0 and rank 0 prints the protocol lines (and, if
     ``backend`` is given, names it in its banner)."""
     import os
@@ -5070,9 +5118,11 @@ def run_ring_cli(torch, backend: str | None = None) -> None:
 # attention (the reference's rule), B 4 x L 2048 (2 rows a rank): first the
 # sync step, then --overlap-update, then (rank 0) --parallel dp on one
 # process from the same seeded weights and batches.
-# The ZeRO-3 cells (flat fsdp and fsdp_pl) run MODEL's width at 4 of its 8
-# layers (depth cut to keep the whole run inside its time limit, PR 19).
-FSDP = dict(world=2, seq_len=2048, batch_size=4, max_iters=4, n_layers=4)
+# The ZeRO-3 cells (flat fsdp and fsdp_pl) run MODEL's width at 2 of its 8
+# layers (depth cut to keep the whole run inside its time limit; at 1 layer
+# flat fsdp's loss does not fall in its 4 steps: 10.864, 10.897, 10.898,
+# 10.902 on an H100 80GB HBM3 at 700 W).
+FSDP = dict(world=2, seq_len=2048, batch_size=4, max_iters=4, n_layers=2)
 FSDP_MODEL = {**MODEL, "n_layers": FSDP["n_layers"]}
 
 
@@ -6067,6 +6117,599 @@ def run_fsdp_pl(torch, rows: dict, flat_peaks: list, card: str) -> None:
         raise AssertionError("fsdp_pl: " + "; ".join(failed))
 
 
+# -- ROADMAP A5c: model parallelism (step 10b): cli.lm --parallel tp / pp / 3d
+# at the model's full width, each rank a process sharing the card (gloo over
+# host buffers), the seeded weights, bf16, fused AdamW, --attn flash.
+# (a) tp W 2, B 2 x L 2048, 4 of the 8 layers (time limit), 3 steps; (b) pp
+# W 2, B 4 x L 2048 in 4 microbatches, 8 layers, each schedule 3 steps over
+# the stream's batches 0, 1, 0 (1f1b saves at step 2 and is resumed for 1
+# more by cli.lm's run; interleaved v 2 saves at step 2); (c) 3d W 4, 4
+# layers, B 4 x L 2048
+# in 2 microbatches, 3 steps: dp 1 x pp 2 x tp 2, dp 2 x pp 2 x tp 1 with
+# --zero1-dp and without it; (d) cli.generate --ckpt-dir on the 1f1b and
+# the interleaved checkpoints and on the same parameters saved in the dp
+# layout, B 1 x 4096 + 32.
+A5C = dict(seq_len=2048, tp_world=2, tp_batch=2, tp_layers=4, tp_steps=3, pp_world=2,
+           pp_batch=4, pp_micro=4, pp_layers=8, p3_world=4, p3_batch=4, p3_micro=2,
+           p3_layers=4, p3_steps=3, gen_new=32)
+A5C_ORDER = {"tp": [0, 1, 2], "pp": [0, 1, 0], "3d": [0, 1, 2]}
+A5C_PP = {"1f1b": ["--pp-schedule", "1f1b"], "gpipe": ["--pp-schedule", "gpipe"],
+          "overlap": ["--pp-schedule", "gpipe", "--overlap-update"],
+          "interleaved": ["--pp-schedule", "interleaved", "--pp-chunks", "2"]}
+A5C_SAVES = ("1f1b", "interleaved")
+A5C_3D = {"1x2x2": (1, 2, 2, False), "2x2x1 zero1": (2, 2, 1, True),
+          "2x2x1": (2, 2, 1, False)}
+A5C_PROMPT = "The " * 1024
+# --zero1-dp against plain 3-D on the same mesh: the reference's bound on
+# the losses of its two update-equivalent programs.
+A5C_ZERO1_LOSS_TOL = 1e-6
+# The vs-dp update gate's plain-vs-plain reading: two correct one-process
+# dp runs through the plain versions, the attention tiled by 512 and by
+# RING_NOISE_BLOCK, at the 3d cell's shape (4 layers, B 4 x L 2048, bf16,
+# fused AdamW, batches 0, 1, 2) leave their worst leaf this far apart over
+# its update (blocks.3.attn.kv.bias; median 4.752e-2), H100 80GB HBM3 at
+# 700 W; ``python3 tools/a5c_noise.py`` reads it again (``a5c_noise``).
+# A leaf after a run may sit RING_NOISE_FACTOR times that from dp's, or
+# TRAIN_UPDATE_TOL, whichever is larger: TP's bf16 row-parallel partials
+# round before their sum, so its leaves sit at this noise (one read 0.1668
+# against a per-leaf limit of 0.1663 on that card).
+A5C_UPDATE_NOISE = 1.084e-1
+
+
+def a5c_runs(cell: str, rank: int, world: int) -> dict:
+    """The cell's runs: name -> cli.lm's flags."""
+    if cell == "tp":
+        return {"tp": a5c_args("tp", rank, world, A5C["tp_batch"], A5C["tp_layers"])}
+    if cell == "pp":
+        return {name: a5c_args("pp", rank, world, A5C["pp_batch"], A5C["pp_layers"],
+                               "--microbatches", str(A5C["pp_micro"]), *flags)
+                for name, flags in A5C_PP.items()}
+    return {name: a5c_args("3d", rank, world, A5C["p3_batch"], A5C["p3_layers"],
+                           "--microbatches", str(A5C["p3_micro"]), "--dp", str(d), "--pp",
+                           str(p), "--tp", str(t), *(["--zero1-dp"] if z else []))
+            for name, (d, p, t, z) in A5C_3D.items()}
+
+
+def a5c_args(parallel: str, rank: int, world: int, batch: int, layers: int, *extra: str):
+    return trainer_args("--parallel", parallel, "--num-nodes", str(world), "--rank",
+                        str(rank), "--seq-len", str(A5C["seq_len"]), "--batch-size",
+                        str(batch), "--n-layers", str(layers), *extra, iters=2)
+
+
+def a5c_batches(args, order) -> list:
+    """The stream's batches in ``order`` (indices of its first draws)."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    drawn = list(lm.synthetic_batches(args, count=max(order) + 1))
+    return [drawn[i] for i in order]
+
+
+def a5c_dp_run(torch, args, order) -> tuple:
+    """One-process dp over the batches ``order`` names: (losses, the initial
+    and the final parameters), on the host."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    step, state, place, model = lm.build(args)
+    init = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+    losses = [float(step(state, *place(x, y))[1]) for x, y in a5c_batches(args, order)]
+    final = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+    del step, state, place, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, init, final
+
+
+def a5c_cell_args(cell: str):
+    key = {"tp": "tp", "pp": "pp", "3d": "p3"}[cell]
+    return trainer_args("--seq-len", str(A5C["seq_len"]), "--batch-size",
+                        str(A5C[f"{key}_batch"]), "--n-layers", str(A5C[f"{key}_layers"]))
+
+
+def a5c_dp_reference(torch, cell: str, path: str) -> list:
+    """One-process dp (bf16, fused AdamW, flash, the seeded weights) at the
+    cell's batch and depth over its batches: its final parameters saved to
+    ``path`` (written aside, then renamed: the ranks wait for the name) for
+    the ranks to hold their leaves to; returns its losses."""
+    losses, _, final = a5c_dp_run(torch, a5c_cell_args(cell), A5C_ORDER[cell])
+    torch.save(final, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return losses
+
+
+def a5c_noise(torch) -> float:
+    """The worst leaf's distance, after the 3d cell's steps and over dp's
+    update of it, between two correct one-process dp runs through the plain
+    versions, the attention tiled by 512 and by RING_NOISE_BLOCK (the ring
+    gate's plain-vs-plain reading): A5C_UPDATE_NOISE (``tools/a5c_noise.py``)."""
+    args, order = a5c_cell_args("3d"), A5C_ORDER["3d"]
+    runs = []
+    for block in (512, RING_NOISE_BLOCK):
+        with plain_kernels(block=block):
+            runs.append(a5c_dp_run(torch, args, order))
+    (_, init, f_a), (_, _, f_b) = runs
+    noise = {k: float((f_b[k] - f_a[k]).norm() / (f_a[k] - init[k]).norm().clamp_min(1e-30))
+             for k in f_a}
+    worst = max(noise, key=noise.get)
+    log(f"a5c: one-process dp through the plain versions tiled 512 and {RING_NOISE_BLOCK}, "
+        f"{A5C['p3_layers']} layers, B {A5C['p3_batch']}, {len(order)} steps: parameters apart "
+        f"by median {sorted(noise.values())[len(noise) // 2]:.3e}, worst {noise[worst]:.3e} "
+        f"({worst}) of dp's update")
+    return noise[worst]
+
+
+def a5c_local(model, mesh: dict, name: str, whole: dict):
+    """The dp-layout leaf of ``whole`` as this rank holds ``name`` (its
+    stage's layer, its TP slice)."""
+    from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
+        tp_shard_params,
+    )
+
+    t = whole[model.global_name(name) if hasattr(model, "global_name") else name]
+    tp = mesh.get("model")
+    if tp is not None and tp.world > 1:
+        t = tp_shard_params({name: t}, tp.world, tp.rank, model.vocab_parallel == "both")[name]
+    return t
+
+
+def a5c_vs_dp(init: dict, model, mesh: dict, dp_path: str) -> dict:
+    """Each local leaf after the run against the dp reference's after the
+    same steps (``a5c_dp_reference``, waited for at ``dp_path``): the
+    distance over dp's update of the leaf, against max(TRAIN_UPDATE_TOL,
+    RING_NOISE_FACTOR x A5C_UPDATE_NOISE): the worst ratio to that limit,
+    its leaf and reading, and the median reading."""
+    import torch
+
+    deadline = time.monotonic() + 600
+    while not os.path.exists(dp_path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the dp reference {dp_path} never appeared")
+        time.sleep(0.5)
+    dp = torch.load(dp_path, mmap=True)
+    limit = max(TRAIN_UPDATE_TOL, RING_NOISE_FACTOR * A5C_UPDATE_NOISE)
+    err = {}
+    for name, p in model.named_parameters():
+        want = a5c_local(model, mesh, name, dp).to(p.device).float()
+        moved = (want - init[name].float()).norm().clamp_min(1e-30)
+        err[name] = float((p.detach().float() - want).norm() / moved)
+    worst = max(err, key=err.get)
+    return {"worst": (worst, err[worst], err[worst] / limit),
+            "median": sorted(err.values())[len(err) // 2]}
+
+
+def device_digest(torch, tensors) -> tuple:
+    """Two exact integer checksums of the tensors' bits, summed on the card
+    (equal tensors give equal pairs; any flipped bit moves the weighted one)."""
+    plain = weighted = 0
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1).view(torch.int32 if t.element_size() == 4
+                                                   else torch.int16).to(torch.int64)
+        plain += int(bits.sum())
+        weighted += int((bits * (torch.arange(bits.numel(), device=bits.device) % 65521
+                                 + 1)).sum())
+    return plain, weighted
+
+
+def a5c_rank(rank: int, world: int, init_method: str, cells: tuple, ckdir: str) -> dict:
+    """One rank of A5c cells of one world (``tp`` and ``pp``, or ``3d``),
+    one after the other in one process group: {cell: its record}.  Each
+    cell's dp reference is at ``{ckdir}/dp-{cell}.pt``
+    (``a5c_dp_reference``)."""
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+
+    ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method)
+    try:
+        return {cell: a5c_cell_rank(ctx, cell, f"{ckdir}/dp-{cell}.pt", ckdir)
+                for cell in cells}
+    finally:
+        ctx.shutdown()
+
+
+def a5c_cell_rank(ctx, cell: str, dp_path: str, ckdir: str) -> dict:
+    """This rank of an A5c cell (``tp``, ``pp`` or ``3d``): each run through
+    cli.lm's build and train_epoch over the cell's batches, the launch counts
+    zeroed just before and read just after, every wire call timed
+    (``WireTimer``), the step timed on the host clock to its loss sync; the
+    local leaves after the run held against the dp reference's (and the
+    leaves the TP layout keeps whole digested, for the check across TP
+    ranks).  pp: 1f1b and interleaved save at step 2 (``lm.gather_state``
+    and ``save_checkpoint``, as cli.lm's run saves), 1f1b is then resumed by
+    cli.lm's run for 1 more; tp: one step kernel vs plain
+    (``ring_step_gate``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.ops import build
+    from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import tp_spec_for
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    rank, world = ctx.rank, ctx.num_nodes
+    out: dict = {"backend": ctx.backend, "wire": ctx.comm.wire, "device": str(ctx.device),
+                 "runs": {}}
+    for name, args in a5c_runs(cell, rank, world).items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step, state, place, model = lm.build(args, ctx)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        wire = WireTimer(torch)
+        for axis, kind, method in (("model", "tp sum", "all_reduce_"),
+                                   ("pipe", "hop", "exchange"),
+                                   ("pipe", "pipe sum", "all_reduce_"),
+                                   ("batch", "dp mean", "all_reduce_")):
+            comm = step.mesh.get(axis)
+            if comm is not None and comm.world > 1:
+                setattr(comm, method, wire.wrap(kind, getattr(comm, method)))
+        losses, times, rec = [], [], {}
+        save = f"{ckdir}/{name}" if cell == "pp" and name in A5C_SAVES else None
+
+        def run(s, x, y):
+            t0 = time.perf_counter()
+            s, loss = step(s, x, y)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            wire.mark()
+            if save is not None and len(losses) == 2:
+                with timed_calls(ck, ("save_checkpoint",)) as ck_times:
+                    ck.save_checkpoint(save, lm.gather_state(args, step, s),
+                                       layout=lm.run_layout(args))
+                rec["save_s"] = ck_times["save_checkpoint"][0]
+            return s, loss
+
+        batches = a5c_batches(args, A5C_ORDER[cell])
+        build.reset_launch_counts()
+        state, _ = train_epoch(run, state, batches, place_batch=place,
+                               max_iters=len(batches))
+        torch.cuda.synchronize()
+        rec.update(launches=dict(build.launches), losses=losses, times=times[1:],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   leaves=sum(1 for _ in model.parameters()),
+                   elems=sum(p.numel() for p in model.parameters()),
+                   digest=device_digest(torch, model.parameters()),
+                   replicated=device_digest(torch, [
+                       p for n, p in model.named_parameters()
+                       if tp_spec_for(n, model.vocab_parallel == "both") is None]),
+                   wire_ms={k: wire.per_step(k) for k, v in wire.events.items() if v},
+                   waits=list(getattr(step, "waits", []))[1:], attn=model.attn_impl,
+                   layers=getattr(model, "layer_ids", None),
+                   mesh={k: (c.rank, c.world) for k, c in step.mesh.items()},
+                   dp=a5c_vs_dp(init, model, step.mesh, dp_path))
+        if cell == "tp":
+            rec.update(ring_step_gate(torch, step, state, model, place, args))
+        del step, state, place, model, init
+        if name == "1f1b":
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            resumed, lines = captured(lm.run, a5c_args(
+                "pp", rank, world, A5C["pp_batch"], A5C["pp_layers"], "--microbatches",
+                str(A5C["pp_micro"]), *A5C_PP[name], "--ckpt-dir", save, "--resume",
+                "--max-iters", "1"), ctx)
+            rec["resume_s"] = time.perf_counter() - t0
+            rec["resume_lines"] = [ln for ln in lines if "Resumed" in ln or "Saved" in ln]
+            rec["resumed_step"] = resumed.step
+            rec["resumed_digest"] = device_digest(torch, resumed.model.parameters())
+            del resumed
+        out["runs"][name] = rec
+    return out
+
+
+def a5c_generate_start(torch, ckdir: str) -> dict:
+    """(d), started: every pipeline checkpoint of (b) restored and unstacked
+    in this process and saved again in the dp layout (the parameters only);
+    then ``python -m ...cli.generate --ckpt-dir`` on each of the four
+    directories at once (B 1 x 4096 + 32, greedy, bf16), left running."""
+    from distributed_machine_learning_tpu_torch.parallel import pipeline as pp
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+
+    dirs = {}
+    for name in A5C_SAVES:
+        path = ck.latest_checkpoint(f"{ckdir}/{name}")
+        layout = ck.checkpoint_layout(path)
+        host = ck.restore_checkpoint(path)
+        n = MODEL["n_layers"]
+        params = pp.unstack_lm_params(host.params, n, pp.layout_order(layout, n))
+        ck.save_checkpoint(f"{ckdir}/{name}-dp", ck.HostState(
+            params=params, momentum={}, batch_stats={}, step=host.step, config=host.config))
+        dirs[name] = (f"{ckdir}/{name}", layout, path)
+        dirs[f"{name}-dp"] = (f"{ckdir}/{name}-dp", None, None)
+        del host, params
+    cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.generate",
+           "--d-model", str(MODEL["d_model"]), "--n-layers", str(MODEL["n_layers"]),
+           "--n-heads", str(MODEL["n_heads"]), "--n-kv-heads", str(MODEL["n_kv_heads"]),
+           "--vocab", str(MODEL["vocab_size"]), "--prompt", A5C_PROMPT, "--max-new-tokens",
+           str(A5C["gen_new"]), "--temperature", "0"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    procs = {k: subprocess.Popen([*cmd, "--ckpt-dir", d], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+             for k, (d, _, _) in dirs.items()}
+    return {"dirs": dirs, "procs": procs, "t0": time.perf_counter()}
+
+
+def a5c_generate_wait(job: dict) -> dict:
+    done = {k: p.communicate(timeout=600) for k, p in job["procs"].items()}
+    job["seconds"] = time.perf_counter() - job["t0"]
+    return done
+
+
+def a5c_generate_check(job: dict, card: str) -> list:
+    """(d)'s gates: every command exits 0; the tokens from each pipeline
+    checkpoint equal those from its dp-layout twin."""
+    dirs, failed, tokens = job["dirs"], [], {}
+    for k, (stdout, stderr) in job["done"].items():
+        lines = stdout.splitlines()
+        code = job["procs"][k].returncode
+        tokens[k] = lines[-1] if lines else ""
+        log(f"(d) cli.generate --ckpt-dir {k} ({dirs[k][1] or 'dp layout'}): exit code {code}; "
+            f"{lines[:1]}")
+        if code != 0:
+            failed.append(f"cli.generate on {k}: exit code {code}: {stderr[-2000:]}")
+    for name in A5C_SAVES:
+        same = tokens[name] == tokens[f"{name}-dp"] and tokens[name] != ""
+        log(f"(d) {name} checkpoint ({dirs[name][2]}): its {A5C['gen_new']} greedy tokens "
+            f"equal the dp-layout twin's: {same}")
+        if not same:
+            failed.append(f"(d) {name}: tokens differ from the dp layout's")
+    log(f"(d) four cli.generate commands at once, started once pp saved, collected after "
+        f"the 3d cell [{card}]: {job['seconds']:.1f} s to the collection")
+    return failed
+
+
+def a5c_want(cell: str, name: str, out: dict) -> dict:
+    """The launch formulas a rank of ``cell``'s run ``name``: K1, K2 and K3
+    once a local layer a microbatch a step (tp: every layer, one
+    microbatch); K7 once a local leaf a step (gpipe --overlap-update: the
+    boundary's five leaves as one flat slice); K11-K13 never."""
+    rec = out["runs"][name]
+    steps = len(A5C_ORDER[cell])
+    if cell == "tp":
+        layers, micro, leaves = A5C["tp_layers"], 1, rec["leaves"]
+    elif cell == "pp":
+        layers, micro = len(rec["layers"]), A5C["pp_micro"]
+        leaves = rec["leaves"] - (4 if name == "overlap" else 0)
+    else:
+        layers, micro, leaves = len(rec["layers"]), A5C["p3_micro"], rec["leaves"]
+    want = {k: layers * micro * steps for k in FLASH_KERNELS}
+    want["fused_adamw"] = leaves * steps
+    want.update({k: 0 for k in RING_KERNELS})
+    return want
+
+
+def a5c_flops_per_token(layers: int) -> float:
+    from distributed_machine_learning_tpu_torch.models.transformer import TransformerLM
+    from distributed_machine_learning_tpu_torch.utils.flops import (
+        transformer_train_flops_per_token,
+    )
+
+    model = TransformerLM(**{**MODEL, "n_layers": layers}, device="meta")
+    return transformer_train_flops_per_token(sum(p.numel() for p in model.parameters()),
+                                             layers, MODEL["d_model"], A5C["seq_len"])
+
+
+def a5c_report(cell: str, ranks: list, dp_losses: list, totals: dict, failed: list,
+               card: str) -> None:
+    """The cell's gates and readings (see ``run_a5c``)."""
+    from distributed_machine_learning_tpu_torch.utils.flops import train_mfu_per_rank
+
+    key = {"tp": "tp", "pp": "pp", "3d": "p3"}[cell]
+    batch, layers = A5C[f"{key}_batch"], A5C[f"{key}_layers"]
+    r0 = ranks[0]
+    log(f"a5c {cell}: W {len(ranks)}, B {batch} x L {A5C['seq_len']}, {layers} layers, "
+        f"backend {r0['backend']}, wire {r0['wire']}, {r0['device']}; dp reference losses "
+        f"{[round(x, 4) for x in dp_losses]}")
+    for name in r0["runs"]:
+        recs = [out["runs"][name] for out in ranks]
+        for r, (out, rec) in enumerate(zip(ranks, recs)):
+            want = a5c_want(cell, name, out)
+            got = {k: rec["launches"].get(k, 0) for k in want}
+            for k, n in got.items():
+                totals[k] = totals.get(k, 0) + n
+            u = rec["dp"]
+            log(f"a5c {cell} {name} rank {r} (mesh {rec['mesh']}, layers {rec['layers']}): "
+                f"launches {got} (want {want}); peak {rec['peak_gb']:.2f} GB; against dp after "
+                f"the run, diff / dp's update median {u['median']:.3e}, worst against its limit "
+                f"{u['worst'][1]:.3e} ({u['worst'][0]}, ratio {u['worst'][2]:.3f}; limit "
+                f"max({TRAIN_UPDATE_TOL:g}, {RING_NOISE_FACTOR:g} x {A5C_UPDATE_NOISE:g})); "
+                f"wire ms a step {({k: spread(v) for k, v in rec['wire_ms'].items()})}")
+            if got != want:
+                failed.append(f"{cell} {name} rank {r} launches {got} != {want}")
+            if not u["worst"][2] <= 1.0:
+                failed.append(f"{cell} {name} rank {r}: {u['worst'][0]} {u['worst'][1]:.3e} "
+                              f"from dp (ratio {u['worst'][2]:.3f})")
+        losses = recs[0]["losses"]
+        diff = abs(losses[0] - dp_losses[0])
+        log(f"a5c {cell} {name}: losses {[round(x, 5) for x in losses]}; step-0 loss vs dp "
+            f"{losses[0]:.6f} vs {dp_losses[0]:.6f} (diff {diff:.3e}, tol {TRAIN_LOSS_TOL:g})")
+        if not (all(math.isfinite(x) for x in losses) and diff <= TRAIN_LOSS_TOL
+                and all(rec["losses"] == losses for rec in recs)):
+            failed.append(f"{cell} {name}: losses {[rec['losses'] for rec in recs]}")
+        # Replicated leaves bit for bit across the ranks of a TP group (and
+        # every leaf across the ranks of a data group).
+        groups: dict = {}
+        for rec in recs:
+            m = rec["mesh"]
+            groups.setdefault((m.get("batch", (0, 1))[0], m.get("pipe", (0, 1))[0]),
+                              set()).add(rec["replicated"])
+            groups.setdefault(("data", m.get("pipe", (0, 1))[0], m.get("model", (0, 1))[0]),
+                              set()).add(rec["digest"])
+        same = all(len(v) == 1 for v in groups.values())
+        log(f"a5c {cell} {name}: replicated leaves bit for bit across TP ranks, every leaf "
+            f"across data ranks: {same}")
+        if not same:
+            failed.append(f"{cell} {name}: ranks' replicated leaves differ")
+        ms = [t * 1e3 for t in recs[0]["times"]]
+        tokens = batch * A5C["seq_len"]
+        rate = tokens / sorted(ms)[len(ms) // 2] * 1e3
+        per_rank = train_mfu_per_rank(rate, a5c_flops_per_token(layers), len(ranks),
+                                      BF16_FLOPS / 1e12)
+        line = (f"a5c {cell} {name} [{card}]: step ms (rank 0, host clock to the loss sync, "
+                f"step 0 untimed) {spread(ms)} -> {rate:.0f} tokens/s, MFU {per_rank:.4f} a "
+                f"rank ({per_rank * len(ranks):.4f} of the one card they share); peak GB a rank "
+                f"{[round(rec['peak_gb'], 2) for rec in recs]}")
+        if cell == "pp":
+            v = 2 if name == "interleaved" else 1
+            P, M = A5C["pp_world"], A5C["pp_micro"]
+            idle = [round(sum(rec["waits"]) / max(sum(rec["times"]), 1e-9), 3) for rec in recs]
+            line += (f"; bubble: idle share a stage (host seconds in the pipe exchange / step) "
+                     f"{idle} beside (P-1)/(v*M+P-1) = {(P - 1) / (v * M + P - 1):.3f}")
+        log(line)
+    if cell == "tp":
+        for r, out in enumerate(ranks):
+            g = out["runs"]["tp"]["gate"]
+            name, err, noise, ratio, median, name_e, err_e, noise_e = g["grad"]
+            log(f"a5c tp rank {r} step, kernel vs plain path: loss {g['loss']:.6f} vs "
+                f"{g['loss_plain']:.6f} (tol {TRAIN_LOSS_TOL:g}); gradient rel L2 median "
+                f"{median:.3e}, largest {err_e:.3e} ({name_e}); worst against its limit "
+                f"{err:.3e} ({name}; limit max({TRAIN_GRAD_TOL:g}, {RING_NOISE_FACTOR:g} x "
+                f"{noise:.3e}), ratio {ratio:.3f}); update worst {g['update'][1]:.3e} "
+                f"({g['update'][0]}), median {g['update'][2]:.3e} (tol {TRAIN_UPDATE_TOL:g})")
+            if not (abs(g["loss"] - g["loss_plain"]) <= TRAIN_LOSS_TOL
+                    and ratio <= 1.0 and g["update"][1] <= TRAIN_UPDATE_TOL):
+                failed.append(f"tp rank {r} kernel vs plain step")
+    if cell == "pp":
+        for r, out in enumerate(ranks):
+            runs = out["runs"]
+            overlap = runs["overlap"]["digest"] == runs["gpipe"]["digest"]
+            f = runs["1f1b"]
+            resumed = f["resumed_step"] == 3 and f["resumed_digest"] == f["digest"]
+            log(f"a5c pp rank {r}: gpipe --overlap-update bit for bit sync gpipe: {overlap}; "
+                f"1f1b saved at step 2 in {f['save_s']:.2f} s, interleaved in "
+                f"{runs['interleaved']['save_s']:.2f} s; the resumed run ({f['resume_s']:.1f} "
+                f"s; {f['resume_lines']}) bit for bit the uninterrupted 3 steps: {resumed}")
+            if not overlap:
+                failed.append(f"pp rank {r}: --overlap-update differs from sync gpipe")
+            if not resumed:
+                failed.append(f"pp rank {r}: the resumed run differs from the uninterrupted")
+    if cell == "3d":
+        plain, zero1 = r0["runs"]["2x2x1"]["losses"], r0["runs"]["2x2x1 zero1"]["losses"]
+        gap = max(abs(a - b) for a, b in zip(plain, zero1))
+        same = all(out["runs"]["2x2x1"]["digest"] == out["runs"]["2x2x1 zero1"]["digest"]
+                   for out in ranks)
+        log(f"a5c 3d: --zero1-dp against plain 3-D on dp 2 x pp 2 x tp 1: largest loss gap "
+            f"{gap:.3e} (tol {A5C_ZERO1_LOSS_TOL:g}); parameters bit for bit: {same}")
+        if not gap <= A5C_ZERO1_LOSS_TOL:
+            failed.append("3d: --zero1-dp losses differ from plain 3-D")
+
+
+def run_a5c(torch, rows: dict, card: str, cells=("tp", "pp", "3d")) -> None:
+    """The A5c phase (docstring step 10b).  Gates: every rank's launches at
+    their formulas (``a5c_want``); losses finite, equal on every rank, the
+    step-0 loss within TRAIN_LOSS_TOL of one-process dp's on the same
+    weights and batch; every local leaf after the run within max(TRAIN_UPDATE_TOL,
+    RING_NOISE_FACTOR x A5C_UPDATE_NOISE) of dp's (relative to dp's update
+    of the leaf); the leaves the TP layout keeps whole bit for bit across a
+    TP group, every leaf across a data group; tp: one step kernel vs plain
+    on every rank (the ring's gate); pp: --overlap-update bit for bit sync
+    gpipe, the resumed 1f1b run bit for bit the uninterrupted one; 3d:
+    --zero1-dp within A5C_ZERO1_LOSS_TOL of plain 3-D; (d) every
+    cli.generate exits 0 and each pipeline checkpoint's tokens equal its
+    dp-layout twin's.  The three cells' ranks (2, 2 and 4 processes) run at
+    once, the dp references in this process while they start, and (d)'s
+    four commands once pp has saved (time limit): each cell's step times
+    carry the others' load.
+    Reports step ms, tokens/s, MFU a rank, peak GB a rank, the wire's ms a
+    step and, for pp, the idle share a stage beside the bubble formula."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="a5c_", dir=build_dir)
+    totals: dict = {}
+    failed: list = []
+    generate: dict = {}
+    groups = [[c] for c in ("pp", "tp", "3d") if c in cells]
+    t0 = time.perf_counter()
+
+    def run_group(group):
+        world = {"tp": A5C["tp_world"], "pp": A5C["pp_world"], "3d": A5C["p3_world"]}[group[0]]
+        ranks = spawn(a5c_rank, world, (tuple(group), ckdir), timeout_s=900)
+        log(f"a5c {' and '.join(group)} ranks: done {time.perf_counter() - t0:.1f} s into "
+            "the phase")
+        if "pp" in group:
+            generate.update(a5c_generate_start(torch, ckdir))
+        return ranks
+
+    try:
+        with ThreadPoolExecutor(len(groups)) as pool:
+            running = [pool.submit(run_group, g) for g in groups]
+            # The references run while the ranks start; a rank waits for its
+            # cell's file after its first run.
+            dp_losses = {c: a5c_dp_reference(torch, c, f"{ckdir}/dp-{c}.pt")
+                         for c in sorted(cells, key=("tp", "3d", "pp").index)}
+            log(f"a5c dp references: {time.perf_counter() - t0:.1f} s")
+            results = [r.result() for r in running]
+        for group, ranks in zip(groups, results):
+            for c in group:
+                a5c_report(c, [r[c] for r in ranks], dp_losses[c], totals, failed, card)
+        if generate:
+            generate["done"] = a5c_generate_wait(generate)
+            failed += a5c_generate_check(generate, card)
+    finally:
+        for p in generate.get("procs", {}).values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"a5c launches over the phase: {totals}")
+    for key, row in rows.items():
+        row["a5c_launches"] = totals.get(key.split(":")[0], 0)
+    if failed:
+        raise AssertionError("a5c: " + "; ".join(failed))
+
+
+# K1-K3 at the A5c paths' shapes: a TP rank's heads (tp W 2 and 3d tp 2: H
+# 8 / Hkv 2, B 2 rows) and a pipeline microbatch (pp and 3d dp 2: B 1, H 16
+# / Hkv 4), L 2048; K7 on the flat boundary slice of gpipe's
+# --overlap-update (a stage's half of embed + ln_f + lm_head).
+A5C_SHAPES = [(2, 2048, 8, 2, 128), (1, 2048, 16, 4, 128)]
+
+
+def check_a5c_shapes(torch, fa, fadam) -> None:
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    failed: list = []
+    for B, L, H, Hkv, D in A5C_SHAPES:
+        label = f"a5c B={B} L={L} H={H} Hkv={Hkv} D={D} bf16"
+        q, k, v, do, lse_p, delta = bwd_inputs(torch, fa, B, L, H, Hkv, D, "bfloat16", gen)
+        out, lse = fa._launch(q, k, v)
+        compare(f"flash_fwd {label}", out, fa.flash_attention_reference(q, k, v), failed)
+        if not float((lse - lse_p).abs().max()) <= LSE_TOL:
+            failed.append(f"flash_fwd lse {label}")
+        args = (q, k, v, do, lse_p, delta)
+        dq = fa._launch_dq(*args)
+        dk, dv = fa._launch_dkv(*args)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_backward_reference(*args)
+        compare(f"flash_bwd_dq {label}", dq, ref[0], failed, GRAD_ROW_FLOOR)
+        compare(f"flash_bwd_dkv dk {label}", dk, ref[1], failed, GRAD_ROW_FLOOR)
+        compare(f"flash_bwd_dkv dv {label}", dv, ref[2], failed, GRAD_ROW_FLOOR)
+    cfg = AdamWConfig()
+    V, E = MODEL["vocab_size"], MODEL["d_model"]
+    n = -(-(2 * V * E + V + 2 * E) // A5C["pp_world"])
+    old = (0.02 * torch.randn(n, device="cuda", generator=gen),
+           1e-3 * torch.randn(n, device="cuda", generator=gen),
+           1e-6 * torch.rand(n, device="cuda", generator=gen),
+           1e-3 * torch.randn(n, device="cuda", generator=gen))
+    got, want = [t.clone() for t in old], [t.clone() for t in old]
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    fadam.fused_adamw_leaf(*got, *adamw_scalars(10, cfg), **hyper)
+    torch.cuda.synchronize()
+    fadam.fused_adamw_reference(*want, *adamw_scalars(10, cfg), **hyper)
+    errs = adamw_ulp_errs(got, want, old, cfg)
+    log(f"  fused_adamw a5c boundary slice n={n} f32: ulp error p/mu/nu "
+        f"{errs[0]:.0f}/{errs[1]:.0f}/{errs[2]:.0f} (tol {ADAMW_ULP_TOL})")
+    if not max(errs) <= ADAMW_ULP_TOL:
+        failed.append(f"fused_adamw n={n}")
+    raise_failed(failed)
+
+
 # -- The A4 paths: ResNets, LARS, schedules, accumulation, the parts'
 # checkpoints, the native loader, the parity report, the LM's SGD and LARS.
 A4 = dict(resnet_iters=40, resnet_bf16_iters=20, resnet50_iters=5, fused_iters=4,
@@ -6830,14 +7473,15 @@ def run_a4(torch, build, rows: dict, card: str) -> dict:
 
 
 def run_card_tests() -> None:
-    """The card tests of the latest slices (``tests/test_torch_kernels_cuda.py``:
-    the flat-shard and per-layer trainers; speculative decoding and MoE
-    serving), as the README runs the file:
-    ``--noconftest`` (the repo's conftest imports JAX)."""
+    """The card test of the latest slice (``tests/test_torch_kernels_cuda.py``:
+    the model-parallel paths; the other slices' card tests are left to the
+    README's command for the time limit: their paths run in the phases above), as
+    the README runs the file: ``--noconftest`` (the repo's conftest imports
+    JAX)."""
     repo = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "pytest", "tests/test_torch_kernels_cuda.py", "-q",
            "--noconftest", "-p", "no:cacheprovider", "-k",
-           "trainers_on_the_card or speculative_and_moe"]
+           "model_parallel_paths_on_the_card"]
     res = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
     tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
     log(f"card tests ({' '.join(cmd[3:])}): exit code {res.returncode}; {tail}")
@@ -6879,7 +7523,8 @@ def perturb(torch, pkg, name: str) -> int:
         checks = [lambda: check_ring_flash(torch, rf, {}, timing=False)]
     elif training:
         checks = [lambda: check_flash_bwd(torch, fa, {}, timing=False),
-                  lambda: check_adamw(torch, fadam, {}, timing=False)]
+                  lambda: check_adamw(torch, fadam, {}, timing=False),
+                  lambda: check_a5c_shapes(torch, fa, fadam)]
     else:
         checks = [lambda: check_flash(torch, fa, {}, timing=False),
                   lambda: check_decode(torch, da, {}, timing=False),
@@ -6919,6 +7564,12 @@ def perturb(torch, pkg, name: str) -> int:
                 check_engine_step(torch, models["bf16"], *engine_traffic(torch))
             except AssertionError as exc:
                 caught.append(f"engine logits: {exc}")
+    if kernel in ("flash_fwd", "flash_bwd", "fused_adamw"):
+        log(f"perturbation {name}: the a5c tp cell's gates")
+        try:
+            run_a5c(torch, {}, card_line(), cells=("tp",))
+        except AssertionError as exc:
+            caught.append(f"a5c: {exc}")
     log(f"perturbation {name}: caught by {len(caught)} check(s): {caught}")
     return 0 if any(c.startswith("kernel") for c in caught) else 1
 
@@ -6988,9 +7639,10 @@ def device_busy(torch, prof):
 # The run's phases after the kernel checks, in order, for ``--only``:
 # serve (steps 4-5b), a8 (5c), train (6), ckpt (6b, with cli.distill), vgg,
 # ring, ulysses, fsdp (fsdp and fsdp_pl), zero1 (zero1/fsdp_cnn and their
-# checkpoints), a4, tests (the card tests).
-PHASES = ("serve", "a8", "train", "ckpt", "vgg", "ring", "ulysses", "fsdp", "zero1", "a4",
-          "tests")
+# checkpoints), a5c (tp, pp, 3d and their checkpoints), a4, tests (the card
+# tests).
+PHASES = ("serve", "a8", "train", "ckpt", "vgg", "ring", "ulysses", "fsdp", "zero1", "a5c",
+          "a4", "tests")
 
 
 def main(argv=None) -> int:
@@ -7067,6 +7719,7 @@ def main(argv=None) -> int:
     check_flat_adamw(torch, fadam, rows, timing, "fused_adamw:flat_cnn",
                      flat_cnn_shard_len(FLAT_CNN["world"]),
                      f"{FLAT_CNN['model']} under zero1/fsdp, W {FLAT_CNN['world']}")
+    check_a5c_shapes(torch, fa, fadam)
     check_codec(torch, rc, rows, timing)
     check_ring_flash(torch, rf, rows, timing)
     if args.check_only:
@@ -7140,6 +7793,12 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(ckdir, ignore_errors=True)
         log(f"zero1/fsdp_cnn and flat_ckpt (zero1) phases: {time.perf_counter() - t0:.1f} s")
+    if wanted("a5c"):
+        t0 = time.perf_counter()
+        run_a5c(torch, rows, card)
+        log(f"a5c phase: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     parity = run_a4(torch, build, rows, card) if wanted("a4") else None
     gc.collect()
     torch.cuda.empty_cache()
@@ -7196,7 +7855,7 @@ def main(argv=None) -> int:
             "zero1_cnn_launches": row["zero1_cnn_launches"],
             "fsdp_cnn_launches": row["fsdp_cnn_launches"],
             "flat_ckpt_launches": row["flat_ckpt_launches"],
-            "a4_launches": row["a4_launches"],
+            "a4_launches": row["a4_launches"], "a5c_launches": row.get("a5c_launches", 0),
             **{f"{c}_launches": row.get(f"{c}_launches", 0) for c in A8_COLUMNS},
             "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))

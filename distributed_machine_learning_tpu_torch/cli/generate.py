@@ -26,8 +26,9 @@ The model flags must describe the checkpoint's model.  ``--tp N`` takes
 the ranks' backend from where they run (``runtime/distributed``: nccl with
 a card a rank, gloo when ranks share a card or run on the CPU), so unlike
 the reference it needs no N devices; rank 0's tokens are printed, and every
-rank must return the same.  Pipeline-layout checkpoints (stacked blocks)
-are not ported yet (ROADMAP A5c).
+rank must return the same.  A pipeline-layout checkpoint (``cli.lm
+--parallel pp`` or ``3d``: stacked blocks, tagged contiguous or interleaved)
+is unstacked on restore.
 """
 
 from __future__ import annotations
@@ -127,7 +128,14 @@ def restore_lm_params(ckpt_dir: str, say=print) -> dict:
     """The parameters of the newest valid checkpoint under ``ckpt_dir``, as
     CPU tensors by state_dict name (its files verified by the fallback
     chain, its leaves by the restore): the one restore path of the target
-    and the draft."""
+    and the draft.  A pipeline-layout checkpoint (``cli.lm --parallel pp``
+    or ``3d``) is unstacked into per-layer leaves in the order its layout
+    tag names, contiguous or interleaved, as the reference's
+    ``_restore_lm_params`` does."""
+    from distributed_machine_learning_tpu_torch.parallel.pipeline import (
+        layout_order,
+        unstack_lm_params,
+    )
     from distributed_machine_learning_tpu_torch.train.checkpoint import (
         checkpoint_layout,
         latest_checkpoint,
@@ -137,12 +145,13 @@ def restore_lm_params(ckpt_dir: str, say=print) -> dict:
     latest = latest_checkpoint(ckpt_dir)
     if latest is None:
         raise FileNotFoundError(f"no complete checkpoint under {ckpt_dir}")
-    if checkpoint_layout(latest) is not None:
-        raise NotImplementedError(
-            f"checkpoint {latest} holds a pipeline layout "
-            f"({checkpoint_layout(latest)!r}); unstacking it is not ported yet: "
-            "ROADMAP A5c")
     params = restore_checkpoint(latest, files_verified=True).params
+    stacked = [t for name, t in params.items() if name.startswith("blocks.")
+               and not name.split(".")[1].isdigit()]
+    if stacked:
+        n_layers = stacked[0].shape[0]
+        params = unstack_lm_params(params, n_layers,
+                                   layout_order(checkpoint_layout(latest), n_layers))
     say(f"restored {latest}")
     return params
 

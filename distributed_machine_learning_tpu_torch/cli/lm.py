@@ -1,5 +1,5 @@
-"""Language-model training entry point of the port: ``--parallel dp``,
-``ring``, ``ulysses`` and ``fsdp``.
+"""Language-model training entry point of the port: every ``--parallel``
+scheme of the reference but ``ep``.
 
 Counterpart of ``distributed_machine_learning_tpu/cli/lm.py``.  Trains the
 decoder-only ``TransformerLM`` on the reference's deterministic synthetic
@@ -7,8 +7,8 @@ token stream (``np.random.default_rng(69143)``), or on a byte-level corpus
 of every text file under ``--data-dir`` (``data/text.py``; vocab raised to
 257): f32 master weights, the compute dtype of ``--compute-dtype``, AdamW
 (``--fused-update``: the fused kernel K7), or SGD (``--momentum-dtype``
-narrows its buffers) or LARS (``--optimizer``; LARS under dp, ring and
-ulysses: the sharded schemes refuse it), flash attention with its
+narrows its buffers) or LARS (``--optimizer``; LARS under dp, ring,
+ulysses and tp: the sharded and pipeline schemes refuse it), flash attention with its
 backward kernels K2/K3 where ``--attn`` picks flash, and the head fused
 with the loss over ``--fused-ce-chunks`` vocab chunks (``ops/fused_ce.py``:
 the [B, L, vocab] logits never exist).  The measurement protocol is the
@@ -43,7 +43,25 @@ Every rank draws the same global batch and takes its part:
   layer runs and again in its backward, each leaf's gradient
   reduce-scattered to the rank's block, the optimizer run per leaf (one K7
   launch a leaf with ``--fused-update``); ``--attn`` is honoured (K1-K3
-  under flash).
+  under flash);
+- ``--parallel tp``: the whole batch, with its slice of every layer (its
+  H/W heads and Hkv/W KV heads, d_ff/W, the embedding's and the head's
+  vocabulary; ``parallel/tensor_parallel.py``): Megatron's f/g sums around
+  each sub-layer, the vocabulary-parallel loss, the optimizer per local
+  leaf; ``--attn`` is honoured;
+- ``--parallel pp``: its stage of the layers (the embedding, ``ln_f`` and
+  the head whole on every stage), ``--microbatches`` M through the stages
+  in the ``--pp-schedule``'s order: ``1f1b`` (the default,
+  ``parallel/pipeline_1f1b.py``), ``gpipe`` (``parallel/pipeline.py``;
+  ``--overlap-update`` shards the boundary modules' update over the
+  stages) or ``interleaved`` (``--pp-chunks`` v chunks a stage,
+  ``parallel/pipeline_interleaved.py``); dense attention, or explicit
+  ``--attn flash`` (``auto`` resolves to dense, as the reference's);
+- ``--parallel 3d --dp D --pp P --tp T``: GPipe over P stages of T-way TP
+  layers, each microbatch's rows split over D (``parallel/parallel3d.py``;
+  ``--zero1-dp`` keeps the moments 1/D over the data group); dense, or
+  explicit ``--attn flash`` (the reference's pipeline blocks resolve
+  ``auto`` to dense).
 
 Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
@@ -70,20 +88,23 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
 ``--ckpt-dir`` saves the state after training (``train/checkpoint.py``:
 rank 0 writes, every rank restores; not under fsdp, as in the reference;
-under fsdp_pl every leaf is gathered whole first, so the files are a dp
-run's, and a resume slices each rank's blocks out of them);
+under fsdp_pl and tp every leaf is gathered whole first, so the files are a
+dp run's, and a resume slices each rank's part out of them; under pp and 3d
+the blocks are stacked in the pipeline layout, tagged "pp-contiguous" or
+with the interleaved order's tag, which a resume must match and
+``cli.generate --ckpt-dir`` unstacks);
 ``--resume`` first restores the newest valid checkpoint there (this run's
 optimizer hyperparameters win, so ``--lr`` may change), ``--resume auto``
 also restarts a failed run from it, up to ``--max-restarts`` times.  The
 synthetic stream starts from its seed in every process, as the
 reference's does.  ``--eval-batches`` evaluates after training: the
 held-out final 10 % of the corpus under ``--data-dir``, else synthetic
-batches of the next seed; under fsdp and fsdp_pl on the gathered
-parameters.
+batches of the next seed; under fsdp, fsdp_pl and tp on the gathered
+parameters, under pp and 3d on the gathered and unstacked ones.
 
 Every flag of the reference that this port does not carry yet raises
-NotImplementedError naming its ROADMAP item (the other ``--parallel``
-schemes tp, pp, 3d and ep, telemetry).
+NotImplementedError naming its ROADMAP item (``--parallel ep`` and its
+flags, telemetry).
 """
 
 from __future__ import annotations
@@ -132,19 +153,12 @@ PARALLEL = ["dp", "ring", "ulysses", "fsdp", "fsdp_pl", "tp", "pp", "3d", "ep"]
 _NOT_PORTED = [
     ("telemetry_dir", None, "A6 'telemetry'"),
     ("telemetry_flush_every", 20, "A6 'telemetry'"),
-    ("n_experts", 8, "A5 (--parallel ep)"),
-    ("capacity_factor", 1.25, "A5 (--parallel ep)"),
-    ("ep", None, "A5 (--parallel ep)"),
-    ("moe_impl", "einsum", "A5 (--parallel ep)"),
-    ("ep_slots", None, "A5 (--parallel ep)"),
-    ("ep_seq", 1, "A5 (--parallel ep)"),
-    ("microbatches", 2, "A5 (--parallel pp/3d)"),
-    ("pp_schedule", "1f1b", "A5 (--parallel pp)"),
-    ("pp_chunks", None, "A5 (--parallel pp)"),
-    ("dp", None, "A5 (--parallel 3d)"),
-    ("pp", 2, "A5 (--parallel 3d)"),
-    ("tp", 2, "A5 (--parallel 3d)"),
-    ("zero1_dp", False, "A5 (--parallel 3d)"),
+    ("n_experts", 8, "A5c (--parallel ep)"),
+    ("capacity_factor", 1.25, "A5c (--parallel ep)"),
+    ("ep", None, "A5c (--parallel ep)"),
+    ("moe_impl", "einsum", "A5c (--parallel ep)"),
+    ("ep_slots", None, "A5c (--parallel ep)"),
+    ("ep_seq", 1, "A5c (--parallel ep)"),
 ]
 
 
@@ -160,7 +174,8 @@ def make_parser() -> argparse.ArgumentParser:
                    default=20, type=int)
     p.add_argument("--parallel", default="dp", choices=PARALLEL,
                    help="dp, fsdp or fsdp_pl (each rank its rows), ring or ulysses "
-                        "(each rank its sequence chunk) in this port so far")
+                        "(each rank its sequence chunk), tp (its heads), pp (its stage), "
+                        "3d (data x pipeline x tensor); ep is not ported yet")
     p.add_argument("--n-experts", dest="n_experts", default=8, type=int)
     p.add_argument("--capacity-factor", dest="capacity_factor", default=1.25,
                    type=float)
@@ -179,7 +194,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", dest="batch_size", default=8, type=int,
                    help="global batch (sequences per step)")
     p.add_argument("--max-iters", dest="max_iters", default=40, type=int)
-    p.add_argument("--microbatches", default=2, type=int)
+    p.add_argument("--microbatches", default=2, type=int,
+                   help="pipeline microbatches (pp/3d)")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--resume", nargs="?", const="latest", default=None,
                    choices=["latest", "auto"])
@@ -192,15 +208,26 @@ def make_parser() -> argparse.ArgumentParser:
                    help="'dynamic': dynamic loss scaling (overflow skips the "
                         "update and halves the scale, 200 good steps double it)")
     p.add_argument("--pp-schedule", dest="pp_schedule", default="1f1b",
-                   choices=["1f1b", "gpipe", "interleaved"])
-    p.add_argument("--pp-chunks", dest="pp_chunks", default=None, type=int)
-    p.add_argument("--dp", default=None, type=int)
-    p.add_argument("--pp", default=2, type=int)
-    p.add_argument("--tp", default=2, type=int)
-    p.add_argument("--zero1-dp", dest="zero1_dp", action="store_true")
+                   choices=["1f1b", "gpipe", "interleaved"],
+                   help="pipeline schedule (pp only): 1f1b (one backward per forward, "
+                        "O(P) activations), gpipe (all forwards, then all backwards) or "
+                        "interleaved (--pp-chunks virtual stages a rank)")
+    p.add_argument("--pp-chunks", dest="pp_chunks", default=None, type=int,
+                   help="virtual stages per rank for --pp-schedule interleaved (v, "
+                        "default 2); n_layers must divide by ranks x v")
+    p.add_argument("--dp", default=None, type=int,
+                   help="data-axis size for --parallel 3d (default: ranks // (pp*tp))")
+    p.add_argument("--pp", default=2, type=int, help="pipe-axis size for --parallel 3d")
+    p.add_argument("--tp", default=2, type=int, help="model-axis size for --parallel 3d")
+    p.add_argument("--zero1-dp", dest="zero1_dp", action="store_true",
+                   help="with --parallel 3d: the optimizer moments 1/dp over the data "
+                        "axis (parallel/parallel3d.py); update-equivalent to plain 3d")
     p.add_argument("--overlap-update", dest="overlap_update", action="store_true",
                    help="with --parallel fsdp: gather the next step's parameters "
-                        "behind the host's work between steps (parallel/overlap.py)")
+                        "behind the host's work between steps (parallel/overlap.py); "
+                        "with --parallel pp --pp-schedule gpipe: the boundary modules' "
+                        "update sharded over the stages, its gather behind the blocks' "
+                        "update")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--optimizer", default="adamw", choices=optimizer_names())
@@ -226,8 +253,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="'auto': flash from the reference's length policy up "
                         "(ops/flash_attention.flash_wins), dense below; ring "
                         "upgrades to its flash kernels by the reference's rule, "
-                        "fsdp resolves 'auto' to dense, fsdp_pl honours it, "
-                        "ulysses owns its attention")
+                        "fsdp, pp and 3d resolve 'auto' to dense, fsdp_pl and tp "
+                        "honour it, ulysses owns its attention")
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing (torch.utils.checkpoint)")
     p.add_argument("--remat-policy", dest="remat_policy", default="mlp",
@@ -239,10 +266,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.parallel not in ("dp", "ring", "ulysses", "fsdp", "fsdp_pl"):
-        raise NotImplementedError(
-            f"--parallel {args.parallel} is not ported yet: ROADMAP A5c "
-            "(model parallelism)")
+    if args.parallel == "ep":
+        raise NotImplementedError("--parallel ep is not ported yet: ROADMAP A5c "
+                                  "(expert parallelism)")
     for dest, default, item in _NOT_PORTED:
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
@@ -261,9 +287,22 @@ def _check_layout(args) -> None:
     if args.fused_update and args.optimizer != "adamw":
         raise ValueError("--fused-update applies to --optimizer adamw only (the fused "
                          f"kernel is the AdamW rule; got --optimizer {args.optimizer})")
-    if args.overlap_update and args.parallel != "fsdp":
-        raise ValueError("--overlap-update applies to --parallel fsdp (prefetch "
-                         f"protocol) in this port; got --parallel {args.parallel}")
+    if args.pp_chunks is not None and not (args.parallel == "pp"
+                                           and args.pp_schedule == "interleaved"):
+        raise ValueError("--pp-chunks applies to --parallel pp with --pp-schedule "
+                         f"interleaved only (got --parallel {args.parallel}, "
+                         f"--pp-schedule {args.pp_schedule})")
+    if args.zero1_dp and args.parallel != "3d":
+        raise ValueError("--zero1-dp (ZeRO-1 x 3-D moment sharding) applies to --parallel "
+                         f"3d only (got --parallel {args.parallel}); the standalone ZeRO-1 "
+                         "scheme is parallel/zero1.py")
+    if args.overlap_update and (args.parallel not in ("fsdp", "pp") or (
+            args.parallel == "pp" and args.pp_schedule != "gpipe")):
+        raise ValueError("--overlap-update applies to --parallel fsdp (prefetch protocol) "
+                         "or --parallel pp --pp-schedule gpipe (pipe-sharded boundary "
+                         f"update); got --parallel {args.parallel}"
+                         + (f" --pp-schedule {args.pp_schedule}" if args.parallel == "pp"
+                            else ""))
     if args.fused_ce_chunks and args.parallel not in ("dp", "ring", "ulysses", "fsdp",
                                                       "fsdp_pl"):
         raise ValueError("--fused-ce-chunks applies to the dp/ring/ulysses/fsdp/"
@@ -280,6 +319,14 @@ def _check_layout(args) -> None:
         raise ValueError(f"--seq-len {args.seq_len} must be divisible by the "
                          f"{n}-device sequence axis ({args.parallel} shards the "
                          "sequence)")
+    if args.parallel in ("pp", "3d") and args.optimizer == "lars":
+        raise ValueError("LARS is not supported under pipeline/3-D parallelism: per-leaf "
+                         "weight/grad norms would be computed on per-stage slices; use sgd "
+                         "or adamw (elementwise updates are exact on any slice)")
+    if args.parallel == "3d":
+        from distributed_machine_learning_tpu_torch.parallel.parallel3d import check_3d_mesh
+
+        check_3d_mesh(n, args.dp, args.pp, args.tp)
     if args.parallel == "fsdp" and args.attn == "flash":
         raise ValueError("FSDP LM step requires attn_impl='dense' (sequence-sharded "
                          "attention needs a second mesh axis)")
@@ -303,15 +350,17 @@ def optimizer_config(args):
 
 
 def attn_impl(args) -> str:
-    """The model's attention: ``--attn`` under dp; under fsdp ``auto``
-    resolved to dense (its step refuses flash); ``ulysses`` under ulysses;
+    """The model's attention: ``--attn`` under dp, fsdp_pl and tp; under
+    fsdp ``auto`` resolved to dense (its step refuses flash), under pp and 3d
+    too (the reference's pipeline blocks run flash only when asked for
+    explicitly); ``ulysses`` under ulysses;
     under ring the einsum ring, upgraded to the ring flash kernels as the
     reference decides (``cli/lm.py:394-419``): ``--attn flash`` on any chunk
     the kernels tile natively, ``--attn auto`` where
     ``_ring_flash_wins(chunk)``."""
     if args.parallel == "ulysses":
         return "ulysses"
-    if args.parallel == "fsdp" and args.attn == "auto":
+    if args.parallel in ("fsdp", "pp", "3d") and args.attn == "auto":
         return "dense"
     if args.parallel != "ring":
         return args.attn
@@ -349,9 +398,14 @@ def build(args, ctx: DistributedContext | None = None):
     whose parameters and moments are this rank's blocks), the train step and
     the batch placement (the global host batch → this rank's shard on its
     device).  ``step.params_fn(state)`` gives the full parameters by name
-    (under fsdp and fsdp_pl a gather: every rank must call it).  ``ctx``: the rank's
-    process group (from :func:`initialize_from_flags`); without one, a
-    one-process run."""
+    (under fsdp, fsdp_pl, tp, pp and 3d a gather: every rank must call it).
+    Under tp, pp and 3d the state holds this rank's local model (its TP
+    slices, its pipeline stage), the returned model is that local model,
+    ``step.mesh`` the Comm of each mesh axis and ``step.eval_model`` the
+    global model's config on the meta device (the local model carries the
+    mesh too, as ``mesh``).  ``ctx``: the rank's process
+    group (from :func:`initialize_from_flags`); without one, a one-process
+    run."""
     _refuse_unported(args)
     _check_layout(args)
     if ctx is None:
@@ -367,6 +421,8 @@ def build(args, ctx: DistributedContext | None = None):
         attn_impl=attn_impl(args), remat=args.remat, remat_policy=args.remat_policy,
         device=device, comm=comm)
     state = init_lm_state(model, seed=SEED, config=optimizer_config(args))
+    if args.parallel in ("tp", "pp", "3d"):
+        return _build_model_parallel(args, comm, device, model, state)
     if args.parallel == "fsdp_pl":
         from distributed_machine_learning_tpu_torch.parallel.fsdp_perlayer import (
             gather_fsdp_pl_params,
@@ -398,12 +454,113 @@ def build(args, ctx: DistributedContext | None = None):
         step.params_fn = lambda st: unwrap_dynamic_scale(st).params
     axis = "seq" if args.parallel in ("ring", "ulysses") else "batch"
 
+    on_device = _to_device(device)
+
     def place(tokens, targets):
-        tokens, targets = shard_lm_batch(tokens, targets, comm.rank, comm.world, axis)
+        return on_device(*shard_lm_batch(tokens, targets, comm.rank, comm.world, axis))
+
+    return step, state, place, model
+
+
+def _to_device(device):
+    """Host token batches (numpy) → long tensors on ``device``."""
+    def place(tokens, targets):
         return (torch.from_numpy(np.ascontiguousarray(tokens)).to(device, torch.long),
                 torch.from_numpy(np.ascontiguousarray(targets)).to(device, torch.long))
 
-    return step, state, place, model
+    return place
+
+
+def _build_model_parallel(args, comm, device, model, state):
+    """``build``'s tp, pp and 3d branches (the reference's ``cli/lm.py:645-
+    739``): each step is built first, so its checks speak before the state is
+    laid out."""
+    from distributed_machine_learning_tpu_torch.parallel import pipeline as pp
+
+    on_device = _to_device(device)
+    eval_model = model.clone(device="meta", attn_impl="dense")
+    M = args.microbatches
+    if args.parallel == "tp":
+        from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
+            gather_tp_params,
+            make_tp_lm_train_step,
+            shard_tp_batch,
+            shard_tp_state,
+        )
+
+        step = make_tp_lm_train_step(model, comm)
+        state = shard_tp_state(state, comm)
+        step.mesh = {"model": comm}
+        step.params_fn = lambda st: gather_tp_params(st, comm)
+        place = lambda x, y: on_device(*shard_tp_batch(x, y))  # noqa: E731
+    elif args.parallel == "pp":
+        v = (args.pp_chunks or 2) if args.pp_schedule == "interleaved" else 1
+        if args.pp_schedule == "1f1b":
+            from distributed_machine_learning_tpu_torch.parallel.pipeline_1f1b import (
+                make_pp_1f1b_lm_train_step,
+            )
+
+            step = make_pp_1f1b_lm_train_step(model, comm, M)
+        elif args.pp_schedule == "interleaved":
+            from distributed_machine_learning_tpu_torch.parallel.pipeline_interleaved import (
+                make_pp_interleaved_lm_train_step,
+            )
+
+            step = make_pp_interleaved_lm_train_step(model, comm, M, v)
+        else:
+            step = pp.make_pp_lm_train_step(model, comm, M, overlap_update=args.overlap_update)
+        state = pp.pipeline_state(state, comm, v)
+        step.mesh = {"pipe": comm}
+        place = lambda x, y: pp.microbatch(*on_device(x, y), M)  # noqa: E731
+    else:
+        from distributed_machine_learning_tpu_torch.parallel import parallel3d as p3
+
+        mesh = p3.make_3d_mesh(comm, p3.check_3d_mesh(comm.world, args.dp, args.pp, args.tp),
+                               args.pp, args.tp)
+        step = p3.make_3d_lm_train_step(model, mesh, M, zero1_dp=args.zero1_dp)
+        state = p3.shard_3d_state(state, mesh, zero1_dp=args.zero1_dp)
+        step.mesh = mesh
+        place = lambda x, y: p3.shard_3d_batch(  # noqa: E731
+            mesh["batch"], *pp.microbatch(*on_device(x, y), M))
+    if args.parallel != "tp":
+        def params_fn(st):
+            host = gather_state(args, step, st)
+            order = pp.layout_order(run_layout(args), args.n_layers)
+            return {k: v.to(device) for k, v in
+                    pp.unstack_lm_params(host.params, args.n_layers, order).items()}
+
+        step.params_fn = params_fn
+    step.eval_model = eval_model
+    state.model.mesh = step.mesh
+    return step, state, place, state.model
+
+
+def run_layout(args) -> str | None:
+    """The parameter layout tag a run saves and must resume from (the
+    reference's ``cli/lm.py:870-885``)."""
+    if args.parallel == "pp" and args.pp_schedule == "interleaved":
+        from distributed_machine_learning_tpu_torch.parallel.pipeline_interleaved import (
+            interleaved_layout_tag,
+        )
+
+        return interleaved_layout_tag(args.num_nodes, args.pp_chunks or 2)
+    return "pp-contiguous" if args.parallel in ("pp", "3d") else None
+
+
+def gather_state(args, step, state):
+    """The whole state a tp, pp or 3d run saves, as a ``HostState`` (tp: a
+    dp run's leaves; pp and 3d: the pipeline layout).  Every rank must call
+    it."""
+    mesh = step.mesh
+    if args.parallel == "tp":
+        from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
+            gather_tp_state,
+        )
+
+        return gather_tp_state(state, mesh["model"])
+    from distributed_machine_learning_tpu_torch.parallel.pipeline import gather_pipeline_state
+
+    return gather_pipeline_state(state, mesh["pipe"], mesh.get("model"), mesh.get("batch"))
 
 
 def load_data(args):
@@ -439,8 +596,9 @@ def load_data(args):
 def resume(args, state):
     """``state`` from the newest valid checkpoint under ``--ckpt-dir``
     (restored into its tensors in place), or unchanged when there is none.
-    Refuses a checkpoint of another parameter layout or optimizer; this
-    run's optimizer config wins over the saved one."""
+    Refuses a checkpoint of another parameter layout (:func:`run_layout`)
+    or optimizer; this run's optimizer config wins over the saved one.
+    Under tp, pp and 3d the local model carries its ``mesh`` (``build``)."""
     from distributed_machine_learning_tpu_torch.train.checkpoint import (
         checkpoint_config,
         checkpoint_layout,
@@ -454,11 +612,14 @@ def resume(args, state):
     if latest is None:
         rank0_print(f"No checkpoint under {args.ckpt_dir}; starting from scratch.")
         return state
-    saved_layout = checkpoint_layout(latest)
-    if saved_layout is not None:  # dp and ring save plain layouts
+    saved_layout, layout = checkpoint_layout(latest), run_layout(args)
+    # A checkpoint without a tag is a plain (per-layer) one, which a
+    # contiguous pipeline stacks on load, as the reference's pre-tag rule.
+    if not (saved_layout == layout or (saved_layout is None
+                                       and layout in (None, "pp-contiguous"))):
         raise ValueError(f"checkpoint parameter layout {saved_layout!r} does not match "
-                         "this run's None (same tree structure, permuted layers — resume "
-                         "with the schedule/chunks/device-count it was saved under)")
+                         f"this run's {layout!r} (same tree structure, permuted layers — "
+                         "resume with the schedule/chunks/device-count it was saved under)")
     saved_cfg = checkpoint_config(latest)
     if type(saved_cfg) is not type(state.config):
         raise ValueError(f"checkpoint was trained with {type(saved_cfg).__name__} but "
@@ -471,6 +632,21 @@ def resume(args, state):
         )
 
         state = load_fsdp_pl_state(state, restore_checkpoint(latest, files_verified=True))
+    elif args.parallel == "tp":
+        from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
+            load_tp_state,
+        )
+
+        state = load_tp_state(state, restore_checkpoint(latest, files_verified=True),
+                              state.model.mesh["model"])
+    elif args.parallel in ("pp", "3d"):
+        from distributed_machine_learning_tpu_torch.parallel.pipeline import (
+            load_pipeline_state,
+        )
+
+        mesh = state.model.mesh
+        state = load_pipeline_state(state, restore_checkpoint(latest, files_verified=True),
+                                    mesh["pipe"], mesh.get("model"), layout, mesh.get("batch"))
     else:
         state = restore_checkpoint(latest, state, files_verified=True)
     state.config = config
@@ -483,10 +659,17 @@ def run(args, ctx: DistributedContext):
     final state (saved under ``--ckpt-dir`` when given)."""
     corpus, eval_corpus = load_data(args)
     step, state, place, model = build(args, ctx)
+    mesh = getattr(step, "mesh", None)
+    shape = ("" if mesh is None else " mesh=" + "x".join(f"{k}{c.world}" for k, c in
+                                                         mesh.items()))
+    if args.parallel == "pp":
+        shape += f" schedule={args.pp_schedule} microbatches={args.microbatches}"
+    elif args.parallel == "3d":
+        shape += f" microbatches={args.microbatches}" + (" zero1_dp" if args.zero1_dp else "")
     rank0_print(f"lm parallel={args.parallel} devices={ctx.num_nodes} ({model.device}) "
                 f"d_model={args.d_model} layers={args.n_layers} "
                 f"seq_len={args.seq_len} batch={args.batch_size} "
-                f"attn={model.attn_impl} backend={ctx.backend or 'none'} "
+                f"attn={model.attn_impl}{shape} backend={ctx.backend or 'none'} "
                 f"wire={ctx.comm.wire}")
     # One stream for the whole run, as the reference's: a restart within the
     # process continues it; a new process starts it from its seed.
@@ -522,6 +705,9 @@ def run(args, ctx: DistributedContext):
                 )
 
                 path = save_checkpoint(args.ckpt_dir, gather_fsdp_pl_state(s, ctx.comm))
+            elif args.parallel in ("tp", "pp", "3d"):
+                path = save_checkpoint(args.ckpt_dir, gather_state(args, step, s),
+                                       layout=run_layout(args))
             else:
                 path = save_checkpoint(args.ckpt_dir, s)
             rank0_print(f"Saved checkpoint to {path}")
@@ -549,13 +735,14 @@ def run(args, ctx: DistributedContext):
         if args.eval_batches:
             # Every rank evaluates the whole held-out batches on its own
             # (dense, one program: the reference's eval); rank 0 prints.
-            dev = model.device
+            dev = ctx.device
             held_out = (eval_windows(eval_corpus, args.batch_size, args.seq_len,
                                      args.eval_batches) if corpus is not None
                         else synthetic_batches(args, SEED + 1, args.eval_batches))
             held_out = ((torch.from_numpy(x).to(dev, torch.long),
                          torch.from_numpy(y).to(dev, torch.long)) for x, y in held_out)
-            evaluate_lm(make_lm_eval_step(model), step.params_fn(state), held_out)
+            evaluate_lm(make_lm_eval_step(getattr(step, "eval_model", model)),
+                        step.params_fn(state), held_out)
     finally:
         if getattr(step, "overlap", False):
             # No gather may be in flight when the group shuts down.

@@ -36,13 +36,23 @@ reference's decode path:
   qualifies (never under per-row frontiers).  The scalar position is a
   host int, so the switch is a plain ``if``.
 
-Tensor-parallel decode (the reference's manual Megatron layout): a model
-built at its local width (``n_heads``, ``n_kv_heads`` and ``d_ff`` ÷ tp,
-``head_dim`` pinned to the global width) with ``tp_comm`` set sums the
-row-parallel attention out-projection and ``fc_out`` over the ranks of
-``tp_comm`` (in f32, rounded once to the compute dtype); embeddings, the
-head and the LayerNorms stay whole on every rank
-(``parallel/tensor_parallel.py`` slices the weights).  Decode only.
+Tensor parallelism (the reference's Megatron layout): a model built at
+its local width (``n_heads``, ``n_kv_heads`` and ``d_ff`` ÷ tp, ``head_dim``
+pinned to the global width) with ``tp_comm`` set sums the row-parallel
+attention out-projection and ``fc_out`` over the ranks of ``tp_comm`` (in
+f32, rounded once to the compute dtype: :func:`tp_sum`, Megatron's g, whose
+backward is the identity).  Decode (``vocab_parallel=None``): embeddings,
+the head and the LayerNorms stay whole on every rank, the row-parallel
+biases are pre-divided by tp.  Training (``vocab_parallel`` "head" or
+"both"): the input of every column-parallel projection passes
+:func:`copy_to_tp` (Megatron's f: identity forward, the sum over the ranks
+backward), the row-parallel biases are added once after the sum, the head
+is split by vocabulary (this rank's logits [B, L, V/tp]: the loss is
+``parallel/tensor_parallel.vocab_parallel_cross_entropy``) and, under
+"both", the embedding too (a masked lookup summed over the ranks).  So
+every replicated leaf (the LayerNorms, the row-parallel biases, a whole
+embedding) gets the same gradient on every rank with no reduction of its
+own (``parallel/tensor_parallel.py`` slices the weights).
 
 The feed-forward sub-layer is the dense GELU MLP, or a routed expert
 mixture (``models/moe.py`` builds its blocks with ``moe=``), which routes
@@ -206,14 +216,67 @@ def _cached_attention_quant(q: torch.Tensor, k_int: torch.Tensor, ks: torch.Tens
     return out.reshape(B, Lq, H, D).to(q.dtype)
 
 
+def _sum_f32(comm: Comm, y: torch.Tensor) -> torch.Tensor:
+    """``y`` summed over ``comm``'s ranks in f32, rounded once to its dtype."""
+    return comm.all_reduce_(y.to(torch.float32, copy=True).contiguous()).to(y.dtype)
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: the sum over the ranks forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, y, comm):
+        return _sum_f32(comm, y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum over the ranks backward
+    (each rank's heads or columns give a part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(ctx.comm, grad), None
+
+
 def tp_sum(comm: Comm | None, y: torch.Tensor) -> torch.Tensor:
     """The row-parallel projection's partial outputs summed over the
     tensor-parallel ranks of ``comm`` (the reference's ``psum`` over its
-    ``tp_axis``), in f32 and rounded once to ``y``'s dtype; ``y`` itself
-    without a group."""
+    ``tp_axis``), in f32 and rounded once to ``y``'s dtype; the gradient
+    passes through unchanged.  ``y`` itself without a group."""
     if comm is None or comm.world == 1:
         return y
-    return comm.all_reduce_(y.float().contiguous()).to(y.dtype)  # in place: y is fresh
+    return _ReduceFromTP.apply(y, comm)
+
+
+def copy_to_tp(comm: Comm | None, x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering the tensor-parallel region: unchanged, its gradient
+    summed over the ranks of ``comm`` (f32, rounded once)."""
+    if comm is None or comm.world == 1:
+        return x
+    return _CopyToTP.apply(x, comm)
+
+
+def vocab_parallel_embedding(tokens: torch.Tensor, weight: torch.Tensor,
+                             comm: Comm | None) -> torch.Tensor:
+    """The lookup of ``tokens`` in an embedding split by vocabulary over
+    ``comm`` (this rank holds rows ``rank·V/tp ..``): each rank looks up
+    the tokens it holds, zeros elsewhere, and the f32 rows are summed over
+    the ranks (exact: one rank holds each token)."""
+    rows = weight.shape[0]
+    start = 0 if comm is None else comm.rank * rows
+    local = tokens - start
+    inside = (local >= 0) & (local < rows)
+    e = F.embedding(local.clamp(0, rows - 1), weight) * inside[..., None]
+    return tp_sum(comm, e)
 
 
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -291,24 +354,32 @@ class PagedKV:
     positions: torch.Tensor
 
 
-_TP_TRAINING = ("tp_comm is the manual tensor-parallel decode wiring "
-                "(inference.generate.make_tp_generate_fn): give a cache; "
-                "training-time tensor parallelism is ROADMAP A5c")
+def _row_parallel(layer: nn.Module, x: torch.Tensor, cd: torch.dtype, comm: Comm | None,
+                  bias_after: bool) -> torch.Tensor:
+    """A row-parallel projection summed over ``comm`` (:func:`tp_sum`): its
+    bias inside the sum (decode: pre-divided by tp), or added once after it
+    (``bias_after``: the training layout, the bias whole on every rank)."""
+    if not bias_after or comm is None or comm.world == 1:
+        return tp_sum(comm, _project(layer, x, cd))
+    return tp_sum(comm, F.linear(x.to(cd), layer.weight.to(cd))) + layer.bias.to(cd)
 
 
 class Attention(nn.Module):
     """Causal self-attention: fused ``qkv`` for MHA, ``q`` + ``kv`` for GQA.
     ``head_dim`` pins the per-head width (default ``d_model // n_heads``; a
-    tensor-parallel rank's local clone keeps the global one)."""
+    tensor-parallel rank's local clone keeps the global one).  ``tp_train``:
+    the training layout of the tensor-parallel region (see the module
+    note)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int | None,
                  attn_impl: str, compute_dtype: torch.dtype,
                  weight_quant: str | None, device=None, comm: Comm | None = None,
                  int8_tiered_dispatch: bool = False, head_dim: int | None = None,
-                 tp_comm: Comm | None = None):
+                 tp_comm: Comm | None = None, tp_train: bool = False):
         super().__init__()
         self.comm = comm or Comm()
         self.tp_comm = tp_comm
+        self.tp_train = tp_train
         self.int8_tiered_dispatch = int8_tiered_dispatch
         if head_dim is None and d_model % n_heads:
             raise ValueError("n_heads must divide d_model")
@@ -341,8 +412,8 @@ class Attention(nn.Module):
         lane's fresh K/V row goes to ``pool[page[w], :, slot[w]]``."""
         B, L, E = x.shape
         H, Hkv, hd, cd = self.n_heads, self.n_kv_heads, self.head_dim, self.compute_dtype
-        if self.tp_comm is not None and cache is None and paged is None:
-            raise ValueError(_TP_TRAINING)
+        if self.tp_train:
+            x = copy_to_tp(self.tp_comm, x)
         if Hkv == H:
             qkv = _project(self.qkv, x, cd).reshape(B, L, 3, H, hd)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -372,7 +443,8 @@ class Attention(nn.Module):
             n_rep = H // Hkv
             out = dense_self_attention(
                 q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), positions)
-        return tp_sum(self.tp_comm, _project(self.out, out.reshape(B, L, H * hd), cd))
+        return _row_parallel(self.out, out.reshape(B, L, H * hd), cd, self.tp_comm,
+                             self.tp_train)
 
     def _cached(self, q, k, v, cache: tuple, positions, start) -> torch.Tensor:
         """Write the fresh K/V at the frontier and attend (the dispatch of
@@ -428,24 +500,27 @@ class Block(nn.Module):
     called as ``moe(h, dropless=...)``; the reference's ``mlp_factory``).
     ``remat_mlp``: the LN2+MLP sub-layer is recomputed in the backward
     instead of saving its activations (the selective remat policy).
-    ``tp_comm``: the tensor-parallel decode group (``fc_out`` is
-    row-parallel and summed over it; an expert mixture sums its own)."""
+    ``tp_comm``: the tensor-parallel group (``fc_out`` is row-parallel and
+    summed over it; an expert mixture sums its own); ``tp_train`` its
+    training layout (see the module note)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: int | None, attn_impl: str,
                  compute_dtype: torch.dtype, weight_quant: str | None,
                  device=None, remat_mlp: bool = False, comm: Comm | None = None,
                  int8_tiered_dispatch: bool = False, head_dim: int | None = None,
-                 tp_comm: Comm | None = None, moe: nn.Module | None = None):
+                 tp_comm: Comm | None = None, moe: nn.Module | None = None,
+                 tp_train: bool = False):
         super().__init__()
         quant = weight_quant == "int8"
         self.compute_dtype = compute_dtype
         self.remat_mlp = remat_mlp
         self.tp_comm = tp_comm
+        self.tp_train = tp_train
         self.ln1 = LayerNorm(d_model, compute_dtype, device)
         self.attn = Attention(d_model, n_heads, n_kv_heads, attn_impl,
                               compute_dtype, weight_quant, device, comm,
-                              int8_tiered_dispatch, head_dim, tp_comm)
+                              int8_tiered_dispatch, head_dim, tp_comm, tp_train)
         self.ln2 = LayerNorm(d_model, compute_dtype, device)
         if moe is not None:
             self.moe = moe
@@ -459,9 +534,11 @@ class Block(nn.Module):
         cd = self.compute_dtype
         if hasattr(self, "moe"):
             return self.moe(self.ln2(x), dropless=dropless)
-        h = _project(self.fc_in, self.ln2(x), cd)
-        h = F.gelu(h, approximate="tanh")  # Flax nn.gelu is the tanh form
-        return tp_sum(self.tp_comm, _project(self.fc_out, h, cd))
+        h = self.ln2(x)
+        if self.tp_train:
+            h = copy_to_tp(self.tp_comm, h)
+        h = F.gelu(_project(self.fc_in, h, cd), approximate="tanh")  # Flax's tanh form
+        return _row_parallel(self.fc_out, h, cd, self.tp_comm, self.tp_train)
 
     def forward(self, x, positions, rope, cache=None, start=0,
                 paged=None):
@@ -477,6 +554,26 @@ class Block(nn.Module):
 # whole sequence).
 SEQ_SHARDED = ("ring", "ring_flash", "ulysses")
 _ATTN_IMPLS = ("dense", "flash", "auto", *SEQ_SHARDED)
+VOCAB_PARALLEL = (None, "head", "both")
+
+
+def embed_tokens(m, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding of ``tokens`` in the compute dtype, by a model or a
+    pipeline stage ``m`` (its ``embed``, ``compute_dtype``, ``tp_comm`` and
+    ``vocab_parallel``): a vocabulary-split lookup under "both"."""
+    if m.vocab_parallel == "both":
+        e = vocab_parallel_embedding(tokens, m.embed.weight, m.tp_comm)
+    else:
+        e = F.embedding(tokens, m.embed.weight)
+    return e.to(m.compute_dtype)
+
+
+def head_logits(m, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of post-``ln_f`` hidden states ``x`` by ``m``'s head: this
+    rank's vocabulary columns when the head is split (``vocab_parallel``)."""
+    if m.vocab_parallel is not None:
+        x = copy_to_tp(m.tp_comm, x)
+    return _project(m.lm_head, x, m.compute_dtype).float()
 
 
 class TransformerLM(nn.Module):
@@ -498,8 +595,9 @@ class TransformerLM(nn.Module):
     the int8 cache's tiered switch (see the module note).  ``remat`` with
     ``remat_policy`` "mlp" or "block": activation checkpointing on the
     full causal pass (see the module note).  ``head_dim`` and ``tp_comm``:
-    a tensor-parallel rank's local-width decode model (see the module
-    note)."""
+    a tensor-parallel rank's local-width model, ``vocab_parallel`` its
+    training layout (None: decode's; "head": the head split by vocabulary;
+    "both": the embedding too; see the module note)."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_layers: int = 4,
                  n_heads: int = 8, d_ff: int | None = None,
@@ -509,7 +607,7 @@ class TransformerLM(nn.Module):
                  weight_quant: str | None = None, remat: bool = False,
                  remat_policy: str = "mlp", device=None, comm: Comm | None = None,
                  int8_tiered_dispatch: bool = False, head_dim: int | None = None,
-                 tp_comm: Comm | None = None):
+                 tp_comm: Comm | None = None, vocab_parallel: str | None = None):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl={attn_impl!r}; use one of {_ATTN_IMPLS}")
@@ -522,6 +620,13 @@ class TransformerLM(nn.Module):
         if weight_quant not in (None, "int8"):
             raise ValueError(f"weight_quant must be None or 'int8', got "
                              f"{weight_quant!r}")
+        if vocab_parallel not in VOCAB_PARALLEL:
+            raise ValueError(f"vocab_parallel must be one of {VOCAB_PARALLEL}, got "
+                             f"{vocab_parallel!r}")
+        tp = 1 if tp_comm is None else tp_comm.world
+        if vocab_parallel is not None and vocab_size % tp:
+            raise ValueError(f"vocab_size={vocab_size} must be divisible by the model-axis "
+                             f"size {tp} (the head is split by vocabulary)")
         self.config = dict(
             vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
             n_heads=n_heads, d_ff=d_ff, attn_impl=attn_impl,
@@ -529,9 +634,10 @@ class TransformerLM(nn.Module):
             kv_cache_dtype=kv_cache_dtype, weight_quant=weight_quant, remat=remat,
             remat_policy=remat_policy, comm=comm,
             int8_tiered_dispatch=int8_tiered_dispatch, head_dim=head_dim,
-            tp_comm=tp_comm)
+            tp_comm=tp_comm, vocab_parallel=vocab_parallel)
         self.comm = comm or Comm()
         self.tp_comm = tp_comm
+        self.vocab_parallel = vocab_parallel
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_layers = n_layers
@@ -546,13 +652,14 @@ class TransformerLM(nn.Module):
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads or n_heads
         self.head_dim = head_dim or d_model // n_heads
-        self.embed = nn.Embedding(vocab_size, d_model, device=device)
+        self.embed = nn.Embedding(vocab_size // tp if vocab_parallel == "both" else vocab_size,
+                                  d_model, device=device)
         self.blocks = nn.ModuleList(
             self._block(device, remat_mlp=remat and remat_policy == "mlp")
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, compute_dtype, device)
-        self.lm_head = _linear(d_model, vocab_size, weight_quant == "int8",
-                               compute_dtype, device)
+        self.lm_head = _linear(d_model, vocab_size // tp if vocab_parallel else vocab_size,
+                               weight_quant == "int8", compute_dtype, device)
 
     def _block(self, device, remat_mlp: bool, moe: nn.Module | None = None) -> Block:
         """One block of this config (a subclass passes its expert mixture)."""
@@ -560,7 +667,8 @@ class TransformerLM(nn.Module):
                      self.attn_impl, self.compute_dtype, self.weight_quant, device,
                      remat_mlp=remat_mlp, comm=self.config["comm"],
                      int8_tiered_dispatch=self.int8_tiered_dispatch,
-                     head_dim=self.config["head_dim"], tp_comm=self.tp_comm, moe=moe)
+                     head_dim=self.config["head_dim"], tp_comm=self.tp_comm, moe=moe,
+                     tp_train=self.vocab_parallel is not None)
 
     @property
     def device(self) -> torch.device:
@@ -619,7 +727,7 @@ class TransformerLM(nn.Module):
             offset = self.comm.rank * L if self.attn_impl in SEQ_SHARDED else start
             positions = torch.arange(offset, offset + L, device=tokens.device)
         rope = rope_tables(positions, self.head_dim)
-        x = F.embedding(tokens, self.embed.weight).to(self.compute_dtype)
+        x = embed_tokens(self, tokens)
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else cache.layer(i)
             if self.remat_block and layer_cache is None and layer_paged is None:
@@ -632,4 +740,4 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return _project(self.lm_head, x, self.compute_dtype).float()
+        return head_logits(self, x)

@@ -36,7 +36,9 @@ card, and a failure under the chosen backend raises.
 from __future__ import annotations
 
 import datetime
+import itertools
 import json
+import math
 import socket
 from dataclasses import dataclass
 
@@ -103,7 +105,8 @@ def exchange_placements(store, rank: int, world: int, mine: Placement) -> list:
 
 class Comm:
     """The point-to-point and collective calls the sync strategies use,
-    for this rank of a ``world``-rank group (the default process group).
+    for this rank of a ``world``-rank group (the default process group, or
+    one axis of a mesh: :func:`mesh_comms`).
 
     ``wire`` says how payloads travel: ``"nccl"``, ``"gloo"`` (CPU tensors)
     or ``"host"`` (gloo with CUDA tensors: each payload is copied to a host
@@ -111,9 +114,14 @@ class Comm:
     the identity."""
 
     def __init__(self, rank: int = 0, world: int = 1, backend: str | None = None,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None, group=None, ranks=None):
         self.rank, self.world, self.backend = rank, world, backend
         self.device = device or torch.device("cpu")
+        # A subgroup (``mesh_comms``): its process group and the global ranks
+        # of its members in group-rank order; None and 0..W-1 for the default
+        # group.  Every call takes group ranks.
+        self.group = group
+        self.ranks = tuple(range(world)) if ranks is None else tuple(ranks)
         self.host = backend == "gloo" and self.device.type == "cuda"
         # Set by the flat-shard overlap step from a gather's dispatch on its
         # background thread to its join: no other collective may run then.
@@ -136,8 +144,9 @@ class Comm:
             return tuple(payload)
         outs = [self._out(t.contiguous()) for t in payload]
         ins = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in outs]
-        ops = [dist.P2POp(dist.isend, t, dst, tag=i) for i, t in enumerate(outs)]
-        ops += [dist.P2POp(dist.irecv, t, src, tag=i) for i, t in enumerate(ins)]
+        g, peer = self.group, self.ranks
+        ops = [dist.P2POp(dist.isend, t, peer[dst], g, tag=i) for i, t in enumerate(outs)]
+        ops += [dist.P2POp(dist.irecv, t, peer[src], g, tag=i) for i, t in enumerate(ins)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return tuple(t.to(p.device) for t, p in zip(ins, payload)) if self.host else tuple(ins)
@@ -149,24 +158,46 @@ class Comm:
         n = self.world
         return self.send_recv(payload, (self.rank + offset) % n, (self.rank - offset) % n)
 
+    def exchange(self, sends: list, recvs: list) -> list:
+        """One batch of point-to-point messages, posted together (one
+        ``batch_isend_irecv``, so two ranks that send each other never wait
+        on each other): ``sends`` holds ``(tensor, dst, tag)``, ``recvs``
+        ``(shape, dtype, src, tag)``; returns the received tensors on this
+        rank's device, in ``recvs``' order.  Both sides must list the
+        messages between two ranks in one order (the tags ascending)."""
+        if not sends and not recvs:
+            return []
+        g, peer = self.group, self.ranks
+        outs = [(self._out(t.contiguous()), dst, tag) for t, dst, tag in sends]
+        dev = torch.device("cpu") if self.host else self.device
+        ins = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype, _, _ in recvs]
+        ops = [dist.P2POp(dist.isend, t, peer[dst], g, tag=tag) for t, dst, tag in outs]
+        ops += [dist.P2POp(dist.irecv, t, peer[src], g, tag=tag)
+                for t, (_, _, src, tag) in zip(ins, recvs)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [t.to(self.device) for t in ins] if self.host else ins
+
     def all_gather(self, t: torch.Tensor) -> list:
         """Every rank's ``t``, in rank order, on this rank's device."""
         if self.world == 1:
             return [t]
         src = self._out(t.contiguous())
         parts = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(parts, src)
+        dist.all_gather(parts, src, group=self.group)
         return [p.to(t.device) for p in parts] if self.host else parts
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (``op="max"``: the maximum of) ``t`` over the ranks, in place;
+        returns ``t``."""
         if self.world == 1:
             return t
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         if not self.host:
-            dist.all_reduce(t)
+            dist.all_reduce(t, red, group=self.group)
             return t
         host = t.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, red, group=self.group)
         return t.copy_(host)
 
     def _back(self, out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -192,7 +223,7 @@ class Comm:
         blocks = t.unflatten(split_dim, (n, shape[split_dim])).movedim(split_dim, 0)
         src = self._out(blocks.contiguous())
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src)
+        dist.all_to_all_single(out, src, group=self.group)
         out = self._back(out, t)  # out[s]: rank s's block for this rank
         return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1).contiguous()
 
@@ -209,7 +240,7 @@ class Comm:
                              f"elements, got {tuple(flat.shape)}")
         src = self._out(flat.contiguous())
         out = torch.empty(flat.numel() // n, dtype=flat.dtype, device=src.device)
-        dist.reduce_scatter_tensor(out, src)
+        dist.reduce_scatter_tensor(out, src, group=self.group)
         return self._back(out, flat)
 
     def all_gather_flat(self, shard: torch.Tensor) -> torch.Tensor:
@@ -221,7 +252,7 @@ class Comm:
             return shard
         src = self._out(shard.contiguous().reshape(-1))
         out = torch.empty(n * src.numel(), dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src)
+        dist.all_gather_into_tensor(out, src, group=self.group)
         return self._back(out, shard)
 
 
@@ -238,6 +269,16 @@ def mean_over_ranks_(comm: Comm, tensors) -> None:
     coalesced buffers, one ``all_reduce_`` each: on the host wire every
     call is a D2H copy, a TCP all-reduce and an H2D copy, which 117 leaves
     would each pay.  Every rank must call it with the same tensor shapes."""
+    _reduce_over_ranks_(comm, tensors, mean=True)
+
+
+def sum_over_ranks_(comm: Comm, tensors) -> None:
+    """:func:`mean_over_ranks_` without the division: the reference's
+    ``lax.psum`` of each f32 tensor, coalesced alike."""
+    _reduce_over_ranks_(comm, tensors, mean=False)
+
+
+def _reduce_over_ranks_(comm: Comm, tensors, mean: bool) -> None:
     if comm.world == 1:
         return
     bucket: list = []
@@ -247,13 +288,59 @@ def mean_over_ranks_(comm: Comm, tensors) -> None:
             raise ValueError(f"mean_over_ranks_ takes f32 tensors, got {t.dtype}")
         if bucket and (t is None or size + 4 * t.numel() > MEAN_BUCKET_BYTES):
             flat = torch.cat([b.reshape(-1) for b in bucket])
-            comm.all_reduce_(flat).div_(comm.world)
+            comm.all_reduce_(flat)
+            if mean:
+                flat.div_(comm.world)
             for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
                 b.copy_(part.view_as(b))
             bucket, size = [], 0
         if t is not None:
             bucket.append(t)
             size += 4 * t.numel()
+
+
+def mesh_comms(comm: Comm, axes: dict) -> dict:
+    """One :class:`Comm` per axis of a mesh over ``comm``'s ranks: ``axes``
+    maps each axis name to its size, the last axis innermost (rank =
+    row-major index of its coordinates, the reference's ``make_mesh``
+    order), their product ``comm.world``.  An axis's Comm spans the ranks
+    whose other coordinates equal this rank's.  Every rank creates every
+    group (``dist.new_group``), in one order, as the backend requires; an
+    axis of size 1 gets a one-rank Comm, one of the whole world ``comm``'s
+    group.  Under nccl each group this rank belongs to is started with one
+    all-reduce, in creation order, so its first point-to-point call needs
+    no collective start."""
+    names, sizes = list(axes), [int(axes[a]) for a in axes]
+    if math.prod(sizes) != comm.world:
+        raise ValueError(f"mesh {dict(axes)} needs {math.prod(sizes)} ranks, the group "
+                         f"has {comm.world}")
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    coords = [comm.rank // st % n for st, n in zip(strides, sizes)]
+    out, started = {}, []
+    for i, name in enumerate(names):
+        n = sizes[i]
+        others = [range(sz) if j != i else [0] for j, sz in enumerate(sizes)]
+        mine = None
+        for base in itertools.product(*others):
+            members = [sum((k if j == i else c) * st for j, (c, st) in enumerate(zip(base, strides)))
+                       for k in range(n)]
+            group = comm.group
+            if 1 < n < comm.world:
+                group = dist.new_group([comm.ranks[m] for m in members])
+            if comm.rank in members:
+                mine = (members, group)
+        members, group = mine
+        if n == 1:
+            out[name] = Comm(0, 1, comm.backend, comm.device, None, [comm.ranks[comm.rank]])
+            continue
+        out[name] = Comm(coords[i], n, comm.backend, comm.device, group,
+                         [comm.ranks[m] for m in members])
+        if n < comm.world:
+            started.append(out[name])
+    if comm.backend == "nccl":
+        for c in started:
+            c.all_reduce_(torch.zeros(1, device=comm.device))
+    return out
 
 
 @dataclass

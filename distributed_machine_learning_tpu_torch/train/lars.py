@@ -39,10 +39,14 @@ class LARSConfig(SGDConfig):
 
 @torch.no_grad()
 def lars_update(params: dict, momentum_buf: dict, grads: dict, config: LARSConfig,
-                lr=None, step=None) -> tuple[dict, dict]:
+                lr=None, step=None, norm=None) -> tuple[dict, dict]:
     """One LARS step over every leaf, in place; returns (params, buffers).
-    ``step`` is ignored (signature shared with AdamW)."""
+    ``step`` is ignored (signature shared with AdamW).  ``norm(name, t)``:
+    the L2 norm of a leaf's f32 weight or gradient (default: the tensor's
+    own; a tensor-parallel rank sums the squares of a split leaf over its
+    ranks)."""
     del step
+    norm = norm or (lambda name, t: torch.linalg.vector_norm(t))
     if not isinstance(config, LARSConfig):
         raise TypeError(f"lars_update needs a LARSConfig on the TrainState, got "
                         f"{type(config).__name__}")
@@ -50,8 +54,8 @@ def lars_update(params: dict, momentum_buf: dict, grads: dict, config: LARSConfi
     wd = config.weight_decay
     for k, p in params.items():
         p32, g32 = p.float(), grads[k].float()
-        w_norm = torch.linalg.vector_norm(p32)
-        g_norm = torch.linalg.vector_norm(g32)
+        w_norm = norm(k, p32)
+        g_norm = norm(k, g32)
         scale = torch.where((w_norm > 0) & (g_norm > 0),
                             config.trust_coefficient * w_norm / (g_norm + wd * w_norm
                                                                   + config.eps),

@@ -30,3 +30,13 @@ def transformer_train_flops_per_token(
 def mfu(achieved_flops_per_sec: float,
         peak_tflops: float = DEFAULT_PEAK_TFLOPS) -> float:
     return achieved_flops_per_sec / (peak_tflops * 1e12)
+
+
+def train_mfu_per_rank(tokens_per_sec: float, flops_per_token: float, ranks: int,
+                       peak_tflops: float = DEFAULT_PEAK_TFLOPS) -> float:
+    """MFU of one rank of a training run that takes ``tokens_per_sec`` in
+    all over ``ranks`` ranks: every scheme of ``cli.lm`` splits the model's
+    FLOPs evenly over its ranks (dp, fsdp and fsdp_pl by rows, ring and
+    ulysses by sequence, tp by heads and columns, pp by layers, 3d by all
+    three), so a rank does ``1/ranks`` of them, against one card's peak."""
+    return mfu(tokens_per_sec * flops_per_token / ranks, peak_tflops)

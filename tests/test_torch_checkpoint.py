@@ -791,9 +791,25 @@ def test_generate_cli_needs_weights_and_names_unported_layouts(tmp_path):
         pgen.main(["--device", "cpu"])
     with pytest.raises(FileNotFoundError, match="no complete checkpoint"):
         pgen.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    ck.save_checkpoint(tmp_path, _lm_state(), layout="pp-contiguous")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-        pgen.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    # A pipeline layout is unstacked on restore: the same parameters as the
+    # per-layer checkpoint of the same weights, and the same greedy tokens.
+    from distributed_machine_learning_tpu_torch.parallel.pipeline import stack_lm_params
+    from distributed_machine_learning_tpu_torch.train.checkpoint import HostState
+
+    state = _lm_state(seed=4)
+    flags = ["--device", "cpu", "--d-model", "64", "--n-layers", "2", "--n-heads", "4",
+             "--n-kv-heads", "2", "--vocab", "97", "--max-new-tokens", "6",
+             "--temperature", "0", "--compute-dtype", "float32"]
+    ck.save_checkpoint(tmp_path / "plain", state)
+    params = {k: p.detach().clone() for k, p in state.params.items()}
+    ck.save_checkpoint(tmp_path / "stacked", HostState(
+        params=stack_lm_params(params, 2), momentum={}, batch_stats={}, step=0,
+        config=state.config), layout="pp-contiguous")
+    want = pgen.restore_lm_params(str(tmp_path / "plain"), say=lambda _: None)
+    got = pgen.restore_lm_params(str(tmp_path / "stacked"), say=lambda _: None)
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert (pgen.main([*flags, "--ckpt-dir", str(tmp_path / "stacked")])
+            == pgen.main([*flags, "--ckpt-dir", str(tmp_path / "plain")]))
 
 
 # -- multi-rank ----------------------------------------------------------------

@@ -1408,3 +1408,62 @@ def test_speculative_and_moe_on_the_card(cuda):
     with torch.no_grad():
         full = moe(out)
     assert torch.equal(out[:, 8:], full[:, 7:-1].argmax(-1))
+
+
+def test_model_parallel_paths_on_the_card(cuda):
+    """The training-time TP layout at W 1 (Megatron's f/g pair, the
+    vocabulary-split embedding and head, the vocabulary-parallel loss) on the
+    card, f32, flash attention: its loss and every gradient against the plain
+    model's on the same weights and batch (summation order only), the loss
+    against ``F.cross_entropy``; then ``cli.lm --parallel pp`` (1F1B) and
+    ``--parallel 3d`` at one rank each: K1-K3 once a layer a microbatch and
+    K7 once a leaf a step, losses finite."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.convert import init_params
+    from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
+        tp_lm_loss,
+        vocab_parallel_cross_entropy,
+    )
+    from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
+    from distributed_machine_learning_tpu_torch.train.losses import lm_cross_entropy
+
+    shape = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                 attn_impl="flash")
+    plain = transformer.TransformerLM(**shape, device="cuda")
+    init_params(plain, seed=1)
+    tp = transformer.TransformerLM(**shape, device="cuda", vocab_parallel="both",
+                                   tp_comm=Comm(0, 1, "nccl", torch.device("cuda", 0)))
+    tp.load_state_dict(plain.state_dict())
+    x = torch.randint(0, 512, (2, 512), generator=cuda, device="cuda")
+    y = torch.randint(0, 512, (2, 512), generator=cuda, device="cuda")
+    build.reset_launch_counts()
+    want = lm_cross_entropy(plain(x), y)
+    want.backward()
+    got = tp_lm_loss(tp, x, y)
+    got.backward()
+    assert dict(build.launches)["flash_bwd_dq"] == 4
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    grads = dict(tp.named_parameters())
+    for name, p in plain.named_parameters():
+        g, w = grads[name].grad, p.grad
+        assert float((g - w).norm() / w.norm()) <= 1e-4, name
+    logits = torch.randn(64, 512, generator=cuda, device="cuda") * 4
+    targets = torch.randint(0, 512, (64,), generator=cuda, device="cuda")
+    ce = vocab_parallel_cross_entropy(logits, targets, Comm(0, 1))
+    ref = torch.nn.functional.cross_entropy(logits, targets)
+    assert abs(float(ce) - float(ref)) <= 1e-6 * abs(float(ref))
+    for scheme in (["pp", "--microbatches", "2"], ["3d", "--dp", "1", "--pp", "1", "--tp", "1",
+                                                   "--microbatches", "2"]):
+        args = lm.make_parser().parse_args([
+            "--parallel", *scheme, "--d-model", "128", "--n-layers", "2", "--n-heads", "4",
+            "--n-kv-heads", "2", "--vocab", "512", "--seq-len", "512", "--batch-size", "4",
+            "--compute-dtype", "bfloat16", "--fused-update", "--attn", "flash",
+            "--max-iters", "2"])
+        step, state, place, model = lm.build(args)
+        build.reset_launch_counts()
+        losses = [float(step(state, *place(a, b))[1]) for a, b in lm.synthetic_batches(args)]
+        launches = dict(build.launches)
+        assert all(math.isfinite(v) for v in losses), (scheme, losses)
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[name] == 2 * 2 * 2, (scheme, name, launches)
+        assert launches["fused_adamw"] == 2 * sum(1 for _ in model.parameters()), scheme

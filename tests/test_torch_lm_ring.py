@@ -133,7 +133,7 @@ def test_attention_upgrade_rule(capsys):
 
 def test_cli_refusals():
     for flags, exc, match in (
-            (["--parallel", "tp"], NotImplementedError, "ROADMAP A5c"),
+            (["--parallel", "ep"], NotImplementedError, "ROADMAP A5c"),
             (["--parallel", "ring", "--num-nodes", "2", "--seq-len", "129"], ValueError,
              "--seq-len 129 must be divisible by the 2-device sequence axis"),
             (["--num-nodes", "2", "--batch-size", "3"], ValueError,

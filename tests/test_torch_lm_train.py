@@ -230,9 +230,11 @@ def test_cli_prints_the_protocol_lines(capsys):
 def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_lm.main(["--max-iters", "1"])
-    for flags, item in ((["--parallel", "tp"], "A5c"), (["--n-experts", "4"], "A5"),
-                        (["--telemetry-dir", "x"], "A6"), (["--parallel", "pp"], "A5c"),
-                        (["--parallel", "3d"], "A5c"), (["--moe-impl", "grouped"], "A5")):
+    # Model parallelism runs (tests/test_torch_tp_train.py, test_torch_pipeline.py,
+    # test_torch_parallel3d.py); expert parallelism and its flags still raise.
+    for flags, item in ((["--parallel", "ep"], "A5c"), (["--n-experts", "4"], "A5c"),
+                        (["--telemetry-dir", "x"], "A6"), (["--ep", "2"], "A5c"),
+                        (["--ep-seq", "2"], "A5c"), (["--moe-impl", "grouped"], "A5c")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             cli_lm.main(["--device", "cpu", *flags])
 

@@ -240,9 +240,14 @@ def test_tp_slices_every_leaf_and_guards():
                                             n_heads=4, d_ff=6, device="cpu"), Comm(0, 4), None)
     with pytest.raises(ValueError, match="quantize"):
         make_tp_generate_fn(model, 4, Comm(0, 2), quantize="int8")  # the float model
-    with pytest.raises(ValueError, match="decode"):
-        local = tp_local_decode_clone(model, Comm(0, 2), None)
-        local(torch.zeros((1, 4), dtype=torch.long))  # training-time TP is A5c
+    # The decode layout: the embedding and the head whole, the row-parallel
+    # biases inside the sum.  A pass without a cache is no longer refused
+    # (training-time TP is the other layout: tensor_parallel.shard_tp_state).
+    local = tp_local_decode_clone(model, Comm(0, 2), None)
+    assert local.vocab_parallel is None and not local.blocks[0].tp_train
+    assert local.lm_head.weight.shape[0] == VOCAB
+    one = tp_local_decode_clone(model, Comm(0, 1), None)
+    assert one(torch.zeros((1, 4), dtype=torch.long)).shape == (1, 4, VOCAB)
 
 
 def test_generate_cli_tp_equals_one_rank(capsys, monkeypatch):

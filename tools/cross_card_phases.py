@@ -11,8 +11,9 @@ kernel path vs plain path, losses.  Then the real commands, one process
 per rank: ``cli.lm --parallel ring`` at world 2
 (``chip_smoke.run_ring_cli``), ``cli.part3 --ring-compress int8`` at world
 2 (``chip_smoke.run_vgg_cli``) and ``cli.lm --parallel dp``, ``ring``,
-``ulysses``, ``fsdp --overlap-update`` and ``fsdp_pl`` (flash) with
-``--num-nodes 4`` at the LM's full width (``run_lm_cli`` below); each must exit 0 on every rank,
+``ulysses``, ``fsdp --overlap-update``, ``fsdp_pl`` (flash), ``tp``, ``pp``
+(1F1B) and ``3d --dp 1 --pp 2 --tp 2`` with ``--num-nodes 4`` at the LM's
+full width (``run_lm_cli`` below); each must exit 0 on every rank,
 print the reference's protocol lines and name nccl in its banner.  The
 serving fleet's run (a) (``run_fleet`` below): ``chip_smoke.serve_fleet``'s
 steady run with replica r's engine and models on ``cuda:r``.  With a card
@@ -22,7 +23,7 @@ Prints each kernel's launches over the spawned phases (the codec's by
 chunk length and residual); exits 1 if a phase fails.  PHASE names limit
 the run to those phases (``ring``, ``vgg``, ``ring cli``, ``vgg cli``,
 ``dp cli``, ``ring w4 cli``, ``ulysses cli``, ``fsdp cli``, ``fsdp_pl cli``,
-``fleet``),
+``tp cli``, ``pp cli``, ``3d cli``, ``fleet``),
 e.g. the VGG ones alone after a change to the int8 ring codec.
 """
 
@@ -42,7 +43,10 @@ sys.path.insert(0, str(ROOT))
 # over the full sequence on 4 of the 16 heads a rank); fsdp splits B 4 x L 2048 with --overlap-update
 # (dense attention, one K7 launch a step on each rank's flat shard);
 # fsdp_pl the same batch with flash attention (every leaf split 1/4 and
-# gathered at its use, one K7 launch a leaf a step).
+# gathered at its use, one K7 launch a leaf a step); tp its heads of B 2 x L
+# 2048 (4 of 16 heads, 1 of 4 KV heads a rank; flash); pp 1F1B over 4 stages
+# of 2 layers, B 4 x L 2048 in 4 microbatches (explicit flash); 3d dp 1 x pp
+# 2 x tp 2, B 4 x L 2048 in 2 microbatches (explicit flash).
 LM_CLI = {"dp": dict(world=4, seq_len=4096, batch_size=8, max_iters=5, attn="flash"),
           "ring": dict(world=4, seq_len=16384, batch_size=1, max_iters=5, attn="flash",
                        want_attn="ring_flash"),
@@ -50,7 +54,12 @@ LM_CLI = {"dp": dict(world=4, seq_len=4096, batch_size=8, max_iters=5, attn="fla
                           want_attn="ulysses"),
           "fsdp": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="auto",
                        want_attn="dense", extra=("--overlap-update",)),
-          "fsdp_pl": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="flash")}
+          "fsdp_pl": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="flash"),
+          "tp": dict(world=4, seq_len=2048, batch_size=2, max_iters=5, attn="flash"),
+          "pp": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="flash",
+                     extra=("--pp-schedule", "1f1b", "--microbatches", "4")),
+          "3d": dict(world=4, seq_len=2048, batch_size=4, max_iters=5, attn="flash",
+                     extra=("--dp", "1", "--pp", "2", "--tp", "2", "--microbatches", "2"))}
 
 
 def run_lm_cli(smoke, backend: str, parallel: str = "dp") -> None:
@@ -178,6 +187,9 @@ if __name__ == "__main__":  # the phases spawn ranks that import this module
               ("ulysses cli", lambda: run_lm_cli(smoke, backend, "ulysses")),
               ("fsdp cli", lambda: run_lm_cli(smoke, backend, "fsdp")),
               ("fsdp_pl cli", lambda: run_lm_cli(smoke, backend, "fsdp_pl")),
+              ("tp cli", lambda: run_lm_cli(smoke, backend, "tp")),
+              ("pp cli", lambda: run_lm_cli(smoke, backend, "pp")),
+              ("3d cli", lambda: run_lm_cli(smoke, backend, "3d")),
               ("fleet", lambda: run_fleet(smoke, torch, card))]
     chosen = sys.argv[1:] or [name for name, _ in phases]
     unknown = set(chosen) - {name for name, _ in phases}
