@@ -21,7 +21,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    path's chunk (B 1, Lc 4096, H 16 / Hkv 4, D 128, bf16; the diagonal
    step and a full step with a carry and accumulators in), in f32 at Lc
    32, D 32, and in bf16 at Lc 100 and 2100 (chunks that end inside a
-   128-row tile), timed at a full step; K1-K3 and K11-K13 log
+   128-row tile), timed at a full step; at the EP cells' shapes (step
+   10c) K1-K3 at B 4 and B 2 x L 2048, K11-K13 at B 2 x Lc 1024 and K7 on
+   a rank's block of an expert leaf (4 x 2048 x 8192); K1-K3 and K11-K13 log
    their TFLOP/s, share of the bound and factor over SDPA (K12/K13 also
    their diagonal step's time), and the ptxas lines (entries, registers,
    spills, warnings) of their sources are printed.  SDPA's backward, the
@@ -103,7 +105,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    model (K6 on the attention projections and the head only), speculative
    against the MoE model, decode ms a step in bf16 and int8 at B 8 and 1;
    (h) ``python -m ...cli.generate --tp 2`` (ranks sharing the card) at
-   MODEL's width and 4 of its 8 layers (a depth cut for the time limit) with a
+   MODEL's width and 2 of its 8 layers (a depth cut for the time limit) with a
    4096-byte prompt, bf16, then int8 with
    --spec-gamma 4: every rank exits 0 with one stream, K1 and K4 (and K6)
    launched on every rank, the stream against the single card's.  Greedy
@@ -161,7 +163,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    over host buffers): part1 (world 1, batch 256), part2a, part2b and part3
    (world 2, batch 64 a rank) and part3 with ``--ring-compress int8
    --ring-codec-impl pallas`` (world 4), 20 iterations each (the
-   reference's protocol runs 40; cut for the time limit).  Launch counts
+   reference's protocol runs 40; cut for the time limit), three runs'
+   ranks at a time in that order (time limit: each run's times carry the
+   others' load).  Launch counts
    are zeroed just before and read just after in every rank: K8 and K9
    once per bucket per hop, K10 once per bucket (the all-gather's batched
    decode), as the formula says, and nowhere else.  Gates:
@@ -190,7 +194,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    a step (CUDA events), peak memory per rank and the device idle share;
    then the real command: two processes of ``python -m
    ...cli.lm --parallel ring --num-nodes 2`` at 1 layer × L 8192.  The
-   same for ``--parallel ulysses``; then ``--parallel fsdp`` (flat ZeRO-3,
+   same for ``--parallel ulysses``, its ranks at once with the ring's (time
+   limit: each path's times carry the other's load); then ``--parallel fsdp`` (flat ZeRO-3,
    W 2 × B 4 × L 2048 at 2 of the 8 layers (a depth cut for the time limit), sync
    and ``--overlap-update``), whose final state is
    saved under ``ShardSpec("fsdp", 2, n)`` and restored at worlds 1 and 4
@@ -215,7 +220,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``build`` and ``train_epoch`` in ranks sharing the card (gloo over host
    buffers), full width, bf16, fused AdamW, ``--attn flash``: (a) ``--parallel
    tp`` at W 2, B 2 x L 2048, 4 of the 8 layers, 3 steps; (b) ``--parallel
-   pp`` at W 2, B 4 x L 2048 in 4 microbatches, 8 layers: 1f1b, gpipe, gpipe
+   pp`` at W 2, B 4 x L 2048 in 4 microbatches, 4 of the 8 layers: 1f1b, gpipe, gpipe
    ``--overlap-update`` and interleaved ``--pp-chunks 2``, 3 steps each
    (batches 0, 1, 0; 1f1b and interleaved saved at step 2 in their pipeline
    layouts, 1f1b resumed by ``cli.lm``'s run for 1 more); (c) ``--parallel
@@ -238,6 +243,32 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ms a step (TP sums, hops, the pipe and data groups' sums) and pp's idle
    share a stage beside (P-1)/(v*M+P-1). The three cells' ranks run at
    once (time limit), so each cell's times carry the others' load.
+10c. ROADMAP A5c's expert parallelism (``run_ep``, after A5c's cells),
+   through ``cli.lm``'s ``build`` and
+   ``train_epoch``: ``--parallel ep`` at the model's width with E 8
+   experts of d_ff 8192, capacity factor 1.25, 2 of the 8 layers, B 4 x L
+   2048, bf16, fused AdamW, ``--attn flash``, 3 steps over batches 0, 1, 0:
+   (a) ``--moe-impl einsum`` at W 2 (ep 2); (b) ``--moe-impl grouped`` at
+   W 2, saved at step 2 in the plain layout, resumed by cli.lm's resume for
+   1 more step, and served by ``python -m ...cli.generate --moe
+   --ckpt-dir`` (B 1 x 4096 + 32); (c) grouped with ``--ep-slots`` 1024 of
+   4096 (rows drop) and with ample slots; (d) grouped ``--ep-seq 2`` at W 4
+   (dp 1 x ep 2 x seq 2; chunk 1024: ring_flash).  Launch counts zeroed
+   before and read after each run on every rank: K1-K3 once a layer a step
+   (not under --ep-seq), K11-K13 layers x (seq rank + 1) a step under
+   --ep-seq, K7 once a local leaf a step.  Gates: losses finite and equal
+   on every rank; the step-0 loss (not (c)'s bounded run) within the
+   trainer's limit of the one-process MoE run of its impl on the same
+   weights and batch, each local leaf's step-0 gradient (after the EP
+   sync, before Adam) within max(0.1, 2.5 x that leaf's plain-vs-plain
+   reading, ``EP_GRAD_NOISE``) of that run's, and every local leaf after
+   the run within the A5c rule scaled by the MoE model's plain-vs-plain
+   reading (``EP_UPDATE_NOISE``); the leaves outside the experts bit for
+   bit across the ranks, the expert leaves across the ranks that hold the
+   same experts; rows dropped in (c)'s bounded run and in no other; the
+   resumed run and ample slots bit for bit (b); ``cli.generate`` exits 0.
+   Reports the step-0 routing agreement with the one-process run, step ms,
+   tokens/s, peak GB a rank and the wire's ms a step.
 11. The A4 paths (``run_a4``), through the part CLIs' ``run_part`` and
    ``cli.lm``: (a) ResNet-18 part1 at B 256 (CIFAR stem, f32, 40
    iterations; its first step's loss and gradients against the same step
@@ -264,7 +295,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    B 4 × L 4096 flash under ``--optimizer sgd --momentum-dtype bfloat16``
    and ``lars`` beside AdamW (K1-K3 launched, the same step-0 loss).
 12. The card test of the latest slice (``tests/test_torch_kernels_cuda.py
-   -k model_parallel_paths_on_the_card``, ``--noconftest``; the other
+   -k expert_parallel_paths_on_the_card``, ``--noconftest``; the other
    slices' card tests are left to the README's command: the time limit).
 
 Step 2 also holds the int8 ring codec K8 (with and without residual), K9
@@ -304,6 +335,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2856,9 +2888,9 @@ A8_MOE_BATCH, A8_MOE_PROMPT, A8_MOE_NEW, A8_MOE_TF_STEPS = 8, 1024, 64, 8
 # cli.generate --tp: ranks, a 4096-byte prompt (4096 tokens at vocab 32000),
 # new tokens.
 A8_TP, A8_TP_PROMPT, A8_TP_NEW = 2, "The " * 1024, 32
-# Leg (h) serves MODEL's width at 4 of its 8 layers (a depth cut
-# for the time limit: the a5c phase), its own random weights from SEED.
-A8_TP_LAYERS = 4
+# Leg (h) serves MODEL's width at 2 of its 8 layers (a depth cut
+# for the time limit: the a5c and ep cells), its own random weights from SEED.
+A8_TP_LAYERS = 2
 # cli.distill on the checkpoint phase's step-4 checkpoint.
 A8_DISTILL = ["--draft-d-model", "512", "--draft-n-layers", "2", "--draft-n-heads", "16",
               "--draft-n-kv-heads", "4", "--seq-len", "512", "--batch-size", "8",
@@ -4506,12 +4538,23 @@ def run_vgg(torch, rows: dict) -> None:
     kernels equal to the same step through the plain codec, bit for bit,
     on every rank.  Reports step ms, the sync inside the step, images/s and
     the wire."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from distributed_machine_learning_tpu_torch.runtime.launch import spawn
 
-    failed = []
-    for label, strategy, world, batch, use_bn, flags in VGG_RUNS:
+    def one_run(label, world, flags):
         t0 = time.perf_counter()
-        ranks = spawn(vgg_rank, world, (label, flags), timeout_s=600)
+        return spawn(vgg_rank, world, (label, flags), timeout_s=600), time.perf_counter() - t0
+
+    failed = []
+    # Three runs' ranks at a time, in VGG_RUNS' order (time limit): each
+    # run's times carry the others' load.
+    with ThreadPoolExecutor(3) as pool:
+        running = [pool.submit(one_run, label, world, flags)
+                   for label, _, world, _, _, flags in VGG_RUNS]
+        results = [job.result() for job in running]
+    for (label, strategy, world, batch, use_bn, flags), (ranks, seconds) in zip(VGG_RUNS,
+                                                                                 results):
         r0 = ranks[0]
         losses = r0["losses"]
         head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -4522,7 +4565,7 @@ def run_vgg(torch, rows: dict) -> None:
         log(f"vgg {label}: world {world} x batch {batch} ({r0['n_params']} params, "
             f"{'BN' if use_bn else 'no BN'}), backend {r0['backend'] or 'none'}, "
             f"wire {r0['wire']}, "
-            f"{r0['device']}; {time.perf_counter() - t0:.1f} s with process start")
+            f"{r0['device']}; {seconds:.1f} s with process start")
         log(f"vgg {label}: losses {[round(x, 4) for x in losses[:3]]} ... "
             f"{[round(x, 4) for x in losses[-3:]]} (first-5 mean {head:.4f}, last-5 "
             f"{tail:.4f}); step ms (host clock, rank 0) {spread(ms)} -> "
@@ -4639,15 +4682,15 @@ def ring_block(Lc: int) -> int:
     return min(Lc, 512)
 
 
-def ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen):
+def ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen, B: int = 1):
     """q, dO of chunk 1; (k, v) of chunk 1 (diagonal) and chunk 0 (full);
     the lse and delta = rowsum(dO o O) of the two-chunk rows (plain)."""
     dt = getattr(torch, dtype)
-    q, do = (torch.randn(1, Lc, H, D, device="cuda", generator=gen).to(dt) for _ in "ab")
-    own, prev = ([torch.randn(1, Lc, Hkv, D, device="cuda", generator=gen).to(dt)
+    q, do = (torch.randn(B, Lc, H, D, device="cuda", generator=gen).to(dt) for _ in "ab")
+    own, prev = ([torch.randn(B, Lc, Hkv, D, device="cuda", generator=gen).to(dt)
                   for _ in "ab"] for _ in "ab")
-    m = torch.full((1, H, Lc), -1e30, device="cuda")
-    empty = (m, torch.zeros_like(m), torch.zeros(1, Lc, H, D, device="cuda"))
+    m = torch.full((B, H, Lc), -1e30, device="cuda")
+    empty = (m, torch.zeros_like(m), torch.zeros(B, Lc, H, D, device="cuda"))
     blk = ring_block(Lc)
     m1, l1, acc1 = rf.chunk_fwd_reference(q, *prev, *rf.chunk_fwd_reference(
         q, *own, *empty, True, blk), False, blk)
@@ -4660,45 +4703,53 @@ def check_ring_flash(torch, rf, rows: dict, timing: bool) -> None:
     gen = torch.Generator(device="cuda").manual_seed(11)
     errs: dict = {"ring_flash_fwd": [], "ring_flash_dq": [], "ring_flash_dkv": []}
     failed: list = []
-    for Lc, H, Hkv, D, dtype in RING_CHECKS:
-        q, do, own, prev, empty, lse, delta = ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen)
-        carry = empty
-        dq = torch.zeros(1, Lc, H, D, device="cuda")
-        dk, dv = torch.zeros(1, Lc, Hkv, D, device="cuda"), torch.zeros(1, Lc, Hkv, D,
-                                                                        device="cuda")
-        for causal, (k, v) in ((True, own), (False, prev)):
-            label = f"{'diagonal' if causal else 'full'} Lc={Lc} H={H} Hkv={Hkv} D={D} {dtype}"
-            got = [t.clone() for t in carry]
-            rf._launch_fwd(q, k, v, *got, causal)
-            gdq, gdk, gdv = dq.clone(), dk.clone(), dv.clone()
-            rf._launch_dq(q, k, v, do, lse, delta, gdq, causal)
-            rf._launch_dkv(q, k, v, do, lse, delta, gdk, gdv, causal)
-            torch.cuda.synchronize()
-            blk = ring_block(Lc)
-            want = rf.chunk_fwd_reference(q, k, v, *carry, causal, blk)
-            m_err = float((got[0] - want[0]).abs().max())
-            l_err = float(((got[1] - want[1]) / want[1]).abs().max())
-            log(f"  ring_flash_fwd {label}: m max_abs_err={m_err:.3e}, l max_rel_err="
-                f"{l_err:.3e} (tol {LSE_TOL:g}) -> "
-                f"{'ok' if max(m_err, l_err) <= LSE_TOL else 'BAD'}")
-            if not max(m_err, l_err) <= LSE_TOL:
-                failed.append(f"ring_flash_fwd m/l {label}")
-            errs["ring_flash_fwd"].append(compare(f"ring_flash_fwd acc {label}", got[2],
-                                                  want[2], failed))
-            want_dq = rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal, blk)
-            errs["ring_flash_dq"].append(compare(f"ring_flash_dq {label}", gdq, want_dq,
-                                                 failed, GRAD_ROW_FLOOR))
-            want_kv = rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv, causal, blk)
-            for name, g, w in (("dk", gdk, want_kv[0]), ("dv", gdv, want_kv[1])):
-                errs["ring_flash_dkv"].append(compare(f"ring_flash_dkv {name} {label}", g, w,
-                                                      failed, GRAD_ROW_FLOOR))
-            # The full step starts from the diagonal step's results.
-            carry, dq, (dk, dv) = want, want_dq, want_kv
+    for case in RING_CHECKS:
+        check_ring_case(torch, rf, case, gen, errs, failed)
     for name, e in errs.items():
         rows[name] = {"max_abs_err": max(e)}
     raise_failed(failed)
     if timing:
         time_ring_flash(torch, rf, rows, gen)
+
+
+def check_ring_case(torch, rf, case: tuple, gen, errs: dict, failed: list, B: int = 1) -> None:
+    """K11-K13 against their plain versions at one RING_CHECKS shape and B
+    rows: the diagonal step from the empty carry, then the full step from
+    the diagonal's results."""
+    Lc, H, Hkv, D, dtype = case
+    q, do, own, prev, empty, lse, delta = ring_case(torch, rf, Lc, H, Hkv, D, dtype, gen, B)
+    carry = empty
+    dq = torch.zeros(B, Lc, H, D, device="cuda")
+    dk, dv = (torch.zeros(B, Lc, Hkv, D, device="cuda") for _ in "kv")
+    for causal, (k, v) in ((True, own), (False, prev)):
+        label = (f"{'diagonal' if causal else 'full'} B={B} Lc={Lc} H={H} Hkv={Hkv} D={D} "
+                 f"{dtype}")
+        got = [t.clone() for t in carry]
+        rf._launch_fwd(q, k, v, *got, causal)
+        gdq, gdk, gdv = dq.clone(), dk.clone(), dv.clone()
+        rf._launch_dq(q, k, v, do, lse, delta, gdq, causal)
+        rf._launch_dkv(q, k, v, do, lse, delta, gdk, gdv, causal)
+        torch.cuda.synchronize()
+        blk = ring_block(Lc)
+        want = rf.chunk_fwd_reference(q, k, v, *carry, causal, blk)
+        m_err = float((got[0] - want[0]).abs().max())
+        l_err = float(((got[1] - want[1]) / want[1]).abs().max())
+        log(f"  ring_flash_fwd {label}: m max_abs_err={m_err:.3e}, l max_rel_err="
+            f"{l_err:.3e} (tol {LSE_TOL:g}) -> "
+            f"{'ok' if max(m_err, l_err) <= LSE_TOL else 'BAD'}")
+        if not max(m_err, l_err) <= LSE_TOL:
+            failed.append(f"ring_flash_fwd m/l {label}")
+        errs["ring_flash_fwd"].append(compare(f"ring_flash_fwd acc {label}", got[2],
+                                              want[2], failed))
+        want_dq = rf.chunk_dq_reference(q, k, v, do, lse, delta, dq, causal, blk)
+        errs["ring_flash_dq"].append(compare(f"ring_flash_dq {label}", gdq, want_dq,
+                                             failed, GRAD_ROW_FLOOR))
+        want_kv = rf.chunk_dkv_reference(q, k, v, do, lse, delta, dk, dv, causal, blk)
+        for name, g, w in (("dk", gdk, want_kv[0]), ("dv", gdv, want_kv[1])):
+            errs["ring_flash_dkv"].append(compare(f"ring_flash_dkv {name} {label}", g, w,
+                                                  failed, GRAD_ROW_FLOOR))
+        # The full step starts from the diagonal step's results.
+        carry, dq, (dk, dv) = want, want_dq, want_kv
 
 
 def time_ring_flash(torch, rf, rows: dict, gen) -> None:
@@ -4980,7 +5031,17 @@ def ring_dp_loss(torch) -> float:
     return loss
 
 
-def run_cp(torch, rows: dict, parallel: str, dp_loss: float) -> None:
+def cp_spawn(parallel: str) -> tuple:
+    """A context-parallel path's ranks (``cp_rank``), spawned: (their
+    records, seconds with process start)."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(cp_rank, RING["world"], (parallel,), timeout_s=900)
+    return ranks, time.perf_counter() - t0
+
+
+def run_cp(torch, rows: dict, parallel: str, dp_loss: float, spawned: tuple) -> None:
     """A context-parallel path (RING) in its ranks.  Gates: the ring
     launches K11/K12/K13 layers x (r + 1) times a step on rank r and K1-K3
     never; Ulysses K1, K2 and K3 layers times a step on every rank (its
@@ -4989,18 +5050,15 @@ def run_cp(torch, rows: dict, parallel: str, dp_loss: float) -> None:
     and falling; the step-0 loss against the dp path (``dp_loss``); one
     step kernel vs plain on every rank.  Reports step ms, tokens/s, the
     wire calls' and the gradient mean's ms a step, peak memory per rank and
-    the wire."""
-    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
-
+    the wire.  ``spawned``: ``cp_spawn(parallel)``'s result."""
     world, layers = RING["world"], RING["n_layers"]
-    t0 = time.perf_counter()
-    ranks = spawn(cp_rank, world, (parallel,), timeout_s=900)
+    ranks, seconds = spawned
     r0, n = ranks[0], RING["max_iters"]
     failed = []
     log(f"{parallel}: world {world} x B {RING['batch_size']} x L {RING['seq_len']}, {layers} "
         f"layers (chunk "
         f"{RING['seq_len'] // world}), attn {r0['attn']}, backend {r0['backend']}, wire "
-        f"{r0['wire']}, {r0['device']}; {time.perf_counter() - t0:.1f} s with process start")
+        f"{r0['wire']}, {r0['device']}; {seconds:.1f} s with process start")
     path_kernels = RING_KERNELS if parallel == "ring" else FLASH_KERNELS
     for r, out in enumerate(ranks):
         each = layers * (r + 1) * n if parallel == "ring" else layers * n
@@ -6121,7 +6179,8 @@ def run_fsdp_pl(torch, rows: dict, flat_peaks: list, card: str) -> None:
 # at the model's full width, each rank a process sharing the card (gloo over
 # host buffers), the seeded weights, bf16, fused AdamW, --attn flash.
 # (a) tp W 2, B 2 x L 2048, 4 of the 8 layers (time limit), 3 steps; (b) pp
-# W 2, B 4 x L 2048 in 4 microbatches, 8 layers, each schedule 3 steps over
+# W 2, B 4 x L 2048 in 4 microbatches, 4 of the 8 layers (time limit: the
+# ep cells), each schedule 3 steps over
 # the stream's batches 0, 1, 0 (1f1b saves at step 2 and is resumed for 1
 # more by cli.lm's run; interleaved v 2 saves at step 2); (c) 3d W 4, 4
 # layers, B 4 x L 2048
@@ -6130,7 +6189,7 @@ def run_fsdp_pl(torch, rows: dict, flat_peaks: list, card: str) -> None:
 # the interleaved checkpoints and on the same parameters saved in the dp
 # layout, B 1 x 4096 + 32.
 A5C = dict(seq_len=2048, tp_world=2, tp_batch=2, tp_layers=4, tp_steps=3, pp_world=2,
-           pp_batch=4, pp_micro=4, pp_layers=8, p3_world=4, p3_batch=4, p3_micro=2,
+           pp_batch=4, pp_micro=4, pp_layers=4, p3_world=4, p3_batch=4, p3_micro=2,
            p3_layers=4, p3_steps=3, gen_new=32)
 A5C_ORDER = {"tp": [0, 1, 2], "pp": [0, 1, 0], "3d": [0, 1, 2]}
 A5C_PP = {"1f1b": ["--pp-schedule", "1f1b"], "gpipe": ["--pp-schedule", "gpipe"],
@@ -6239,33 +6298,44 @@ def a5c_noise(torch) -> float:
 
 def a5c_local(model, mesh: dict, name: str, whole: dict):
     """The dp-layout leaf of ``whole`` as this rank holds ``name`` (its
-    stage's layer, its TP slice)."""
+    stage's layer, its TP slice, its block of the experts)."""
+    from distributed_machine_learning_tpu_torch.parallel.expert_parallel import is_expert_path
+    from distributed_machine_learning_tpu_torch.parallel.gspmd import block_of
     from distributed_machine_learning_tpu_torch.parallel.tensor_parallel import (
         tp_shard_params,
     )
 
     t = whole[model.global_name(name) if hasattr(model, "global_name") else name]
-    tp = mesh.get("model")
+    tp, ex = mesh.get("model"), mesh.get("expert")
     if tp is not None and tp.world > 1:
         t = tp_shard_params({name: t}, tp.world, tp.rank, model.vocab_parallel == "both")[name]
+    if ex is not None and ex.world > 1 and is_expert_path(name):
+        t = block_of(t, 0, ex.rank, ex.world)
     return t
 
 
-def a5c_vs_dp(init: dict, model, mesh: dict, dp_path: str) -> dict:
+def wait_for_file(path: str, seconds: float = 600) -> None:
+    """Returns once ``path`` exists (a reference another process writes)."""
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the reference {path} never appeared")
+        time.sleep(0.5)
+
+
+def a5c_vs_dp(init: dict, model, mesh: dict, dp_path: str,
+              noise: float = A5C_UPDATE_NOISE) -> dict:
     """Each local leaf after the run against the dp reference's after the
     same steps (``a5c_dp_reference``, waited for at ``dp_path``): the
     distance over dp's update of the leaf, against max(TRAIN_UPDATE_TOL,
-    RING_NOISE_FACTOR x A5C_UPDATE_NOISE): the worst ratio to that limit,
-    its leaf and reading, and the median reading."""
+    RING_NOISE_FACTOR x ``noise``, the plain-vs-plain reading of the
+    model): the worst ratio to that limit, its leaf and reading, and the
+    median reading."""
     import torch
 
-    deadline = time.monotonic() + 600
-    while not os.path.exists(dp_path):
-        if time.monotonic() > deadline:
-            raise AssertionError(f"the dp reference {dp_path} never appeared")
-        time.sleep(0.5)
+    wait_for_file(dp_path)
     dp = torch.load(dp_path, mmap=True)
-    limit = max(TRAIN_UPDATE_TOL, RING_NOISE_FACTOR * A5C_UPDATE_NOISE)
+    limit = max(TRAIN_UPDATE_TOL, RING_NOISE_FACTOR * noise)
     err = {}
     for name, p in model.named_parameters():
         want = a5c_local(model, mesh, name, dp).to(p.device).float()
@@ -6411,7 +6481,7 @@ def a5c_generate_start(torch, ckdir: str) -> dict:
         path = ck.latest_checkpoint(f"{ckdir}/{name}")
         layout = ck.checkpoint_layout(path)
         host = ck.restore_checkpoint(path)
-        n = MODEL["n_layers"]
+        n = A5C["pp_layers"]
         params = pp.unstack_lm_params(host.params, n, pp.layout_order(layout, n))
         ck.save_checkpoint(f"{ckdir}/{name}-dp", ck.HostState(
             params=params, momentum={}, batch_stats={}, step=host.step, config=host.config))
@@ -6419,7 +6489,7 @@ def a5c_generate_start(torch, ckdir: str) -> dict:
         dirs[f"{name}-dp"] = (f"{ckdir}/{name}-dp", None, None)
         del host, params
     cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.generate",
-           "--d-model", str(MODEL["d_model"]), "--n-layers", str(MODEL["n_layers"]),
+           "--d-model", str(MODEL["d_model"]), "--n-layers", str(A5C["pp_layers"]),
            "--n-heads", str(MODEL["n_heads"]), "--n-kv-heads", str(MODEL["n_kv_heads"]),
            "--vocab", str(MODEL["vocab_size"]), "--prompt", A5C_PROMPT, "--max-new-tokens",
            str(A5C["gen_new"]), "--temperature", "0"]
@@ -6663,6 +6733,599 @@ def run_a5c(torch, rows: dict, card: str, cells=("tp", "pp", "3d")) -> None:
         raise AssertionError("a5c: " + "; ".join(failed))
 
 
+# -- ROADMAP A5c, expert parallelism (step 10c): cli.lm --parallel ep at the
+# model's full width (d2048, 16 heads x 128, 4 KV heads, vocab 32000), E 8
+# experts of d_ff 8192, capacity factor 1.25, bf16, fused AdamW, --attn
+# flash; 2 of the 8 layers, B 4 x L 2048, 3 steps over the stream's batches
+# 0, 1, 0 (a resumed run's step takes batch 0 again); ranks share the card
+# over the host wire.  W 2 (ep 2): (a) einsum; (b) grouped (dropless), saved
+# at step 2 in the plain layout, resumed by cli.lm's resume for 1 more, and
+# served by cli.generate --moe --ckpt-dir (4096 + 32); (c) grouped with
+# --ep-slots EP["slots"] (rows drop) and with ample slots (N_local: (b) bit
+# for bit).  W 4: (d) grouped --ep-seq 2 (dp 1 x ep 2 x seq 2; the chunk is
+# 1024, so attention runs ring_flash).
+EP = dict(layers=2, batch=4, experts=8, slots=1024, seq_world=4)
+# The EP cells' update gate: the A5c rule, max(TRAIN_UPDATE_TOL,
+# RING_NOISE_FACTOR x a plain-vs-plain reading), with the reading of this
+# model: two correct one-process grouped MoE runs at the cells' shape
+# through the plain versions, the attention tiled by 512 and by
+# RING_NOISE_BLOCK, leave their worst leaf this far apart over its update
+# (embed.weight; median 0.2535), H100 80GB HBM3 at 700 W; ``python3
+# tools/a5c_noise.py --ep`` reads it again (``ep_noise``).  bf16 rounding
+# in attention flips a few top-1 routes (--ep-seq's ring flash kernels
+# route 37 of 16,384 step-0 tokens unlike one-process flash), and a flipped
+# token moves its expert's and the embedding's Adam updates: the dense
+# model's reading (A5C_UPDATE_NOISE) is 3.5x smaller.
+EP_UPDATE_NOISE = 3.758e-1
+# The EP cells' step-0 gradient gate: each local leaf's gradient at step 0
+# (its first moment after the step: (1 - beta1) x the gradient the update
+# took, after the EP sync) against the one-process run's over the latter's
+# norm, within max(EP_GRAD_FLOOR, RING_NOISE_FACTOR x the leaf's own
+# plain-vs-plain reading).  EP_GRAD_NOISE, by leaf name with the layer
+# taken out (the worse of the layers), is ``ep_noise``'s two plain runs at
+# step 0, H100 80GB HBM3 at 700 W (``python3 tools/a5c_noise.py --ep``):
+# bf16 attention tiled otherwise moves most leaves' step-0 gradients by
+# 7-9 %, the router's bias by 15 %, and the leaves next to the loss (ln_f,
+# lm_head) by 0.2-5 %; the floor holds those.  The faults the gate is for
+# read far above it (``tools/a5c_noise.py --plant``: the expert leaves'
+# seq-axis sum left out 0.62-0.84, / dp in place of / n_total 3.0).
+EP_GRAD_FLOOR = 0.1
+EP_GRAD_NOISE = {
+    "embed.weight": 0.07369, "ln1.weight": 0.07418, "ln1.bias": 0.07856,
+    "attn.q.weight": 0.08444, "attn.q.bias": 0.07409, "attn.kv.weight": 0.07214,
+    "attn.kv.bias": 0.07907, "attn.out.weight": 0.0682, "attn.out.bias": 0.08222,
+    "ln2.weight": 0.08683, "ln2.bias": 0.07458, "moe.w_in": 0.09147, "moe.b_in": 0.09071,
+    "moe.w_out": 0.08741, "moe.b_out": 0.08333, "moe.router.weight": 0.09442,
+    "moe.router.bias": 0.1472, "ln_f.weight": 0.02236, "ln_f.bias": 0.002176,
+    "lm_head.weight": 0.05119, "lm_head.bias": 0.001674,
+}
+EP_ORDER = [0, 1, 0]
+EP_W2 = ("einsum", "grouped", "slots", "ample")
+
+
+def ep_n_local() -> int:
+    """Token rows a rank of the W 2 grouped runs holds (B / (dp x ep) x L):
+    the dropless send slots an owner."""
+    return EP["batch"] // 2 * A5C["seq_len"]
+
+
+def ep_args(run: str, rank: int = 0, world: int = 1, *extra: str):
+    """cli.lm's flags of an EP run (one rank: the one-process reference of
+    its impl)."""
+    flags = ["--parallel", "ep", "--num-nodes", str(world), "--rank", str(rank),
+             "--seq-len", str(A5C["seq_len"]), "--batch-size", str(EP["batch"]),
+             "--n-layers", str(EP["layers"]), "--n-experts", str(EP["experts"]),
+             "--moe-impl", "einsum" if run == "einsum" else "grouped"]
+    if world > 1:
+        flags += {"slots": ["--ep-slots", str(EP["slots"])],
+                  "ample": ["--ep-slots", str(ep_n_local())],
+                  "seq": ["--ep", "2", "--ep-seq", "2"]}.get(run, [])
+    return trainer_args(*flags, *extra, iters=len(EP_ORDER))
+
+
+def routed_step(torch, step, model, state, x, y):
+    """One step, with its routes (``RouteTape``): (state, loss, experts
+    [layers, *x.shape] as an int16 numpy array)."""
+    tape = RouteTape(torch, model)
+    try:
+        state, loss = step(state, x, y)
+    finally:
+        tape.close()
+    return state, loss, tape.experts(x.shape[1]).to("cpu", torch.int16).numpy()
+
+
+def ep_kind(name: str) -> str:
+    """A leaf's name without its layer (``blocks.1.moe.w_in`` ->
+    ``moe.w_in``): the key of EP_GRAD_NOISE."""
+    return re.sub(r"^blocks\.\d+\.", "", name)
+
+
+def ep_grad_limit(name: str) -> float:
+    return max(EP_GRAD_FLOOR, RING_NOISE_FACTOR * EP_GRAD_NOISE.get(ep_kind(name), 0.0))
+
+
+def ep_noise(torch) -> tuple:
+    """EP_UPDATE_NOISE's and EP_GRAD_NOISE's readings (see ``a5c_noise``):
+    one-process grouped MoE at the EP cells' shape over EP_ORDER's batches,
+    twice through the plain versions, the attention tiled by 512 and by
+    RING_NOISE_BLOCK.  Returns the worst leaf's distance between the runs
+    over the update, and each leaf kind's worst distance between their
+    step-0 gradients over the gradient; both logged with their medians."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    args = ep_args("grouped")
+    runs = []
+    for block in (512, RING_NOISE_BLOCK):
+        with plain_kernels(block=block):
+            step, state, place, model = lm.build(args)
+            init = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+            losses, grad0 = [], None
+            for x, y in a5c_batches(args, EP_ORDER):
+                losses.append(float(step(state, *place(x, y))[1]))
+                if grad0 is None:
+                    grad0 = {k: t.to("cpu", copy=True) for k, t in state.momentum["mu"].items()}
+            final = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+            runs.append((losses, init, grad0, final))
+            del step, state, place, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    (_, init, g_a, f_a), (_, _, g_b, f_b) = runs
+    noise = {k: float((f_b[k] - f_a[k]).norm() / (f_a[k] - init[k]).norm().clamp_min(1e-30))
+             for k in f_a}
+    worst = max(noise, key=noise.get)
+    grads = {k: float((g_b[k] - g_a[k]).norm() / g_a[k].norm().clamp_min(1e-30)) for k in g_a}
+    kinds: dict = {}
+    for k, v in grads.items():
+        kinds[ep_kind(k)] = max(kinds.get(ep_kind(k), 0.0), v)
+    log(f"ep: one-process grouped MoE through the plain versions tiled 512 and "
+        f"{RING_NOISE_BLOCK}, {EP['layers']} layers, B {EP['batch']}, {len(EP_ORDER)} steps: "
+        f"losses {runs[0][0]} and {runs[1][0]}; parameters apart by median "
+        f"{sorted(noise.values())[len(noise) // 2]:.3e}, worst {noise[worst]:.3e} ({worst}) "
+        f"of the update; step-0 gradients apart by median "
+        f"{sorted(grads.values())[len(grads) // 2]:.3e} of the gradient, by leaf kind "
+        f"(EP_GRAD_NOISE) {({k: float(f'{v:.4g}') for k, v in sorted(kinds.items())})}")
+    return noise[worst], kinds
+
+
+def save_aside(torch, tree: dict, path: str) -> None:
+    """``tree`` saved to ``path``: written aside, then renamed (a reader
+    waits for the name)."""
+    torch.save(tree, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def ep_reference(torch, impl: str, ckdir: str) -> dict:
+    """One-process MoE on the seeded weights (``cli.lm --parallel ep`` at one
+    rank: the one-device step) over EP_ORDER's batches: its first moments
+    after step 0 saved to ``ckdir/grad0-{impl}.pt`` and its final
+    parameters to ``ckdir/ref-{impl}.pt``; returns its losses and its
+    step-0 experts [layers, B, L]."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+
+    args = ep_args(impl)
+    step, state, place, model = lm.build(args)
+    losses, routes = [], None
+    for i, (x, y) in enumerate(a5c_batches(args, EP_ORDER)):
+        if i == 0:
+            state, loss, routes = routed_step(torch, step, model, state, *place(x, y))
+            save_aside(torch, {k: t.to("cpu") for k, t in state.momentum["mu"].items()},
+                       f"{ckdir}/grad0-{impl}.pt")
+        else:
+            state, loss = step(state, *place(x, y))
+        losses.append(float(loss))
+    final = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+    save_aside(torch, final, f"{ckdir}/ref-{impl}.pt")
+    del step, state, place, model, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "routes": routes}
+
+
+def ep_rank(rank: int, world: int, init_method: str, runs: tuple, ckdir: str,
+            wait_for: str | None = None, plant: str | None = None) -> dict:
+    """One rank of the EP runs of one world, one after the other in one
+    process group: {"runs": {name: record}, ...}.  ``wait_for``: a file
+    whose appearance the ranks wait for, their group joined and their card
+    context made, before the first run builds (the card's memory).
+    ``plant``: a fault in the gradient sync (``ep_plant``), for the gates'
+    control."""
+    import torch
+
+    from distributed_machine_learning_tpu_torch.cli import lm  # noqa: F401 (imported early)
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method)
+    try:
+        if wait_for is not None:
+            torch.zeros(1, device=ctx.device)
+            deadline = time.monotonic() + 600
+            while not os.path.exists(wait_for):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{wait_for} never appeared")
+                time.sleep(0.1)
+        return {"backend": ctx.backend, "wire": ctx.comm.wire, "device": str(ctx.device),
+                "runs": {name: ep_run(torch, ctx, name, ckdir, plant) for name in runs}}
+    finally:
+        ctx.shutdown()
+
+
+def ep_plant(fault: str, step) -> None:
+    """A deliberate fault in this process's EP gradient sync, the gates'
+    control (``tools/a5c_noise.py --ep --plant``): ``seq-sum`` leaves the
+    expert leaves unsummed over the seq axis; ``scale`` divides every
+    gradient by the data axis's size in place of n_total (an Adam update
+    hardly moves: the scale cancels in m / sqrt(v))."""
+    from distributed_machine_learning_tpu_torch.parallel import expert_parallel as ep
+
+    mesh, real = step.mesh, ep.sum_over_ranks_
+    scale = math.prod(c.world for c in mesh.values()) / mesh["batch"].world
+
+    def planted(comm, tensors):
+        if fault == "seq-sum" and comm is mesh.get("seq"):
+            return
+        real(comm, tensors)
+        if fault == "scale" and (comm is step.world or comm is mesh["batch"]):
+            for t in tensors:
+                t.mul_(scale)
+
+    if fault not in ("seq-sum", "scale"):
+        raise ValueError(f"unknown fault {fault!r}")
+    ep.sum_over_ranks_ = planted
+
+
+def ep_grad_vs_ref(model, mesh: dict, state, path: str) -> dict:
+    """Each local leaf's step-0 gradient (its first moment after step 0)
+    against the one-process run's (``ep_reference``, waited for at
+    ``path``): the distance over the latter's norm, against the leaf's
+    ``ep_grad_limit``: the worst ratio to its limit, its leaf and reading,
+    the median reading, and each leaf kind's worst reading."""
+    import torch
+
+    wait_for_file(path)
+    ref = torch.load(path, mmap=True)
+    err, ratio = {}, {}
+    for name, _ in model.named_parameters():
+        got = state.momentum["mu"][name]
+        want = a5c_local(model, mesh, name, ref).to(got.device)
+        err[name] = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        ratio[name] = err[name] / ep_grad_limit(name)
+    worst = max(ratio, key=ratio.get)
+    kinds: dict = {}
+    for name, e in err.items():
+        kinds[ep_kind(name)] = max(kinds.get(ep_kind(name), 0.0), e)
+    return {"worst": (worst, err[worst], ratio[worst]),
+            "median": sorted(err.values())[len(err) // 2], "kinds": kinds}
+
+
+def ep_run(torch, ctx, name: str, ckdir: str, plant: str | None = None) -> dict:
+    """This rank of one EP run through cli.lm's build and train_epoch: the
+    launch counts zeroed just before and read just after, the wire's calls
+    timed (``WireTimer``), the step timed on the host clock to its loss
+    sync, step 0's experts taped; the dropped rows a step; the local leaves'
+    step-0 gradients (``ep_grad_vs_ref``) and the leaves after the run
+    (``a5c_vs_dp``) against the one-process reference of its impl (not for
+    ``slots``, whose drops the reference has not).  ``grouped`` saves at
+    step 2 as cli.lm's run saves (``gather_ep_state``: the plain layout) and
+    is then resumed by cli.lm's build and resume for 1 more step."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.ops import build
+    from distributed_machine_learning_tpu_torch.parallel import expert_parallel as ep
+    from distributed_machine_learning_tpu_torch.train import checkpoint as ck
+    from distributed_machine_learning_tpu_torch.train.loop import train_epoch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rank, world = ctx.rank, ctx.num_nodes
+    args = ep_args(name, rank, world)
+    t0 = time.perf_counter()
+    step, state, place, model = lm.build(args, ctx)
+    t_build = time.perf_counter()
+    mesh = step.mesh
+    if plant is not None:
+        ep_plant(plant, step)
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    impl = "einsum" if name == "einsum" else "grouped"
+    wire = WireTimer(torch)
+    for comm, kind, method in ((mesh["expert"], "all-to-all", "all_to_all"),
+                               (mesh["expert"], "expert sums", "all_reduce_"),
+                               (mesh.get("seq"), "hops", "shift"),
+                               (mesh.get("seq"), "seq sums", "all_reduce_"),
+                               (mesh["batch"], "data sums", "all_reduce_"),
+                               (getattr(step, "world", None), "gradient sums",
+                                "all_reduce_")):
+        if comm is not None and comm.world > 1:  # fresh Comms of this build
+            setattr(comm, method, wire.wrap(kind, getattr(comm, method)))
+    losses, times, dropped, rec = [], [], [], {}
+    save = f"{ckdir}/ep-grouped" if name == "grouped" else None
+
+    def run(s, x, y):
+        t0 = time.perf_counter()
+        if losses:
+            s, loss = step(s, x, y)
+        else:
+            s, loss, rec["routes"] = routed_step(torch, step, model, s, x, y)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        wire.mark()
+        dropped.append(sum(int(b.moe.last_dropped) for b in model.blocks
+                           if b.moe.last_dropped is not None))
+        if len(losses) == 1 and name != "slots":
+            rec["grad0"] = ep_grad_vs_ref(model, mesh, s, f"{ckdir}/grad0-{impl}.pt")
+        if save is not None and len(losses) == 2:
+            with timed_calls(ck, ("save_checkpoint",)) as ck_times:
+                ck.save_checkpoint(save, ep.gather_ep_state(s, mesh["expert"]))
+            rec["save_s"] = ck_times["save_checkpoint"][0]
+            if rank == 0:  # the generate command may start
+                Path(save + ".saved").touch()
+        return s, loss
+
+    batches = a5c_batches(args, EP_ORDER)
+    build.reset_launch_counts()
+    state, _ = train_epoch(run, state, batches, place_batch=place, max_iters=len(batches))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t_build
+    rec.update(launches=dict(build.launches), losses=losses, times=times[1:],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               leaves=sum(1 for _ in model.parameters()), dropped=dropped,
+               digest=device_digest(torch, model.parameters()),
+               replicated=device_digest(torch, [p for n, p in model.named_parameters()
+                                                if not ep.is_expert_path(n)]),
+               experts=device_digest(torch, [p for n, p in model.named_parameters()
+                                             if ep.is_expert_path(n)]),
+               wire_ms={k: wire.per_step(k) for k, v in wire.events.items() if v},
+               attn=model.attn_impl, mesh={k: (c.rank, c.world) for k, c in mesh.items()},
+               ref=(None if name == "slots"
+                    else a5c_vs_dp(init, model, mesh, f"{ckdir}/ref-{impl}.pt", EP_UPDATE_NOISE)))
+    rec["seconds"] = {"build": t_build - t0, "steps": t_steps, "step 0": times[0],
+                      "gate": time.perf_counter() - t_build - t_steps}
+    del step, state, place, model, init
+    if name == "grouped":
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rargs = ep_args(name, rank, world, "--ckpt-dir", save, "--resume", "--max-iters", "1")
+        step, fresh, place, model = lm.build(rargs, ctx)
+        resumed, lines = captured(lm.resume, rargs, fresh)
+        resumed, _ = train_epoch(step, resumed, a5c_batches(rargs, [0]), place_batch=place,
+                                 max_iters=1)
+        torch.cuda.synchronize()
+        rec["seconds"]["resume"] = time.perf_counter() - t0
+        rec.update(resume_s=time.perf_counter() - t0, resume_lines=lines,
+                   resumed_step=resumed.step,
+                   resumed_digest=device_digest(torch, model.parameters()))
+        del step, fresh, resumed, place, model
+    return rec
+
+
+def ep_block(run: str, mesh: dict) -> tuple:
+    """The block of the global [B, L] batch a rank holds: (row block, row
+    blocks, column block, column blocks)."""
+    row, rows = mesh["batch"]
+    if run != "einsum":  # the rows split over data x expert, data major
+        row, rows = row * mesh["expert"][1] + mesh["expert"][0], rows * mesh["expert"][1]
+    col, cols = mesh.get("seq", (0, 1))
+    return row, rows, col, cols
+
+
+def ep_want(run: str, rec: dict) -> dict:
+    """A rank's launch formulas: K1-K3 once a layer a step (its local rows
+    and chunk), K11-K13 layers x (seq rank + 1) x steps under --ep-seq, K7
+    once a local leaf a step."""
+    steps, layers = len(EP_ORDER), EP["layers"]
+    seq = rec["mesh"].get("seq")
+    want = {k: 0 if seq else layers * steps for k in FLASH_KERNELS}
+    want.update({k: layers * (seq[0] + 1) * steps if seq else 0 for k in RING_KERNELS})
+    want["fused_adamw"] = rec["leaves"] * steps
+    return want
+
+
+def ep_generate_start(ckdir: str) -> dict:
+    """``python -m ...cli.generate --moe --ckpt-dir`` on (b)'s checkpoint (B
+    1 x 4096 + 32, greedy, bf16), left running."""
+    cmd = [sys.executable, "-m", "distributed_machine_learning_tpu_torch.cli.generate",
+           "--moe", "--n-experts", str(EP["experts"]), "--d-model", str(MODEL["d_model"]),
+           "--n-layers", str(EP["layers"]), "--n-heads", str(MODEL["n_heads"]),
+           "--n-kv-heads", str(MODEL["n_kv_heads"]), "--vocab", str(MODEL["vocab_size"]),
+           "--prompt", A5C_PROMPT, "--max-new-tokens", str(A5C["gen_new"]),
+           "--temperature", "0", "--ckpt-dir", f"{ckdir}/ep-grouped"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    return {"proc": subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, env=env), "t0": time.perf_counter()}
+
+
+def ep_expert_ranks(recs: list) -> dict:
+    """The ranks of a run by the expert block they hold: {expert rank: [rank]}."""
+    out: dict = {}
+    for r, rec in enumerate(recs):
+        out.setdefault(rec["mesh"]["expert"][0], []).append(r)
+    return out
+
+
+def ep_expert_groups(recs: list) -> dict:
+    """{expert rank: the set of its ranks' expert-leaf digests}: one digest
+    each where the copies of a block agree bit for bit."""
+    return {e: {recs[r]["experts"] for r in rs} for e, rs in ep_expert_ranks(recs).items()}
+
+
+def ep_report(results: dict, refs: dict, failed: list, card: str) -> dict:
+    """The EP cells' gates and readings (see ``run_ep``); returns the launch
+    totals over every rank's runs."""
+    totals: dict = {}
+    tol = max(TRAIN_UPDATE_TOL, RING_NOISE_FACTOR * EP_UPDATE_NOISE)
+    for ranks in results:
+        world, r0 = len(ranks), ranks[0]
+        log(f"ep W {world}: backend {r0['backend']}, wire {r0['wire']}, {r0['device']}")
+        for name in r0["runs"]:
+            recs = [out["runs"][name] for out in ranks]
+            impl = "einsum" if name == "einsum" else "grouped"
+            ref = refs[impl]
+            for r, rec in enumerate(recs):
+                want = ep_want(name, rec)
+                got = {k: rec["launches"].get(k, 0) for k in want}
+                for k, n in got.items():
+                    totals[k] = totals.get(k, 0) + n
+                u, g = rec["ref"], rec.get("grad0")
+                vs = ("" if u is None else
+                      f"; against the one-process {impl} run: step-0 gradients, diff / its "
+                      f"norm median {g['median']:.3e}, worst {g['worst'][1]:.3e} "
+                      f"({g['worst'][0]}, ratio {g['worst'][2]:.3f} to its limit "
+                      f"{ep_grad_limit(g['worst'][0]):.4f}); after the run, diff / its update "
+                      f"median {u['median']:.3e}, worst {u['worst'][1]:.3e} ({u['worst'][0]}, "
+                      f"ratio {u['worst'][2]:.3f} to max({TRAIN_UPDATE_TOL:g}, "
+                      f"{RING_NOISE_FACTOR:g} x {EP_UPDATE_NOISE:g}) = {tol:.4f})")
+                log(f"ep {name} rank {r} (mesh {rec['mesh']}, attn {rec['attn']}): launches "
+                    f"{got} (want {want}); peak {rec['peak_gb']:.2f} GB; dropped rows a step "
+                    f"{rec['dropped']}{vs}; wire ms a step "
+                    f"{({k: spread(v) for k, v in rec['wire_ms'].items()})}; host seconds "
+                    f"{({k: round(v, 1) for k, v in rec['seconds'].items()})}")
+                if got != want:
+                    failed.append(f"ep {name} rank {r} launches {got} != {want}")
+                if u is not None and not u["worst"][2] <= 1.0:
+                    failed.append(f"ep {name} rank {r}: {u['worst'][0]} {u['worst'][1]:.3e} "
+                                  f"from the one-process run (ratio {u['worst'][2]:.3f})")
+                if g is not None and not g["worst"][2] <= 1.0:
+                    failed.append(f"ep {name} rank {r}: step-0 gradient of {g['worst'][0]} "
+                                  f"{g['worst'][1]:.3e} from the one-process run's (ratio "
+                                  f"{g['worst'][2]:.3f})")
+                if (name == "slots") != any(rec["dropped"]):
+                    failed.append(f"ep {name} rank {r}: dropped rows {rec['dropped']}")
+            losses = recs[0]["losses"]
+            diff = abs(losses[0] - ref["losses"][0])
+            log(f"ep {name}: losses {[round(x, 5) for x in losses]}; step-0 loss vs the "
+                f"one-process {impl} run {losses[0]:.6f} vs {ref['losses'][0]:.6f} (diff "
+                f"{diff:.3e}, tol {TRAIN_LOSS_TOL:g}{'; not gated: rows drop' if name == 'slots' else ''})")
+            if not (all(math.isfinite(x) for x in losses)
+                    and all(rec["losses"] == losses for rec in recs)
+                    and (name == "slots" or diff <= TRAIN_LOSS_TOL)):
+                failed.append(f"ep {name}: losses {[rec['losses'] for rec in recs]}")
+            if name == "slots":
+                n = sum(sum(rec["dropped"]) for rec in recs)
+                log(f"ep slots: --ep-slots {EP['slots']} of N_local {ep_n_local()}: "
+                    f"{n} token rows dropped over the ranks, layers and steps")
+            # Step 0's experts against the one-process run's, block by block.
+            same = total = 0
+            seen = set()
+            for rec in recs:
+                row, rows, col, cols = block = ep_block(name, rec["mesh"])
+                if block in seen:
+                    continue
+                seen.add(block)
+                want_r = ref["routes"]
+                r_len, c_len = want_r.shape[1] // rows, want_r.shape[2] // cols
+                part = want_r[:, row * r_len:(row + 1) * r_len, col * c_len:(col + 1) * c_len]
+                same += int((part == rec["routes"]).sum())
+                total += part.size
+            if name != "slots":
+                kinds: dict = {}
+                for rec in recs:
+                    for k, e in rec["grad0"]["kinds"].items():
+                        kinds[k] = max(kinds.get(k, 0.0), e)
+                log(f"ep {name}: step-0 gradients vs the one-process {impl} run, diff / its "
+                    f"norm by leaf kind (worst over the ranks) "
+                    f"{({k: float(f'{v:.3g}') for k, v in sorted(kinds.items())})}")
+            log(f"ep {name}: step-0 tokens routed as in the one-process {impl} run: "
+                f"{same} of {total} ({same / max(total, 1):.6f})")
+            # Leaves outside the experts bit for bit across every rank, the
+            # expert leaves across the ranks that hold the same experts.
+            alike = len({rec["replicated"] for rec in recs}) == 1
+            shared = ep_expert_groups(recs)
+            log(f"ep {name}: leaves outside the experts bit for bit across the ranks: {alike}; "
+                f"expert leaves bit for bit across the ranks that hold the same experts: "
+                f"{({e: len(d) == 1 for e, d in shared.items()})} (ranks a block "
+                f"{({e: len(d) for e, d in ep_expert_ranks(recs).items()})})")
+            if not alike:
+                failed.append(f"ep {name}: ranks' replicated leaves differ")
+            if any(len(d) != 1 for d in shared.values()):
+                failed.append(f"ep {name}: the copies of an expert block differ")
+            ms = [t * 1e3 for t in recs[0]["times"]]
+            tokens = EP["batch"] * A5C["seq_len"]
+            log(f"ep {name} W {world} [{card}]: step ms (rank 0, host clock to the loss sync, "
+                f"step 0 untimed) {spread(ms)} -> {tokens / sorted(ms)[len(ms) // 2] * 1e3:.0f} "
+                f"tokens/s; peak GB a rank {[round(rec['peak_gb'], 2) for rec in recs]}")
+    by_rank: dict = {}  # run -> [record of each rank]
+    for ranks in results:
+        for out in ranks:
+            for name, rec in out["runs"].items():
+                by_rank.setdefault(name, []).append(rec)
+    for r, (g, amp) in enumerate(zip(by_rank["grouped"], by_rank["ample"])):
+        resumed = g["resumed_step"] == 3 and g["resumed_digest"] == g["digest"]
+        ample = amp["digest"] == g["digest"] and amp["mesh"] == g["mesh"]
+        log(f"ep rank {r}: grouped saved at step 2 in {g['save_s']:.2f} s; resumed "
+            f"({g['resume_s']:.1f} s; {[ln for ln in g['resume_lines'] if 'Resumed' in ln]}) "
+            f"bit for bit the uninterrupted 3 steps: {resumed}; --ep-slots {ep_n_local()} "
+            f"(ample) bit for bit dropless: {ample}")
+        if not resumed:
+            failed.append(f"ep rank {r}: the resumed run differs from the uninterrupted")
+        if not ample:
+            failed.append(f"ep rank {r}: ample --ep-slots differs from dropless")
+    return totals
+
+
+def run_ep(torch, rows: dict, card: str) -> None:
+    """The EP cells (docstring step 10c): (a) and (c)'s bounded run in W 2
+    ranks and then (d)'s W 4 ranks (started at once, waiting to build)
+    beside (b) and (c)'s ample run in W 2 ranks, the one-process references
+    (einsum, then grouped) in this process while they start, (b)'s
+    ``cli.generate`` once (b) has saved.  Gates:
+    every rank's launches at their formulas (``ep_want``); losses finite
+    and equal on every rank, the step-0 loss within TRAIN_LOSS_TOL of the
+    one-process run of its impl on the same weights and batch (not
+    ``slots``); every local leaf's step-0 gradient within its
+    ``ep_grad_limit`` of that run's (``ep_grad_vs_ref``; not ``slots``) and
+    every local leaf after the run within the A5c rule of that run's
+    (``a5c_vs_dp``; not ``slots``); the leaves outside the experts bit for
+    bit across the ranks, the expert leaves across the ranks that hold the
+    same experts; ``slots`` drops rows and the others none; the
+    resumed run and ample slots bit for bit (b); ``cli.generate`` exits 0.
+    Reports the step-0 routing agreement, step ms, tokens/s, peak GB a rank
+    and the wire's ms a step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="ep_", dir=build_dir)
+    failed: list = []
+    totals: dict = {}
+    gen = None
+    t0 = time.perf_counter()
+    flag = f"{ckdir}/ep-w2.done"
+
+    def group(world, runs, wait_for=None, done=None):
+        """One process group's ranks over ``runs``; ``done`` touched after."""
+        try:
+            ranks = spawn(ep_rank, world, (runs, ckdir, wait_for), 900)
+        finally:
+            if done is not None:
+                Path(done).touch()
+        log(f"ep {', '.join(runs)} (W {world}): done {time.perf_counter() - t0:.1f} s into "
+            "the cells")
+        return ranks
+
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            # (d)'s W 4 ranks start at once but build only once (a) and the
+            # bounded slots' W 2 ranks have ended (the card's memory).
+            running = [pool.submit(group, 2, ("einsum", "slots"), None, flag),
+                       pool.submit(group, 2, ("grouped", "ample")),
+                       pool.submit(group, EP["seq_world"], ("seq",), flag)]
+            refs = {impl: ep_reference(torch, impl, ckdir) for impl in ("einsum", "grouped")}
+            log(f"ep one-process references: {time.perf_counter() - t0:.1f} s")
+            while not os.path.exists(f"{ckdir}/ep-grouped.saved") and not running[1].done():
+                time.sleep(0.2)
+            if os.path.exists(f"{ckdir}/ep-grouped.saved"):
+                gen = ep_generate_start(ckdir)
+            results = [f.result() for f in running]
+        log(f"ep ranks: done {time.perf_counter() - t0:.1f} s into the cells")
+        totals = ep_report(results, refs, failed, card)
+        if gen is None:
+            failed.append("ep: (b) never saved; cli.generate not run")
+        else:
+            stdout, stderr = gen["proc"].communicate(timeout=600)
+            code, lines = gen["proc"].returncode, stdout.splitlines()
+            log(f"ep cli.generate --moe --ckpt-dir on (b)'s step-2 checkpoint, 4096 + "
+                f"{A5C['gen_new']}: exit code {code} in {time.perf_counter() - gen['t0']:.1f} s "
+                f"[{card}]; {lines[:1]}; last line ends {lines[-1][-60:] if lines else ''!r}")
+            if code != 0 or not lines:
+                failed.append(f"ep cli.generate: exit code {code}: {stderr[-2000:]}")
+    finally:
+        if gen is not None and gen["proc"].poll() is None:
+            gen["proc"].kill()
+            gen["proc"].wait()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"ep launches over the cells: {totals}; cells {time.perf_counter() - t0:.1f} s")
+    for key, row in rows.items():
+        row["ep_launches"] = totals.get(key.split(":")[0], 0)
+    if failed:
+        raise AssertionError("ep: " + "; ".join(failed))
+
+
 # K1-K3 at the A5c paths' shapes: a TP rank's heads (tp W 2 and 3d tp 2: H
 # 8 / Hkv 2, B 2 rows) and a pipeline microbatch (pp and 3d dp 2: B 1, H 16
 # / Hkv 4), L 2048; K7 on the flat boundary slice of gpipe's
@@ -6671,42 +7334,76 @@ A5C_SHAPES = [(2, 2048, 8, 2, 128), (1, 2048, 16, 4, 128)]
 
 
 def check_a5c_shapes(torch, fa, fadam) -> None:
-    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
-
     gen = torch.Generator(device="cuda").manual_seed(20)
     failed: list = []
-    for B, L, H, Hkv, D in A5C_SHAPES:
-        label = f"a5c B={B} L={L} H={H} Hkv={Hkv} D={D} bf16"
-        q, k, v, do, lse_p, delta = bwd_inputs(torch, fa, B, L, H, Hkv, D, "bfloat16", gen)
-        out, lse = fa._launch(q, k, v)
-        compare(f"flash_fwd {label}", out, fa.flash_attention_reference(q, k, v), failed)
-        if not float((lse - lse_p).abs().max()) <= LSE_TOL:
-            failed.append(f"flash_fwd lse {label}")
-        args = (q, k, v, do, lse_p, delta)
-        dq = fa._launch_dq(*args)
-        dk, dv = fa._launch_dkv(*args)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_backward_reference(*args)
-        compare(f"flash_bwd_dq {label}", dq, ref[0], failed, GRAD_ROW_FLOOR)
-        compare(f"flash_bwd_dkv dk {label}", dk, ref[1], failed, GRAD_ROW_FLOOR)
-        compare(f"flash_bwd_dkv dv {label}", dv, ref[2], failed, GRAD_ROW_FLOOR)
-    cfg = AdamWConfig()
+    for shape in A5C_SHAPES:
+        check_flash_case(torch, fa, "a5c", shape, gen, failed)
     V, E = MODEL["vocab_size"], MODEL["d_model"]
-    n = -(-(2 * V * E + V + 2 * E) // A5C["pp_world"])
-    old = (0.02 * torch.randn(n, device="cuda", generator=gen),
-           1e-3 * torch.randn(n, device="cuda", generator=gen),
-           1e-6 * torch.rand(n, device="cuda", generator=gen),
-           1e-3 * torch.randn(n, device="cuda", generator=gen))
+    check_adamw_case(torch, fadam, "a5c boundary slice",
+                     (-(-(2 * V * E + V + 2 * E) // A5C["pp_world"]),), gen, failed)
+    raise_failed(failed)
+
+
+def check_flash_case(torch, fa, tag: str, shape: tuple, gen, failed: list) -> None:
+    """K1-K3 against their plain versions at one (B, L, H, Hkv, D), bf16."""
+    B, L, H, Hkv, D = shape
+    label = f"{tag} B={B} L={L} H={H} Hkv={Hkv} D={D} bf16"
+    q, k, v, do, lse_p, delta = bwd_inputs(torch, fa, B, L, H, Hkv, D, "bfloat16", gen)
+    out, lse = fa._launch(q, k, v)
+    compare(f"flash_fwd {label}", out, fa.flash_attention_reference(q, k, v), failed)
+    if not float((lse - lse_p).abs().max()) <= LSE_TOL:
+        failed.append(f"flash_fwd lse {label}")
+    args = (q, k, v, do, lse_p, delta)
+    dq = fa._launch_dq(*args)
+    dk, dv = fa._launch_dkv(*args)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_backward_reference(*args)
+    compare(f"flash_bwd_dq {label}", dq, ref[0], failed, GRAD_ROW_FLOOR)
+    compare(f"flash_bwd_dkv dk {label}", dk, ref[1], failed, GRAD_ROW_FLOOR)
+    compare(f"flash_bwd_dkv dv {label}", dv, ref[2], failed, GRAD_ROW_FLOOR)
+
+
+def check_adamw_case(torch, fadam, tag: str, shape: tuple, gen, failed: list) -> None:
+    """K7 against its plain version on one f32 leaf of ``shape`` at step 10,
+    within ADAMW_ULP_TOL."""
+    from distributed_machine_learning_tpu_torch.train.adamw import AdamWConfig
+
+    cfg = AdamWConfig()
+    old = (0.02 * torch.randn(shape, device="cuda", generator=gen),
+           1e-3 * torch.randn(shape, device="cuda", generator=gen),
+           1e-6 * torch.rand(shape, device="cuda", generator=gen),
+           1e-3 * torch.randn(shape, device="cuda", generator=gen))
     got, want = [t.clone() for t in old], [t.clone() for t in old]
     hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
     fadam.fused_adamw_leaf(*got, *adamw_scalars(10, cfg), **hyper)
     torch.cuda.synchronize()
     fadam.fused_adamw_reference(*want, *adamw_scalars(10, cfg), **hyper)
     errs = adamw_ulp_errs(got, want, old, cfg)
-    log(f"  fused_adamw a5c boundary slice n={n} f32: ulp error p/mu/nu "
+    n = math.prod(shape)
+    log(f"  fused_adamw {tag} {'x'.join(map(str, shape))} (n={n}) f32: ulp error p/mu/nu "
         f"{errs[0]:.0f}/{errs[1]:.0f}/{errs[2]:.0f} (tol {ADAMW_ULP_TOL})")
     if not max(errs) <= ADAMW_ULP_TOL:
-        failed.append(f"fused_adamw n={n}")
+        failed.append(f"fused_adamw {tag} n={n}")
+
+
+# The EP cells' shapes (step 10c): K1-K3 at an einsum rank's rows (B 4: the
+# data axis is 1, so each rank holds the whole batch) and a grouped rank's
+# (B 2), H 16 / Hkv 4, L 2048; K11-K13 at --ep-seq's chunk (B 2 x Lc 1024);
+# K7 on a rank's block of an expert leaf (4 of the 8 experts of w_in, d 2048
+# x d_ff 8192).
+EP_SHAPES = [(4, 2048, 16, 4, 128), (2, 2048, 16, 4, 128)]
+EP_RING = (2, (1024, 16, 4, 128, "bfloat16"))
+EP_EXPERT_BLOCK = (4, 2048, 8192)
+
+
+def check_ep_shapes(torch, fa, fadam, rf) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    failed: list = []
+    for shape in EP_SHAPES:
+        check_flash_case(torch, fa, "ep", shape, gen, failed)
+    B, case = EP_RING
+    check_ring_case(torch, rf, case, gen, {k: [] for k in RING_KERNELS}, failed, B)
+    check_adamw_case(torch, fadam, "ep expert block", EP_EXPERT_BLOCK, gen, failed)
     raise_failed(failed)
 
 
@@ -7474,14 +8171,14 @@ def run_a4(torch, build, rows: dict, card: str) -> dict:
 
 def run_card_tests() -> None:
     """The card test of the latest slice (``tests/test_torch_kernels_cuda.py``:
-    the model-parallel paths; the other slices' card tests are left to the
+    the expert-parallel paths; the other slices' card tests are left to the
     README's command for the time limit: their paths run in the phases above), as
     the README runs the file: ``--noconftest`` (the repo's conftest imports
     JAX)."""
     repo = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "pytest", "tests/test_torch_kernels_cuda.py", "-q",
            "--noconftest", "-p", "no:cacheprovider", "-k",
-           "model_parallel_paths_on_the_card"]
+           "expert_parallel_paths_on_the_card"]
     res = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
     tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
     log(f"card tests ({' '.join(cmd[3:])}): exit code {res.returncode}; {tail}")
@@ -7520,11 +8217,15 @@ def perturb(torch, pkg, name: str) -> int:
     elif kernel == "ring_flash":
         from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
 
-        checks = [lambda: check_ring_flash(torch, rf, {}, timing=False)]
+        checks = [lambda: check_ring_flash(torch, rf, {}, timing=False),
+                  lambda: check_ep_shapes(torch, fa, fadam, rf)]
     elif training:
+        from distributed_machine_learning_tpu_torch.ops import ring_flash_attention as rf
+
         checks = [lambda: check_flash_bwd(torch, fa, {}, timing=False),
                   lambda: check_adamw(torch, fadam, {}, timing=False),
-                  lambda: check_a5c_shapes(torch, fa, fadam)]
+                  lambda: check_a5c_shapes(torch, fa, fadam),
+                  lambda: check_ep_shapes(torch, fa, fadam, rf)]
     else:
         checks = [lambda: check_flash(torch, fa, {}, timing=False),
                   lambda: check_decode(torch, da, {}, timing=False),
@@ -7642,7 +8343,7 @@ def device_busy(torch, prof):
 # checkpoints), a5c (tp, pp, 3d and their checkpoints), a4, tests (the card
 # tests).
 PHASES = ("serve", "a8", "train", "ckpt", "vgg", "ring", "ulysses", "fsdp", "zero1", "a5c",
-          "a4", "tests")
+          "ep", "a4", "tests")
 
 
 def main(argv=None) -> int:
@@ -7722,6 +8423,7 @@ def main(argv=None) -> int:
     check_a5c_shapes(torch, fa, fadam)
     check_codec(torch, rc, rows, timing)
     check_ring_flash(torch, rf, rows, timing)
+    check_ep_shapes(torch, fa, fadam, rf)
     if args.check_only:
         log("check-only: kernels build and agree with their plain versions")
         return 0
@@ -7765,16 +8467,22 @@ def main(argv=None) -> int:
         run_vgg(torch, rows)
         run_vgg_cli(torch)
         log(f"vgg phases: {time.perf_counter() - t0:.1f} s")
-    dp_loss = ring_dp_loss(torch) if wanted("ring") or wanted("ulysses") else None
-    if wanted("ring"):
+    cp = [p for p in ("ring", "ulysses") if wanted(p)]
+    if cp:
+        from concurrent.futures import ThreadPoolExecutor
+
         t0 = time.perf_counter()
-        run_cp(torch, rows, "ring", dp_loss)
-        run_ring_cli(torch)
-        log(f"ring phases: {time.perf_counter() - t0:.1f} s")
-    if wanted("ulysses"):
-        t0 = time.perf_counter()
-        run_cp(torch, rows, "ulysses", dp_loss)
-        log(f"ulysses phase: {time.perf_counter() - t0:.1f} s")
+        dp_loss = ring_dp_loss(torch)
+        # The two paths' ranks run at once (time limit): each one's times
+        # carry the other's load.
+        with ThreadPoolExecutor(len(cp)) as pool:
+            spawned = {p: pool.submit(cp_spawn, p) for p in cp}
+            for p in cp:
+                run_cp(torch, rows, p, dp_loss, spawned[p].result())
+        if wanted("ring"):
+            run_ring_cli(torch)
+        log(f"{' and '.join(cp)} phases (their ranks at once): "
+            f"{time.perf_counter() - t0:.1f} s")
     if wanted("fsdp"):
         t0 = time.perf_counter()
         flat_peaks = run_fsdp(torch, rows, card)
@@ -7797,6 +8505,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run_a5c(torch, rows, card)
         log(f"a5c phase: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if wanted("ep"):
+        t0 = time.perf_counter()
+        run_ep(torch, rows, card)
+        log(f"ep phase: {time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     parity = run_a4(torch, build, rows, card) if wanted("a4") else None
@@ -7856,6 +8570,7 @@ def main(argv=None) -> int:
             "fsdp_cnn_launches": row["fsdp_cnn_launches"],
             "flat_ckpt_launches": row["flat_ckpt_launches"],
             "a4_launches": row["a4_launches"], "a5c_launches": row.get("a5c_launches", 0),
+            "ep_launches": row.get("ep_launches", 0),
             **{f"{c}_launches": row.get(f"{c}_launches", 0) for c in A8_COLUMNS},
             "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Language-model training entry point of the port: every ``--parallel``
-scheme of the reference but ``ep``.
+scheme of the reference.
 
 Counterpart of ``distributed_machine_learning_tpu/cli/lm.py``.  Trains the
 decoder-only ``TransformerLM`` on the reference's deterministic synthetic
@@ -61,7 +61,19 @@ Every rank draws the same global batch and takes its part:
   layers, each microbatch's rows split over D (``parallel/parallel3d.py``;
   ``--zero1-dp`` keeps the moments 1/D over the data group); dense, or
   explicit ``--attn flash`` (the reference's pipeline blocks resolve
-  ``auto`` to dense).
+  ``auto`` to dense);
+- ``--parallel ep``: the Switch-routed ``MoETransformerLM`` (``--n-experts``,
+  ``--capacity-factor``), its experts split over an expert axis of ``--ep``
+  ranks (default gcd(W, n_experts)), W / (ep × ``--ep-seq``) ranks a data
+  axis (``parallel/expert_parallel.py``, ``models/moe.py``).  ``--moe-impl
+  einsum``: each data rank's rows whole on its expert ranks, each computing
+  its own experts at the global batch's capacity, the combine summed over
+  them; ``--moe-impl grouped``: dropless, the rows split over data × expert
+  and sent to their experts' owners by an all-to-all (``--ep-slots`` bounds
+  the send slots an owner, dropping the overflow), and with ``--ep-seq S``
+  the sequence split over S more ranks with ring attention over them (the
+  ring flash kernels K11-K13 where ``_ring_flash_wins`` holds for the
+  chunk).  At one rank: the one-device MoE step.
 
 Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
@@ -69,6 +81,11 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
         --d-model 2048 --n-layers 8 --n-heads 16 --n-kv-heads 4 --vocab 32000 \\
         --seq-len 4096 --batch-size 4 --compute-dtype bfloat16 \\
         --optimizer adamw --fused-update --attn flash --max-iters 8
+
+    # expert parallelism over 2 ranks: dropless grouped EP, E 8
+    for r in 0 1; do python -m distributed_machine_learning_tpu_torch.cli.lm \\
+        --parallel ep --moe-impl grouped --num-nodes 2 --rank $r \\
+        --master-ip 127.0.0.1:29500 ... & done; wait
 
     # context parallel over 2 ranks (one process each); ring or ulysses
     for r in 0 1; do python -m distributed_machine_learning_tpu_torch.cli.lm \\
@@ -88,8 +105,9 @@ Usage (the repo's d2048 / 8-layer / GQA-4 LM)::
 
 ``--ckpt-dir`` saves the state after training (``train/checkpoint.py``:
 rank 0 writes, every rank restores; not under fsdp, as in the reference;
-under fsdp_pl and tp every leaf is gathered whole first, so the files are a
-dp run's, and a resume slices each rank's part out of them; under pp and 3d
+under fsdp_pl, tp and ep every leaf is gathered whole first, so the files
+are a dp run's (an ep run's serve with ``cli.generate --moe --ckpt-dir``),
+and a resume slices each rank's part out of them; under pp and 3d
 the blocks are stacked in the pipeline layout, tagged "pp-contiguous" or
 with the interleaved order's tag, which a resume must match and
 ``cli.generate --ckpt-dir`` unstacks);
@@ -99,17 +117,17 @@ also restarts a failed run from it, up to ``--max-restarts`` times.  The
 synthetic stream starts from its seed in every process, as the
 reference's does.  ``--eval-batches`` evaluates after training: the
 held-out final 10 % of the corpus under ``--data-dir``, else synthetic
-batches of the next seed; under fsdp, fsdp_pl and tp on the gathered
+batches of the next seed; under fsdp, fsdp_pl, tp and ep on the gathered
 parameters, under pp and 3d on the gathered and unstacked ones.
 
 Every flag of the reference that this port does not carry yet raises
-NotImplementedError naming its ROADMAP item (``--parallel ep`` and its
-flags, telemetry).
+NotImplementedError naming its ROADMAP item (telemetry).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 
 import numpy as np
 import torch
@@ -153,12 +171,6 @@ PARALLEL = ["dp", "ring", "ulysses", "fsdp", "fsdp_pl", "tp", "pp", "3d", "ep"]
 _NOT_PORTED = [
     ("telemetry_dir", None, "A6 'telemetry'"),
     ("telemetry_flush_every", 20, "A6 'telemetry'"),
-    ("n_experts", 8, "A5c (--parallel ep)"),
-    ("capacity_factor", 1.25, "A5c (--parallel ep)"),
-    ("ep", None, "A5c (--parallel ep)"),
-    ("moe_impl", "einsum", "A5c (--parallel ep)"),
-    ("ep_slots", None, "A5c (--parallel ep)"),
-    ("ep_seq", 1, "A5c (--parallel ep)"),
 ]
 
 
@@ -175,15 +187,29 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--parallel", default="dp", choices=PARALLEL,
                    help="dp, fsdp or fsdp_pl (each rank its rows), ring or ulysses "
                         "(each rank its sequence chunk), tp (its heads), pp (its stage), "
-                        "3d (data x pipeline x tensor); ep is not ported yet")
-    p.add_argument("--n-experts", dest="n_experts", default=8, type=int)
+                        "3d (data x pipeline x tensor), ep (its experts)")
+    p.add_argument("--n-experts", dest="n_experts", default=8, type=int,
+                   help="MoE experts (--parallel ep only)")
     p.add_argument("--capacity-factor", dest="capacity_factor", default=1.25,
-                   type=float)
-    p.add_argument("--ep", default=None, type=int)
+                   type=float, help="MoE expert capacity factor (ep only)")
+    p.add_argument("--ep", default=None, type=int,
+                   help="expert-axis size for --parallel ep (default: the greatest "
+                        "common divisor of the rank count and --n-experts); the rest "
+                        "of the ranks / ep is the data axis")
     p.add_argument("--moe-impl", dest="moe_impl", default="einsum",
-                   choices=["einsum", "grouped"])
-    p.add_argument("--ep-slots", dest="ep_slots", default=None, type=int)
-    p.add_argument("--ep-seq", dest="ep_seq", default=1, type=int)
+                   choices=["einsum", "grouped"],
+                   help="--parallel ep's expert compute: 'einsum' (Switch capacity and "
+                        "drops, activations whole on every expert rank) or 'grouped' "
+                        "(dropless; token rows sent to their experts' owners by an "
+                        "all-to-all, the batch split over data x expert)")
+    p.add_argument("--ep-slots", dest="ep_slots", default=None, type=int,
+                   help="grouped EP's send slots an owner rank (default N_local: "
+                        "dropless); fewer bound the all-to-all's bytes and drop the "
+                        "overflow rows")
+    p.add_argument("--ep-seq", dest="ep_seq", default=1, type=int,
+                   help="sequence-axis size for MoE x context parallelism (--parallel "
+                        "ep --moe-impl grouped): the sequence split over it, ring "
+                        "attention over it")
     p.add_argument("--d-model", dest="d_model", default=256, type=int)
     p.add_argument("--n-layers", dest="n_layers", default=4, type=int)
     p.add_argument("--n-heads", dest="n_heads", default=8, type=int)
@@ -266,9 +292,6 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.parallel == "ep":
-        raise NotImplementedError("--parallel ep is not ported yet: ROADMAP A5c "
-                                  "(expert parallelism)")
     for dest, default, item in _NOT_PORTED:
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
@@ -292,6 +315,13 @@ def _check_layout(args) -> None:
         raise ValueError("--pp-chunks applies to --parallel pp with --pp-schedule "
                          f"interleaved only (got --parallel {args.parallel}, "
                          f"--pp-schedule {args.pp_schedule})")
+    if args.ep_seq != 1 and args.parallel != "ep":
+        raise ValueError("--ep-seq (MoE x context parallelism) applies to --parallel "
+                         f"ep only (got --parallel {args.parallel})")
+    if args.ep_slots is not None and not (args.parallel == "ep"
+                                          and args.moe_impl == "grouped"):
+        raise ValueError("--ep-slots applies to --parallel ep --moe-impl grouped only "
+                         f"(got --parallel {args.parallel}, --moe-impl {args.moe_impl})")
     if args.zero1_dp and args.parallel != "3d":
         raise ValueError("--zero1-dp (ZeRO-1 x 3-D moment sharding) applies to --parallel "
                          f"3d only (got --parallel {args.parallel}); the standalone ZeRO-1 "
@@ -334,6 +364,50 @@ def _check_layout(args) -> None:
         raise ValueError("--ckpt-dir does not support the flat-vector fsdp state "
                          "(FSDPState is not a TrainState); use --parallel fsdp_pl "
                          "for checkpointable ZeRO-3")
+    if args.parallel == "ep":
+        ep_layout(args)
+
+
+def ep_layout(args) -> tuple[int, int, int]:
+    """``(dp, ep, sp)`` of ``--parallel ep`` over ``--num-nodes`` ranks,
+    after the reference's checks (``cli/lm.py:475-565``), in its words."""
+    n = args.num_nodes
+    if args.n_kv_heads is not None and (args.n_kv_heads < 1
+                                        or args.n_heads % args.n_kv_heads):
+        raise ValueError(f"--n-kv-heads {args.n_kv_heads} must be a positive divisor of "
+                         f"--n-heads {args.n_heads}")
+    if args.remat and args.remat_policy != "mlp":
+        raise ValueError("--parallel ep supports --remat-policy mlp only (the selective "
+                         "LN2+expert-MLP checkpoint); whole-block remat is not wired "
+                         "through the MoE blocks")
+    if args.n_experts < 1:
+        raise ValueError(f"--n-experts must be >= 1, got {args.n_experts}")
+    ep = math.gcd(n, args.n_experts) if args.ep is None else args.ep
+    if ep < 1 or n % ep:
+        raise ValueError(f"--ep {ep} must be a positive divisor of the device count {n}")
+    if args.n_experts % ep:
+        raise ValueError(f"--n-experts {args.n_experts} must be divisible by --ep {ep}")
+    sp = args.ep_seq
+    if sp < 1:
+        raise ValueError(f"--ep-seq must be >= 1, got {sp}")
+    if sp > 1 and args.moe_impl != "grouped":
+        raise ValueError("--ep-seq (MoE x context parallelism) requires --moe-impl "
+                         "grouped (the manual shard_map step; the GSPMD einsum step has "
+                         "no sequence axis)")
+    if n % (ep * sp):
+        raise ValueError(f"--ep {ep} x --ep-seq {sp} must divide the device count {n}")
+    dp = n // (ep * sp)
+    if args.batch_size % dp:
+        raise ValueError(f"--batch-size {args.batch_size} must be divisible by the {dp}-"
+                         "device data axis (devices/(ep*ep_seq))")
+    if args.moe_impl == "grouped" and not (n == 1 and sp == 1):
+        if args.batch_size % (dp * ep):
+            raise ValueError(f"--batch-size {args.batch_size} must be divisible by data "
+                             f"x expert = {dp * ep} (the EP-grouped step shards the batch "
+                             "over both)")
+        if sp > 1 and args.seq_len % sp:
+            raise ValueError(f"--seq-len {args.seq_len} must be divisible by --ep-seq {sp}")
+    return dp, ep, sp
 
 
 def optimizer_config(args):
@@ -350,7 +424,10 @@ def optimizer_config(args):
 
 
 def attn_impl(args) -> str:
-    """The model's attention: ``--attn`` under dp, fsdp_pl and tp; under
+    """The model's attention: ``--attn`` under dp, fsdp_pl, tp and ep (with
+    ``--ep-seq`` > 1 the ring, upgraded to ring_flash where ``--attn`` is
+    auto or flash and ``_ring_flash_wins`` holds for the chunk, the
+    reference's rule at ``cli/lm.py:549-565``); under
     fsdp ``auto`` resolved to dense (its step refuses flash), under pp and 3d
     too (the reference's pipeline blocks run flash only when asked for
     explicitly); ``ulysses`` under ulysses;
@@ -362,6 +439,14 @@ def attn_impl(args) -> str:
         return "ulysses"
     if args.parallel in ("fsdp", "pp", "3d") and args.attn == "auto":
         return "dense"
+    if args.parallel == "ep" and args.ep_seq > 1:
+        chunk = args.seq_len // args.ep_seq
+        if args.attn in ("auto", "flash") and _ring_flash_wins(chunk):
+            return "ring_flash"
+        if args.attn == "flash":
+            rank0_print(f"WARNING: per-device chunk {chunk} does not qualify for the flash "
+                        "ring kernels — falling back to the einsum ring")
+        return "ring"
     if args.parallel != "ring":
         return args.attn
     chunk = args.seq_len // args.num_nodes
@@ -415,6 +500,8 @@ def build(args, ctx: DistributedContext | None = None):
         ctx = initialize_from_flags(device=args.device)
     comm, device = ctx.comm, ctx.device
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    if args.parallel == "ep":
+        return _build_ep(args, comm, device, dtype)
     model = TransformerLM(
         vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads, compute_dtype=dtype,
@@ -535,6 +622,50 @@ def _build_model_parallel(args, comm, device, model, state):
     return step, state, place, state.model
 
 
+def _build_ep(args, comm, device, dtype):
+    """``build``'s ep branch (the reference's ``cli/lm.py:461-604``): the
+    mesh's Comms, the model built with them, the seeded state with this
+    rank's experts, and the step.  At one rank the one-device MoE step."""
+    from distributed_machine_learning_tpu_torch.models.moe import MoETransformerLM
+    from distributed_machine_learning_tpu_torch.parallel import expert_parallel as ep_mod
+    from distributed_machine_learning_tpu_torch.runtime.distributed import mesh_comms
+
+    dp, ep, sp = ep_layout(args)
+    on_device = _to_device(device)
+    shape = dict(vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
+                 n_heads=args.n_heads, n_kv_heads=args.n_kv_heads, remat=args.remat,
+                 n_experts=args.n_experts, capacity_factor=args.capacity_factor,
+                 compute_dtype=dtype, moe_impl=args.moe_impl)
+    if comm.world == 1:
+        model = MoETransformerLM(**shape, attn_impl=attn_impl(args), device=device)
+        state = ep_mod.init_moe_state(model, seed=SEED, config=optimizer_config(args))
+        step = ep_mod.make_ep_train_step(model)
+        step.params_fn = lambda st: st.params
+        return step, state, on_device, model
+    grouped = args.moe_impl == "grouped"
+    axes = {"batch": dp, "expert": ep, **({"seq": sp} if sp > 1 else {})}
+    mesh = mesh_comms(comm, axes)
+    seq = "seq" if sp > 1 else None
+    model = MoETransformerLM(
+        **shape, attn_impl=attn_impl(args), device=device, comm=mesh.get("seq"),
+        expert_comm=mesh["expert"],
+        token_comms=tuple(mesh.values()) if grouped else (mesh["batch"],),
+        ep_slots_per_owner=args.ep_slots)
+    if grouped:
+        step = ep_mod.make_ep_grouped_train_step(model, mesh, comm, seq_axis=seq)
+    else:
+        step = ep_mod.make_ep_train_step(model, mesh)
+    state = ep_mod.init_moe_state(model, seed=SEED, config=optimizer_config(args))
+    ep_mod.shard_ep_state(state, mesh["expert"])
+    step.mesh = mesh
+    step.params_fn = lambda st: ep_mod.gather_ep_params(st, mesh["expert"])
+    step.eval_model = MoETransformerLM(**shape, attn_impl="dense", device="meta")
+    model.mesh = mesh
+    place = lambda x, y: on_device(*ep_mod.shard_ep_batch(  # noqa: E731
+        x, y, mesh, grouped, seq))
+    return step, state, place, model
+
+
 def run_layout(args) -> str | None:
     """The parameter layout tag a run saves and must resume from (the
     reference's ``cli/lm.py:870-885``)."""
@@ -639,6 +770,13 @@ def resume(args, state):
 
         state = load_tp_state(state, restore_checkpoint(latest, files_verified=True),
                               state.model.mesh["model"])
+    elif args.parallel == "ep" and hasattr(state.model, "mesh"):
+        from distributed_machine_learning_tpu_torch.parallel.expert_parallel import (
+            load_ep_state,
+        )
+
+        state = load_ep_state(state, restore_checkpoint(latest, files_verified=True),
+                              state.model.mesh["expert"])
     elif args.parallel in ("pp", "3d"):
         from distributed_machine_learning_tpu_torch.parallel.pipeline import (
             load_pipeline_state,
@@ -708,6 +846,12 @@ def run(args, ctx: DistributedContext):
             elif args.parallel in ("tp", "pp", "3d"):
                 path = save_checkpoint(args.ckpt_dir, gather_state(args, step, s),
                                        layout=run_layout(args))
+            elif args.parallel == "ep" and hasattr(step, "mesh"):  # experts gathered
+                from distributed_machine_learning_tpu_torch.parallel.expert_parallel import (
+                    gather_ep_state,
+                )
+
+                path = save_checkpoint(args.ckpt_dir, gather_ep_state(s, step.mesh["expert"]))
             else:
                 path = save_checkpoint(args.ckpt_dir, s)
             rank0_print(f"Saved checkpoint to {path}")

@@ -325,5 +325,5 @@ def ring_wire_bytes_by_axis(n_elems: int, axis_size: int,
                             bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                             scheme: WireScheme | None = None, itemsize: int = 4) -> dict:
     """Per-axis split of :func:`ring_wire_bytes`: the flat ring only
-    (``{"flat": total}``); topologies are ROADMAP A5."""
+    (``{"flat": total}``); topologies are ROADMAP A5c."""
     return {"flat": ring_wire_bytes(n_elems, axis_size, bucket_bytes, scheme, itemsize)}

@@ -21,31 +21,12 @@ from __future__ import annotations
 
 import torch
 
+from distributed_machine_learning_tpu_torch.ops.collectives import all_to_all as _all_to_all
 from distributed_machine_learning_tpu_torch.ops.flash_attention import (
     flash_self_attention,
     flash_wins,
 )
 from distributed_machine_learning_tpu_torch.ops.ring_attention import dense_self_attention
-
-
-class _AllToAll(torch.autograd.Function):
-    """``comm.all_to_all(t, split_dim, concat_dim)`` as an autograd node; its
-    backward is the inverse all-to-all (split the gradient on
-    ``concat_dim``, concatenate on ``split_dim``)."""
-
-    @staticmethod
-    def forward(ctx, t, comm, split_dim: int, concat_dim: int):
-        ctx.comm, ctx.dims = comm, (split_dim, concat_dim)
-        return comm.all_to_all(t, split_dim, concat_dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        split_dim, concat_dim = ctx.dims
-        return ctx.comm.all_to_all(g.contiguous(), concat_dim, split_dim), None, None, None
-
-
-def _all_to_all(t, comm, split_dim: int, concat_dim: int) -> torch.Tensor:
-    return _AllToAll.apply(t, comm, split_dim, concat_dim)
 
 
 def ulysses_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, comm,

@@ -77,6 +77,34 @@ def shard_state(state, comm, spec_for: SpecFor) -> dict:
     return specs
 
 
+def gathered_host_state(state, gather_tree: Callable):
+    """The whole state as a dp-layout ``HostState`` (what a tp or ep run
+    saves): ``gather_tree(tree)`` gives the whole leaves of a params-shaped
+    dict of this rank's parts, on the host.  Every rank must call it."""
+    from distributed_machine_learning_tpu_torch.train.checkpoint import HostState
+
+    params = gather_tree(state.params)
+    trees = [gather_tree(t) for t in moment_trees(state.momentum, state.params)]
+    momentum = trees[0] if len(trees) == 1 else dict(zip(state.momentum, trees))
+    return HostState(params=params, momentum=momentum, batch_stats={}, step=int(state.step),
+                     config=state.config)
+
+
+@torch.no_grad()
+def load_host_state(state, host, local: Callable):
+    """A dp-layout ``HostState`` (a restored checkpoint) into a sharded
+    state, in place: ``local(name, whole)`` is this rank's part of each
+    leaf and moment; then the step counter."""
+    for name, p in state.params.items():
+        p.copy_(local(name, host.params[name]))
+    for mine, saved in zip(moment_trees(state.momentum, state.params),
+                           moment_trees(host.momentum, host.params)):
+        for name, t in mine.items():
+            t.copy_(local(name, saved[name]))
+    state.step = int(host.step)
+    return state
+
+
 def gather_dim(block: torch.Tensor, dim: int, comm) -> torch.Tensor:
     """Every rank's ``block`` concatenated along ``dim`` in rank order (one
     ``all_gather_flat``)."""

@@ -115,7 +115,8 @@ class RingAllReduce(SyncStrategy):
     into the next step's gradient (EF-SGD), which makes the strategy
     stateful; ``codec_impl="pallas"`` runs the int8 codec through the
     hand-written kernels K8-K10 (bitwise equal to ``"xla"``, their plain
-    versions).  ``topology`` (the hierarchical plan) is ROADMAP A5.  (The
+    versions).  ``topology`` (the hierarchical plan) is ROADMAP A5c
+    (``ops/topology.py``).  (The
     deprecated ``--wire-dtype bfloat16`` becomes ``compress="bf16"`` in the
     CLI.)
     """
@@ -140,7 +141,7 @@ class RingAllReduce(SyncStrategy):
             raise ValueError(f"topk_frac must be in (0, 1], got {self.topk_frac}")
         if self.topology is not None:
             raise NotImplementedError(
-                "--ring-topology is not ported yet: ROADMAP A5 (ops/topology.py, "
+                "--ring-topology is not ported yet: ROADMAP A5c (ops/topology.py, "
                 "the hierarchical ring)")
 
     def scheme(self):

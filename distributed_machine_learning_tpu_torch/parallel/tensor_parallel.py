@@ -50,7 +50,11 @@ from __future__ import annotations
 
 import torch
 
-from distributed_machine_learning_tpu_torch.parallel.gspmd import moment_trees
+from distributed_machine_learning_tpu_torch.parallel.gspmd import (
+    gathered_host_state,
+    load_host_state,
+    moment_trees,
+)
 from distributed_machine_learning_tpu_torch.train.optimizers import update_fn_for_config
 from distributed_machine_learning_tpu_torch.train.state import TrainState
 
@@ -250,31 +254,16 @@ def gather_tp_params(state, comm) -> dict:
 def gather_tp_state(state, comm):
     """The whole state as a dp-layout ``HostState`` of CPU tensors (what a
     tp run saves: a dp run's files).  Every rank must call it."""
-    from distributed_machine_learning_tpu_torch.train.checkpoint import HostState
-
     embed = state.model.vocab_parallel == "both"
-    params = gather_tp_tree(state.params, comm, embed, to_cpu=True)
-    trees = [gather_tp_tree(t, comm, embed, to_cpu=True)
-             for t in moment_trees(state.momentum, state.params)]
-    momentum = trees[0] if len(trees) == 1 else dict(zip(state.momentum, trees))
-    return HostState(params=params, momentum=momentum, batch_stats={}, step=int(state.step),
-                     config=state.config)
+    return gathered_host_state(state, lambda t: gather_tp_tree(t, comm, embed, to_cpu=True))
 
 
-@torch.no_grad()
 def load_tp_state(state, host, comm):
     """A dp-layout ``HostState`` (a restored checkpoint) into a TP state, in
     place: this rank's slice of every leaf and moment, the step counter."""
     embed = state.model.vocab_parallel == "both"
-    for name, p in state.params.items():
-        p.copy_(tp_shard_params({name: host.params[name]}, comm.world, comm.rank,
-                                embed)[name])
-    for mine, saved in zip(moment_trees(state.momentum, state.params),
-                           moment_trees(host.momentum, host.params)):
-        for name, t in mine.items():
-            t.copy_(tp_shard_params({name: saved[name]}, comm.world, comm.rank, embed)[name])
-    state.step = int(host.step)
-    return state
+    return load_host_state(state, host, lambda name, t: tp_shard_params(
+        {name: t}, comm.world, comm.rank, embed)[name])
 
 
 class _VocabParallelCE(torch.autograd.Function):

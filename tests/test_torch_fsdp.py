@@ -18,7 +18,8 @@ BatchNorm, SGD, augmentation off) against the reference's at W 2, its
 overlap run, a prefetch miss after a rebound state and one after a save
 and a restore of the rank's blocks each bit for bit the sync run.  The
 CLI's refusals; ``--parallel fsdp_pl`` runs (``tests/test_torch_fsdp_pl.py``
-holds it against the reference) and expert parallelism names A5c.
+holds it against the reference) and so does expert parallelism
+(``tests/test_torch_ep.py`` holds it).
 """
 
 import functools
@@ -180,13 +181,12 @@ def test_cli_refusals_read_as_the_reference(capsys):
     assert cli_lm.attn_impl(_args()) == "dense"  # auto resolves to dense
     # fsdp_pl runs (a one-rank run here; tests/test_torch_fsdp_pl.py holds it
     # at W 2 against the reference); tp, pp and 3d run (their own test files);
-    # expert parallelism still names A5c.
-    cli_lm.main(["--device", "cpu", "--parallel", "fsdp_pl", "--d-model", "32",
-                 "--n-layers", "1", "--n-heads", "2", "--seq-len", "16", "--batch-size", "2",
-                 "--max-iters", "1"])
-    assert "lm parallel=fsdp_pl" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-        cli_lm.main(["--device", "cpu", "--parallel", "ep"])
+    # so does expert parallelism (tests/test_torch_ep.py).
+    for parallel in ("fsdp_pl", "ep"):
+        cli_lm.main(["--device", "cpu", "--parallel", parallel, "--d-model", "32",
+                     "--n-layers", "1", "--n-heads", "2", "--seq-len", "16",
+                     "--batch-size", "2", "--max-iters", "1"])
+        assert f"lm parallel={parallel}" in capsys.readouterr().out
 
 
 # -- the CNN step (make_fsdp_train_step), against tests/test_fsdp.py --------------------

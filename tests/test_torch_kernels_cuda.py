@@ -1467,3 +1467,71 @@ def test_model_parallel_paths_on_the_card(cuda):
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert launches[name] == 2 * 2 * 2, (scheme, name, launches)
         assert launches["fused_adamw"] == 2 * sum(1 for _ in model.parameters()), scheme
+
+
+EP_FLAGS = ["--parallel", "ep", "--moe-impl", "grouped", "--ep", "2", "--ep-seq", "2",
+            "--n-experts", "4", "--d-model", "128", "--n-layers", "2", "--n-heads", "4",
+            "--n-kv-heads", "2", "--vocab", "512", "--seq-len", "2048", "--batch-size", "2",
+            "--compute-dtype", "bfloat16", "--fused-update", "--attn", "flash",
+            "--max-iters", "2"]
+
+
+def _ep_rank(rank, world, init_method):
+    """``cli.lm --parallel ep --moe-impl grouped --ep-seq 2`` in 4 ranks
+    sharing the card (dp 1 x ep 2 x seq 2, chunk 1024: ring_flash), then one
+    more K7 update of this rank's block of the first ``w_in`` (its 2 of the
+    4 experts, with the moments the run left) against the plain version."""
+    from distributed_machine_learning_tpu_torch.cli import lm
+    from distributed_machine_learning_tpu_torch.runtime.distributed import (
+        initialize_from_flags,
+    )
+
+    ctx = initialize_from_flags(rank=rank, num_nodes=world, init_method=init_method,
+                                timeout_s=120)
+    try:
+        args = lm.make_parser().parse_args([*EP_FLAGS, "--num-nodes", str(world),
+                                            "--rank", str(rank)])
+        step, state, place, model = lm.build(args, ctx)
+        build.reset_launch_counts()
+        losses = [float(step(state, *place(a, b))[1]) for a, b in lm.synthetic_batches(args)]
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        name = "blocks.0.moe.w_in"
+        p, mu, nu = (state.params[name].detach(), state.momentum["mu"][name],
+                     state.momentum["nu"][name])
+        g = 1e-3 * torch.randn(p.shape, device=p.device,
+                               generator=torch.Generator(p.device).manual_seed(rank))
+        got = [t.clone() for t in (p, mu, nu, g)]
+        want = [t.clone() for t in (p, mu, nu, g)]
+        hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+        scalars = (3e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)
+        fadam.fused_adamw_leaf(*got, *scalars, **hyper)
+        torch.cuda.synchronize()
+        fadam.fused_adamw_reference(*want, *scalars, **hyper)
+        terms = ([p], [0.9 * mu, 0.1 * g], [0.999 * nu, 0.001 * g * g])
+        ulps = [_ulp_err(got[i], want[i], *terms[i]) for i in range(3)]
+        return (losses, launches, sum(1 for _ in model.parameters()), model.attn_impl,
+                step.mesh["seq"].rank, tuple(p.shape), ulps)
+    finally:
+        ctx.shutdown()
+
+
+def test_expert_parallel_paths_on_the_card(cuda):
+    """In 4 ranks sharing the card, ``--parallel ep --moe-impl grouped
+    --ep-seq 2``: the ring flash kernels K11-K13 n_layers x (seq rank + 1) a
+    step, K1-K3 never (the sequence is sharded), K7 once a local leaf a step
+    (each rank's expert leaves its 2 of 4 experts), losses finite and equal
+    on every rank; K7 on an expert shard within 8 ulp of the plain
+    version."""
+    from distributed_machine_learning_tpu_torch.runtime.launch import spawn
+
+    ranks = spawn(_ep_rank, 4, timeout_s=600)
+    for losses, launches, leaves, attn, seq_rank, shard, ulps in ranks:
+        assert attn == "ring_flash" and shard == (2, 128, 512)
+        assert all(math.isfinite(v) for v in losses) and losses == ranks[0][0]
+        assert launches["fused_adamw"] == leaves * 2
+        for name in ("ring_flash_fwd", "ring_flash_dq", "ring_flash_dkv"):
+            assert launches[name] == 2 * (seq_rank + 1) * 2, (name, launches)
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches.get(name, 0) == 0, (name, launches)
+        assert max(ulps) <= ADAMW_ULP_TOL, ulps

@@ -133,7 +133,9 @@ def test_attention_upgrade_rule(capsys):
 
 def test_cli_refusals():
     for flags, exc, match in (
-            (["--parallel", "ep"], NotImplementedError, "ROADMAP A5c"),
+            (["--parallel", "ep", "--num-nodes", "4", "--ep", "2", "--ep-seq", "2",
+              "--moe-impl", "grouped", "--batch-size", "2", "--seq-len", "129"], ValueError,
+             "--seq-len 129 must be divisible by --ep-seq 2"),
             (["--parallel", "ring", "--num-nodes", "2", "--seq-len", "129"], ValueError,
              "--seq-len 129 must be divisible by the 2-device sequence axis"),
             (["--num-nodes", "2", "--batch-size", "3"], ValueError,

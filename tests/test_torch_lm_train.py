@@ -230,13 +230,19 @@ def test_cli_prints_the_protocol_lines(capsys):
 def test_cli_refuses_without_a_card_and_names_what_is_not_ported():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_lm.main(["--max-iters", "1"])
-    # Model parallelism runs (tests/test_torch_tp_train.py, test_torch_pipeline.py,
-    # test_torch_parallel3d.py); expert parallelism and its flags still raise.
-    for flags, item in ((["--parallel", "ep"], "A5c"), (["--n-experts", "4"], "A5c"),
-                        (["--telemetry-dir", "x"], "A6"), (["--ep", "2"], "A5c"),
-                        (["--ep-seq", "2"], "A5c"), (["--moe-impl", "grouped"], "A5c")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            cli_lm.main(["--device", "cpu", *flags])
+    # Telemetry still raises; expert parallelism and its flags parse and build
+    # on the CPU (their trajectories: tests/test_torch_ep.py).
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        cli_lm.main(["--device", "cpu", "--telemetry-dir", "x"])
+    tiny = ["--device", "cpu", "--d-model", "32", "--n-layers", "1", "--n-heads", "2",
+            "--vocab", "64", "--seq-len", "16", "--batch-size", "2", "--parallel", "ep"]
+    for flags in ([], ["--n-experts", "4"], ["--ep", "1"], ["--ep-seq", "1"],
+                  ["--moe-impl", "grouped"]):
+        args = cli_lm.make_parser().parse_args([*tiny, *flags])
+        step, state, place, model = cli_lm.build(args)
+        assert model.n_experts == args.n_experts and model.moe_impl == args.moe_impl
+        x, y = place(*next(cli_lm.synthetic_batches(args, count=1)))
+        assert torch.isfinite(step(state, x, y)[1]) and state.step == 1
 
 
 def test_trainer_imports_no_jax():

@@ -243,15 +243,26 @@ def test_moe_speculative_with_int8_target():
 
 
 def test_moe_init_and_refusals():
-    """init_params fills the router and the experts; expert parallelism and
-    MoE × context parallelism name ROADMAP A5c."""
+    """init_params fills the router and the experts; the expert-parallel
+    fields (the reference's expert_axis and token_axes, here Comms) and MoE
+    × context parallelism construct (their steps: tests/test_torch_ep.py);
+    a sequence-sharded attention without its Comm among the token Comms
+    raises as the reference does."""
+    from distributed_machine_learning_tpu_torch.runtime.distributed import Comm
+
     model = MoETransformerLM(**SHAPE, n_experts=4, device="cpu")
     init_params(model, seed=0)
     assert model.blocks[1].moe.w_out.std() > 0 and model.blocks[1].moe.router.weight.std() > 0
     assert not model.blocks[1].moe.b_in.any()
-    for kw in ({"expert_axis": "expert"}, {"token_axes": ("batch",)},
-               {"attn_impl": "ring"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-            MoETransformerLM(**SHAPE, n_experts=4, device="cpu", **kw)
+    seq = Comm(0, 2)
+    for kw in ({"expert_comm": Comm(0, 2)}, {"token_comms": (Comm(0, 2),)},
+               {"attn_impl": "ring", "comm": seq, "token_comms": (seq,)}):
+        built = MoETransformerLM(**SHAPE, n_experts=4, device="cpu", **kw)
+        moe = built.blocks[0].moe
+        assert moe.expert_comm is kw.get("expert_comm")
+        assert moe.token_comms == kw.get("token_comms", ())
+        assert built.attn_impl == kw.get("attn_impl", "dense")
+    with pytest.raises(NotImplementedError, match="the sequence-sharded impls "):
+        MoETransformerLM(**SHAPE, n_experts=4, device="cpu", attn_impl="ring")
     with pytest.raises(ValueError, match="moe_impl"):
         MoETransformerLM(**SHAPE, n_experts=4, device="cpu", moe_impl="dense")

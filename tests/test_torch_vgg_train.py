@@ -229,6 +229,11 @@ def test_cli_refusals():
                         (["--ring-topology", "2x1"], "A5c")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tpart3.main(["--device", "cpu", *flags])
+    # The strategy itself, past the CLI's refusal, names the same item.
+    from distributed_machine_learning_tpu_torch.parallel.strategies import RingAllReduce
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A5c "):
+        RingAllReduce(topology="2x1")
     with pytest.raises(ValueError, match="single-process"):
         tcommon.run_part("none", 4, False, tcommon.parse_flags(
             tcommon.make_flag_parser(""), ["--device", "cpu", "--num-nodes", "2"]))
